@@ -1,10 +1,13 @@
 """Ray-scene intersection front end (port of the reference's
-accel/traverse.py for scenes below 16384 triangles).
+accel/traverse.py).
 
 ``intersect_brute`` / ``occluded_brute`` are the dense all-triangle oracle
 and the plain versions of the ``intersect_tiled`` kernel; ``intersect_pallas``
 / ``occluded_pallas`` go through that kernel's wrapper (the CUDA kernel on
-the card).  The BVH traversal is ROADMAP Queue 1 item 4.
+the card).  Scenes of 16384 triangles or more go through
+``intersect_pairs_full`` / ``occluded_pairs_full``: the pair pipeline with
+the blocklist kernel re-tracing its unproven rays.  The BVH traversal is
+ROADMAP Queue 1 item 4.
 """
 from __future__ import annotations
 
@@ -12,13 +15,18 @@ from typing import NamedTuple
 
 import torch
 
+from mitsuba_path_guiding_torch.ops.intersect_blocklist import (
+    intersect_blocklist_raw,
+    occluded_blocklist_raw,
+)
+from mitsuba_path_guiding_torch.ops.intersect_pairs import intersect_pairs_raw
 from mitsuba_path_guiding_torch.ops.intersect_tiled import (
     any_plain,
     closest_plain,
     intersect_tiled,
     pack_triangles,
 )
-from mitsuba_path_guiding_torch.scene.types import Geometry
+from mitsuba_path_guiding_torch.scene.types import BlockList, Geometry, PairTable
 
 INF = 3.0e38
 EPS_T = 1e-4  # min ray t (self-intersection offset)
@@ -64,3 +72,42 @@ def occluded_pallas(geo: Geometry, o, d, tmax, pack=None) -> torch.Tensor:
     """Any-hit visibility through the tiled intersector's wrapper."""
     pack = tri_pack_rows(geo) if pack is None else pack
     return intersect_tiled(pack, o, d, tmax, geo.p0.shape[0], any_hit=True)
+
+
+def _retrace(proven):
+    """Indices of the unproven rays, ascending (one host read: the blocklist
+    call is sized by their count)."""
+    return torch.nonzero(~proven).flatten()
+
+
+def intersect_pairs_full(pairs: PairTable, blocks: BlockList, o, d, tmax=None, cap_factor=None,
+                         engine: str = "mt") -> Hit:
+    """Closest hit through the pair pipeline (ops/intersect_pairs.py), with
+    the blocklist kernel re-tracing, in one launch, every ray whose
+    nearest-L list was not proven complete.  The reference re-traces at
+    most max(4096, N >> 4) of them and lets the rest keep their pair result,
+    which can be a farther hit than the true one: on the lower half of
+    door_room() at 512x512 (131072 camera rays, tools/pair_fallback_shortfall.py)
+    26262 rays are unproven and 9851 of the 18070 beyond that cap keep a
+    wrong hit."""
+    tmax = _full_tmax(o, tmax)
+    t, prim, u, v, valid, proven = intersect_pairs_raw(pairs, o, d, tmax, cap_factor=cap_factor,
+                                                       engine=engine)
+    idx = _retrace(proven)
+    if idx.numel():
+        hit = intersect_blocklist_raw(blocks, o[idx], d[idx], tmax[idx])
+        for dst, src in zip((t, prim, u, v, valid), hit):
+            dst[idx] = src
+    return Hit(t=t, prim=prim, u=u, v=v, valid=valid)
+
+
+def occluded_pairs_full(pairs: PairTable, blocks: BlockList, o, d, tmax, cap_factor=None,
+                        engine: str = "mt") -> torch.Tensor:
+    """Any-hit visibility through the pair pipeline, with the blocklist
+    kernel re-tracing every unproven ray."""
+    occ, proven = intersect_pairs_raw(pairs, o, d, tmax, any_hit=True, cap_factor=cap_factor,
+                                      engine=engine)
+    idx = _retrace(proven)
+    if idx.numel():
+        occ[idx] = occluded_blocklist_raw(blocks, o[idx], d[idx], tmax[idx])
+    return occ

@@ -3,8 +3,9 @@
 The JAX package's ``SceneData`` and ``GuidingGrid`` reach this module as
 plain dictionaries of numpy arrays (nested containers as nested
 dictionaries, ``None`` fields kept), so the same compiled scene and the
-same trained grid can be fed to both packages.  The reference's BVH is
-dropped: the port does not traverse one yet (ROADMAP Queue 1 item 4).
+same trained grid can be fed to both packages.  The BVH, blocklist and
+pair tables come across too (the port builds its big-scene intersectors'
+tables from them; it does not traverse the BVH, ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -14,10 +15,13 @@ import torch
 from mitsuba_path_guiding_torch.core.device import resolve_device
 from mitsuba_path_guiding_torch.guiding.grid import GuidingGrid
 from mitsuba_path_guiding_torch.scene.types import (
+    BVH,
+    BlockList,
     Emitters,
     Geometry,
     Materials,
     MediumData,
+    PairTable,
     SceneData,
     Sensor,
 )
@@ -49,12 +53,14 @@ def _fill(cls, d: dict, dev, host: tuple = ()):
     return cls(**kw)
 
 
+def _tables(cls, d, dev, host=()):
+    # tblT arrives as bfloat16 (ml_dtypes), which float32 holds exactly
+    return None if d is None else _fill(cls, d, dev, host=host)
+
+
 def scene_from_numpy(d: dict, device=None) -> SceneData:
     """SceneData on ``device`` from the reference scene's numpy arrays."""
     dev = resolve_device(device)
-    if d.get("blocks") is not None or d.get("pairs") is not None:
-        raise NotImplementedError(
-            "pair / blocklist tables (scenes above 16384 triangles): ROADMAP Queue 2")
     med = d.get("medium")
     medium = None
     if med is not None:
@@ -62,7 +68,7 @@ def scene_from_numpy(d: dict, device=None) -> SceneData:
                        host=("enabled", "heterogeneous", "phase_kind"))
     return SceneData(
         geo=_fill(Geometry, d["geo"], dev),
-        bvh=None,
+        bvh=_tables(BVH, d.get("bvh"), dev, host=("max_depth",)),
         mats=_fill(Materials, d["mats"], dev),
         emitters=_fill(Emitters, d["emitters"], dev),
         sensor=_fill(Sensor, d["sensor"], dev, host=("kind",)),
@@ -72,6 +78,8 @@ def scene_from_numpy(d: dict, device=None) -> SceneData:
         textures=_tensor(d["textures"], dev),
         texture_sizes=_tensor(d["texture_sizes"], dev),
         sss_packed=_tensor(d.get("sss_packed"), dev),
+        blocks=_tables(BlockList, d.get("blocks"), dev, host=("n_blocks",)),
+        pairs=_tables(PairTable, d.get("pairs"), dev),
     )
 
 

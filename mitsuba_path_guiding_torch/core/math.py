@@ -75,6 +75,25 @@ def cos_theta(v):
     return v[..., 2]
 
 
+def fresnel_conductor(cos_i: torch.Tensor, eta: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Unpolarised conductor Fresnel per channel (the reference's
+    fresnelConductorExact form).  cos_i (...,), eta/k (..., 3) -> (..., 3)."""
+    ci = torch.clamp(torch.abs(cos_i), 0.0, 1.0)[..., None]
+    ci2 = ci * ci
+    si2 = 1.0 - ci2
+    eta2, k2 = eta * eta, k * k
+    t0 = eta2 - k2 - si2
+    a2b2 = safe_sqrt(t0 * t0 + 4.0 * eta2 * k2)
+    t1 = a2b2 + ci2
+    a = safe_sqrt(0.5 * (a2b2 + t0))
+    t2 = 2.0 * a * ci
+    rs = (t1 - t2) / torch.clamp_min(t1 + t2, 1e-12)
+    t3 = ci2 * a2b2 + si2 * si2
+    t4 = t2 * si2
+    rp = rs * (t3 - t4) / torch.clamp_min(t3 + t4, 1e-12)
+    return 0.5 * (rp + rs)
+
+
 def power_heuristic(pdf_a: torch.Tensor, pdf_b: torch.Tensor) -> torch.Tensor:
     """Power heuristic (beta=2) MIS weight for strategy a."""
     a2 = pdf_a * pdf_a

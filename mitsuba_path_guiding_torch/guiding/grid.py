@@ -45,14 +45,46 @@ class GuidingGrid(NamedTuple):
     alpha_scale: torch.Tensor = None
 
 
+# XLA's float32 erf_inv (Giles' single-precision polynomial): Horner
+# coefficients in w = -log1p(-x^2) - 2.5 below w = 5, and in
+# sqrt(w) - 3 from there on
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c of float32 tensors rounded once, as a fused multiply-add
+    (XLA on the CPU contracts these steps): the product is exact in
+    float64."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _erfinv32(x: torch.Tensor) -> torch.Tensor:
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, _ERFINV_LT5[i], _ERFINV_GE5[i])
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = _fma32(p, w, coef(i))
+    return torch.where(torch.abs(x) == 1.0, x * torch.finfo(torch.float32).max, p * x)
+
+
 def _normal_bits_to_float(bits: torch.Tensor) -> torch.Tensor:
     """jax.random.normal's transform of uint32 bits: a uniform in
-    (-1, 1) -> sqrt(2) erfinv(u).  erfinv runs in float64 and rounds to
-    float32, so it may differ from XLA's float32 polynomial by an ulp."""
+    (-1, 1) -> sqrt(2) erfinv(u), in XLA's float32 arithmetic (its
+    erf_inv polynomial, its contracted multiply-adds); log1p may still
+    differ from XLA's by an ulp."""
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
     f = rng.bits_to_unit(bits)
-    u = torch.clamp_min(f * (np.float32(1.0) - lo) + lo, float(lo))
-    return (math.sqrt(2.0) * torch.erfinv(u.double())).float()
+    u = torch.clamp_min(_fma32(f, torch.full_like(f, float(np.float32(1.0) - lo)),
+                               torch.full_like(f, float(lo))), float(lo))
+    return _erfinv32(u) * float(np.float32(math.sqrt(2.0)))
 
 
 def make_grid(aabb_min, aabb_max, res: int = 16, n_lobes: int = 8, seed: int = 0,

@@ -7,14 +7,17 @@ guided sampling, RR} runs on the whole wavefront.  Per hit, the shading
 row and the emitter row are fetched through ``ops.gather.gather_rows_t``
 and the material row once per bounce through ``bsdf.gather_params``
 (reused by NEE evaluation, sampling and the albedo AOV).  Intersection
-goes through ``accel.traverse.intersect_pallas`` / ``occluded_pallas``
-(the ``intersect_tiled`` kernel on the card) unless ``accel="brute"``
-asks for the dense oracle.
+goes, for a scene with pair tables (16384 triangles or more), through
+``accel.traverse.intersect_pairs_full`` / ``occluded_pairs_full`` (the
+pair and blocklist kernels on the card) with the reference's constants
+below; otherwise through ``intersect_pallas`` / ``occluded_pallas`` (the
+``intersect_tiled`` kernel on the card) unless ``accel="brute"`` asks for
+the dense oracle.
 
-Not ported here (they raise): the BVH (``use_bvh=True``, ROADMAP Queue 1
-item 4), textures, bump maps and cloth, explicit ``uniforms`` and
-transparent shadows (Queue 1 items 5 and 9), and scenes above 16384
-triangles (Queue 2).
+Not ported here (they raise): BVH traversal (``use_bvh=True`` or
+``accel="bvh"`` on a scene without pair tables, ROADMAP Queue 1 item 4),
+textures, bump maps and cloth, explicit ``uniforms`` and transparent
+shadows (Queue 1 items 5 and 9).
 """
 from __future__ import annotations
 
@@ -24,8 +27,10 @@ import torch
 
 from mitsuba_path_guiding_torch.accel.traverse import (
     intersect_brute,
+    intersect_pairs_full,
     intersect_pallas,
     occluded_brute,
+    occluded_pairs_full,
     occluded_pallas,
     tri_pack_rows,
 )
@@ -38,6 +43,11 @@ from mitsuba_path_guiding_torch.ops.gather import gather_rows_t
 from mitsuba_path_guiding_torch.scene.types import SceneData
 
 INFD = 3.0e37
+
+# Pair-route constants, the reference's defaults: pair compaction budget
+# (cap*N + dummies sorted pairs run) and the tile engine ("mt" or "plk").
+PAIR_CAP = 5
+PAIR_ENGINE = "mt"
 
 
 class PathAux(NamedTuple):
@@ -68,11 +78,11 @@ def _offset_ray(p, ng, d):
     return p + ng * s * 1e-4
 
 
-def _check_supported(use_bvh, accel, textured, bumped, clothed, uniforms, cone_angle):
-    if use_bvh or accel in ("bvh", "twolevel"):
-        raise NotImplementedError("BVH / two-level traversal: ROADMAP Queue 1 item 4 and Queue 2")
-    if accel not in ("auto", "pallas", "brute"):
+def _check_supported(scene, use_bvh, accel, textured, bumped, clothed, uniforms, cone_angle):
+    if accel not in ("auto", "pallas", "brute", "bvh", "twolevel"):
         raise ValueError(f"unknown accel '{accel}'")
+    if scene.pairs is None and (use_bvh or accel in ("bvh", "twolevel")):
+        raise NotImplementedError("BVH traversal: ROADMAP Queue 1 item 4")
     if textured or bumped or clothed or cone_angle > 0.0:
         raise NotImplementedError("textures, bump maps and cloth: ROADMAP Queue 1 item 9")
     if uniforms is not None:
@@ -102,16 +112,27 @@ def trace(
 ):
     """Trace one wavefront to completion.
 
-    Returns (L (N, 3), PathAux, PathRecord | None).  ``accel``: "auto" and
-    "pallas" take the tiled intersector (the CUDA kernel on the card, its
-    plain version on the CPU); "brute" the dense oracle."""
-    _check_supported(use_bvh, accel, textured, bumped, clothed, uniforms, cone_angle)
+    Returns (L (N, 3), PathAux, PathRecord | None).  A scene with pair
+    tables (16384 triangles or more) takes the pair route unless ``accel``
+    is "brute" or "pallas": every closest-hit and shadow query goes
+    through the pair pipeline and the blocklist fallback (their kernels on
+    the card, their plain versions on the CPU).  Otherwise "auto" and
+    "pallas" take the tiled intersector; "brute" the dense oracle."""
+    _check_supported(scene, use_bvh, accel, textured, bumped, clothed, uniforms, cone_angle)
     bsdf_mod.check_types(mat_types)
     em_mod.check_kinds(em_kinds)
     n = ray_o.shape[0]
     dev = ray_o.device
     geo, mats, em = scene.geo, scene.mats, scene.emitters
-    if accel == "brute":
+    if scene.pairs is not None and accel in ("auto", "bvh", "twolevel"):
+        kw = dict(cap_factor=PAIR_CAP, engine=PAIR_ENGINE)
+
+        def intersect(o, d, tmax):
+            return intersect_pairs_full(scene.pairs, scene.blocks, o, d, tmax, **kw)
+
+        def occluded(o, d, tmax):
+            return occluded_pairs_full(scene.pairs, scene.blocks, o, d, tmax, **kw)
+    elif accel == "brute":
         def intersect(o, d, tmax):
             return intersect_brute(geo, o, d, tmax)
 

@@ -1,9 +1,11 @@
 """Scene compiler: dict scene description -> flat SceneData tensors.
 
-Port of the reference's scene/builder.py ``build_scene`` for this slice's
+Port of the reference's scene/builder.py ``build_scene`` for the port's
 subset: triangle shapes (with shape groups and instances flattened),
-``diffuse`` materials, ``area`` emitters on shapes and the perspective
-pinhole sensor.  The arrays are computed host-side in numpy with the
+``diffuse`` and ``roughconductor`` materials, ``area`` emitters on shapes
+and the perspective pinhole sensor.  From 16384 triangles on the scene
+also carries its BVH and the blocklist and pair tables of the big-scene
+intersectors.  The arrays are computed host-side in numpy with the
 reference's exact arithmetic, so a compiled scene is equal to the JAX
 build array for array.  Anything else raises ``NotImplementedError``
 naming the ROADMAP item that brings it.
@@ -13,6 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mitsuba_path_guiding_torch.accel.blocks import build_blocklist
+from mitsuba_path_guiding_torch.accel.bvh import build_bvh, to_device
+from mitsuba_path_guiding_torch.accel.pairs import build_pair_table
 from mitsuba_path_guiding_torch.core.device import resolve_device
 from mitsuba_path_guiding_torch.core.spectrum import LUM_WEIGHTS_NP
 from mitsuba_path_guiding_torch.scene.shapes import SHAPE_BUILDERS
@@ -29,10 +34,21 @@ from mitsuba_path_guiding_torch.scene.types import (
     SensorKind,
 )
 
-# Above this triangle count the reference builds pair and blocklist
-# tables for its big-scene intersectors, which this port has not yet.
+# From this triangle count on, the scene carries the BVH and the pair and
+# blocklist tables of the big-scene intersectors, as in the reference.
 TWOLEVEL_MIN_TRIS = 16384
 N_COS = 16  # rough-coating transmittance table width (all zero here)
+
+_BSDF_TYPES = {"diffuse": BSDFType.DIFFUSE, "roughconductor": BSDFType.ROUGH_CONDUCTOR}
+
+# named conductor IOR presets (the reference's, RGB-averaged)
+_CONDUCTOR_IOR = {
+    "Au": ([0.143, 0.375, 1.442], [3.983, 2.386, 1.603]),
+    "Ag": ([0.155, 0.116, 0.138], [4.828, 3.122, 2.146]),
+    "Al": ([1.345, 0.965, 0.617], [7.475, 6.400, 5.303]),
+    "Cu": ([0.201, 0.924, 1.102], [3.910, 2.448, 2.168]),
+    "none": ([0.0, 0.0, 0.0], [1.0, 1.0, 1.0]),  # perfect mirror
+}
 
 
 def _not_ported(what: str, item: str):
@@ -47,14 +63,15 @@ def _rgb(x, default):
 
 
 def _compile_bsdf(spec: dict) -> dict:
-    """One material row; only the diffuse family is ported."""
+    """One material row; the diffuse and rough-conductor families are
+    ported."""
     t = spec.get("type", "diffuse")
-    if t != "diffuse":
+    if t not in _BSDF_TYPES:
         _not_ported(f"bsdf type '{t}'", "Queue 1 item 5 (other BSDF families)")
     if spec.get("texture") is not None:
         _not_ported("textured reflectance", "Queue 1 item 9 (textures)")
-    return {
-        "type": BSDFType.DIFFUSE,
+    row = {
+        "type": _BSDF_TYPES[t],
         "reflectance": _rgb(spec.get("reflectance", spec.get("diffuse_reflectance")), [0.5, 0.5, 0.5]),
         "specular": _rgb(spec.get("specular_reflectance"), [1.0, 1.0, 1.0]),
         "eta": _rgb(spec.get("eta"), [1.5, 1.5, 1.5]),
@@ -68,6 +85,12 @@ def _compile_bsdf(spec: dict) -> dict:
         "bump_tex_id": -1,
         "bump_scale": 1.0,
     }
+    if t == "roughconductor":
+        mat = spec.get("material", None)
+        if mat is not None or "eta" not in spec:
+            eta, k = _CONDUCTOR_IOR[mat or "none"]
+            row["eta"], row["k"] = np.array(eta), np.array(k)
+    return row
 
 
 def _to_world(spec):
@@ -200,9 +223,13 @@ def build_scene(desc: dict, device=None) -> SceneData:
     tri_mat_np = np.asarray(tri_mat, dtype=np.int32)
     tri_em_np = np.asarray(tri_emitter, dtype=np.int32)
     T = len(tri_mat_np)
+    bvh = blocks = pairs = None
     if T >= TWOLEVEL_MIN_TRIS:
-        _not_ported(f"a scene of {T} triangles (>= {TWOLEVEL_MIN_TRIS})",
-                    "Queue 2 items 4 and 6 (pair and blocklist intersectors)")
+        # the tables are cut from host arrays and moved to the device once
+        bvh = build_bvh(h["p0"], h["e1"], h["e2"])
+        blocks = to_device(build_blocklist(h["p0"], h["e1"], h["e2"], bvh), dev)
+        pairs = to_device(build_pair_table(h["p0"], h["e1"], h["e2"], bvh), dev)
+        bvh = to_device(bvh, dev)
 
     # packed shading rows (see the Geometry.shade_packed layout)
     gn = np.cross(h["e1"], h["e2"])
@@ -330,11 +357,11 @@ def build_scene(desc: dict, device=None) -> SceneData:
     hi = np.maximum(np.maximum(p0h, v1), v2).max(axis=0)
     pad = 1e-3 * (hi - lo).max() + 1e-6
     return SceneData(
-        geo=geo, bvh=None, mats=mats, emitters=emitters, sensor=sensor,
+        geo=geo, bvh=bvh, mats=mats, emitters=emitters, sensor=sensor,
         medium=medium,
         aabb_min=t((lo - pad).astype(np.float32)),
         aabb_max=t((hi + pad).astype(np.float32)),
         textures=t(np.zeros((1, 2, 1, 3), np.float32)),
         texture_sizes=t(np.ones((1, 2), np.float32)),
-        sss_packed=None, blocks=None, pairs=None,
+        sss_packed=None, blocks=blocks, pairs=pairs,
     )

@@ -148,9 +148,66 @@ class MediumData(NamedTuple):
     phase_kind: int = 0
 
 
+class BVH(NamedTuple):
+    """Flattened binary BVH (host-built, accel/bvh.py).  Internal node i:
+    child0[i], child1[i] >= 0; leaf: child0[i] = -(prim_start + 1),
+    child1[i] = -prim_count; ``prim_idx`` permutes into the Geometry
+    arrays.  The port builds its tables from it but does not traverse it
+    (ROADMAP Queue 1 item 4)."""
+
+    node_min: torch.Tensor  # (Nn, 3)
+    node_max: torch.Tensor  # (Nn, 3)
+    child0: torch.Tensor    # (Nn,) int32
+    child1: torch.Tensor    # (Nn,) int32
+    prim_idx: torch.Tensor  # (T,) int32
+    max_depth: int          # host int
+
+
+class BlockList(NamedTuple):
+    """Tables of the blocklist intersector (ops/intersect_blocklist.py):
+    the BVH cut into treelet blocks of <= 128 triangles, 32 consecutive
+    blocks to a superblock."""
+
+    tri_pack: torch.Tensor  # (S, 32, 16, 128) f32: rows p0 e1 e2, row 9
+    #                         the original triangle id (-1 padding)
+    blk_box: torch.Tensor   # (S, 32, 8) f32: 0:3 lo, 3:6 hi (inverted
+    #                         box for padding blocks), 6:8 zero
+    sb_lo: torch.Tensor     # (S, 3) superblock AABB
+    sb_hi: torch.Tensor     # (S, 3)
+    n_blocks: int           # real block count (host int)
+
+
+class PairTable(NamedTuple):
+    """Tables of the pair intersector (ops/intersect_pairs.py)."""
+
+    tri_rows: torch.Tensor  # (B, 10, 128) f32: rows p0 e1 e2, row 9 the
+    #                         original triangle id (-1 padding)
+    blk_lo: torch.Tensor    # (B, 3) block AABB (never-hit for padding)
+    blk_hi: torch.Tensor    # (B, 3)
+    sb_lo: torch.Tensor     # (S, 3) superblock AABB (32 consecutive blocks)
+    sb_hi: torch.Tensor     # (S, 3)
+    tblT: torch.Tensor      # (32*6, S) f32 holding bf16 values: the block
+    #                         boxes per superblock, lo rounded down and hi
+    #                         up to bf16 (outward-conservative)
+    nonempty: torch.Tensor  # (B_ne,) int32 ids of blocks holding triangles
+    tri_cols: torch.Tensor  # (B, 16, 5*128) f32 Pluecker columns: per
+    #                         triangle 3 edge sides, plane num and den
+    #                         against the features [d, o x d, o, 1, 0..]
+    prim_loc: torch.Tensor  # (T,) int32 original id -> blk*128 + slot
+    tri_flat: torch.Tensor  # (B*128, 10) f32 row-major copy of tri_rows
+
+    @property
+    def leaf(self) -> int:
+        return int(self.tri_rows.shape[2])
+
+    @property
+    def sb_blk(self) -> int:
+        return int(self.blk_lo.shape[0]) // int(self.sb_lo.shape[0])
+
+
 class SceneData(NamedTuple):
     geo: Geometry
-    bvh: object            # None: the BVH is not ported (ROADMAP Queue 1 item 4)
+    bvh: Optional[BVH]
     mats: Materials
     emitters: Emitters
     sensor: Sensor
@@ -160,5 +217,5 @@ class SceneData(NamedTuple):
     textures: torch.Tensor       # (NT, TH, TW, 3)
     texture_sizes: torch.Tensor  # (NT, 2)
     sss_packed: Optional[torch.Tensor] = None
-    blocks: object = None  # None below 16384 triangles
-    pairs: object = None
+    blocks: Optional[BlockList] = None  # None below 16384 triangles
+    pairs: Optional[PairTable] = None

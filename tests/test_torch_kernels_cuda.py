@@ -105,3 +105,66 @@ def test_trace_fused_matches_plain(card, guided):
     # the work counts: closest-hit loops entered, shadow-ray triangle tests
     assert (got[14:16] == want[14:16]).all(dim=0).float().mean() >= 0.99
     assert torch.isfinite(got).all()
+
+
+@pytest.fixture(scope="module")
+def door(card):
+    from mitsuba_path_guiding_torch.scene.scenes import door_room
+
+    return build_scene(door_room(20000), device="cuda")
+
+
+@pytest.mark.parametrize("engine", ["mt", "plk"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_pair_tiles_match_plain(door, engine, any_hit):
+    from mitsuba_path_guiding_torch.ops import intersect_pairs as ip
+
+    o, d, tmax, _ = _rays(door, 20_000, 3)
+    ids, _ = ip.build_pair_lists(door.pairs, o, d, tmax)
+    skeys, spays, _ = ip.sorted_pairs(door.pairs, ids, o.shape[0], 5)
+    pdata, tile_block = ip.pair_tiles(skeys, spays, o, d, tmax)
+    tabs = (door.pairs.tri_rows,) if engine == "mt" else (door.pairs.tri_cols, door.pairs.tri_rows)
+    kern = ip.mt_tiles if engine == "mt" else ip.plk_tiles
+    plain = ip.mt_tiles_plain if engine == "mt" else ip.plk_tiles_plain
+    before = build.LAUNCHES[f"intersect_pairs_{engine}"]
+    got = kern(*tabs, tile_block, pdata, any_hit)
+    want = plain(*tabs, tile_block, pdata, any_hit)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[f"intersect_pairs_{engine}"] == before + 1
+    assert (got[0] < ip.INF).sum() > 100
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("k", [128, 1])
+def test_blocklist_matches_plain(door, any_hit, k):
+    from mitsuba_path_guiding_torch.ops import intersect_blocklist as ib
+
+    bl = door.blocks
+    o, d, tmax, _ = _rays(door, 3000, 4)
+    o_p, d_p, t_p, npad = ib._pad_rays(o, d, tmax)
+    cand, cnt = ib.candidate_superblocks(bl.sb_lo, bl.sb_hi, o_p, d_p, t_p,
+                                         ib.cand_width(npad, bl.sb_lo.shape[0], k))
+    got, gw = ib.blocklist_cuda(bl, o_p, d_p, t_p, cand, cnt, any_hit)
+    want, ww = ib.blocklist_plain(bl, o_p, d_p, t_p, cand, cnt, any_hit)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(gw, ww)
+    ok = want[1] >= 0
+    for r in (0, 2, 3):
+        assert torch.allclose(got[r][ok], want[r][ok], rtol=1e-5, atol=1e-6)
+
+
+def test_pairs_full_equals_the_oracle(door):
+    from mitsuba_path_guiding_torch.accel.traverse import intersect_pairs_full, occluded_pairs_full
+
+    o, d, tmax, _ = _rays(door, 4096, 5)
+    build.reset_launches()
+    # a budget of one pair per ray leaves rays unproven, each query's
+    # blocklist launch re-traces them
+    hit = intersect_pairs_full(door.pairs, door.blocks, o, d, tmax, cap_factor=1)
+    occ = occluded_pairs_full(door.pairs, door.blocks, o, d, tmax, cap_factor=1, engine="plk")
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["intersect_pairs_mt"] == 1 and build.LAUNCHES["intersect_pairs_plk"] == 1
+    assert build.LAUNCHES["intersect_blocklist"] == 2
+    assert torch.equal(hit.prim, intersect_brute(door.geo, o, d, tmax).prim)
+    assert torch.equal(occ, occluded_brute(door.geo, o, d, tmax))

@@ -1,13 +1,15 @@
 """The port's wavefront path tracer, guiding-cache fit and progressive
 renderer against the JAX package on the CPU, from the same scene, keys
 and (converted) grid."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from mitsuba_path_guiding_torch.core import rng as trng
 from mitsuba_path_guiding_torch.guiding.fit import accumulate_stats, update_grid
-from mitsuba_path_guiding_torch.guiding.grid import cell_index, make_grid
+from mitsuba_path_guiding_torch.guiding.grid import _normal_bits_to_float, cell_index, make_grid
 from mitsuba_path_guiding_torch.guiding.sampler import make_guide_fn
 from mitsuba_path_guiding_torch.integrators.path import PathRecord, trace
 from mitsuba_path_guiding_torch.integrators.progressive import (
@@ -89,6 +91,13 @@ def test_make_grid_matches_reference(wave):
     gt = make_grid(scene.aabb_min, scene.aabb_max, res=4, n_lobes=8, seed=5)
     _assert_grid_close(gt, gj, tol=1e-5)
     assert (gt.res0, gt.n_used) == (4, 64)
+    # the normals behind the cold-start lobes of a 16^3 grid of 8 lobes
+    # (seed 0): XLA's float32 erf_inv, so nearly all are bit-equal
+    shape = (16**3, 8, 3)
+    want = np.asarray(jax.random.normal(jax.random.PRNGKey(0), shape))
+    got = _normal_bits_to_float(trng.random_bits(trng.base_key(0), want.size)).numpy()
+    assert (got.reshape(shape) == want).mean() >= 0.99
+    assert np.abs(got.reshape(shape) - want).max() <= 2.5e-7
 
 
 def test_cell_index_matches_reference(wave):

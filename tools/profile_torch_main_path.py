@@ -9,7 +9,11 @@ warm-up of each:
 
   * ``progressive``: one progression (4 wavefront waves, the grid update);
   * ``frozen``: 4 guided waves of 8 spp through trace_fused with the
-    trained grid, camera rays and splat included (the headline shape).
+    trained grid, camera rays and splat included (the headline shape);
+  * ``door_room_progression``: one guided progression (4 spp) of the
+    default door_room() (244838 triangles) at 512x512, every query through
+    the pair pipeline and the blocklist fallback; a second line gives its
+    wave count and device operations per wave.
 
 For each window it prints one JSON line: the wall time, the device time
 (the profiler's device-side events, kernels, copies and memsets, each
@@ -69,6 +73,9 @@ def main(argv=None):
     ap.add_argument("--res", type=int, default=256)
     ap.add_argument("--trace", default=None, help="directory for Chrome traces")
     ap.add_argument("--device", default=None)
+    ap.add_argument("--door-res", type=int, default=512)
+    ap.add_argument("--door-tris", type=int, default=0,
+                    help="door_room triangle budget (0: the default scene)")
     args = ap.parse_args(argv)
     import torch
 
@@ -79,12 +86,12 @@ def main(argv=None):
         ProgressiveConfig,
         ProgressiveRenderer,
     )
-    from mitsuba_path_guiding_torch.integrators.render import RenderConfig
+    from mitsuba_path_guiding_torch.integrators.render import PIXEL_BATCH, RenderConfig
     from mitsuba_path_guiding_torch.models.sensor import generate_rays
     from mitsuba_path_guiding_torch.ops import build
     from mitsuba_path_guiding_torch.ops.fused_path import build_fused_tables, trace_fused
     from mitsuba_path_guiding_torch.scene.builder import build_scene
-    from mitsuba_path_guiding_torch.scene.scenes import cornell_box
+    from mitsuba_path_guiding_torch.scene.scenes import cornell_box, door_room
 
     dev = resolve_device(args.device)
     if args.trace:
@@ -119,6 +126,21 @@ def main(argv=None):
 
     frozen(1)                                        # warm-up, untraced
     _window("frozen", frozen, dev, args.trace)
+
+    # door_room(): one guided progression of the pair pipeline's route
+    door = build_scene(door_room(args.door_tris) if args.door_tris else door_room(), device=dev)
+    r = args.door_res
+    dcfg = ProgressiveConfig(render=RenderConfig(width=r, height=r, spp=0, max_depth=5),
+                             samples_per_progression=4, n_progressions=1, guiding=True,
+                             grid_res=16, n_lobes=8)
+    door_renderer = ProgressiveRenderer(door, dcfg)
+    door_renderer.run_progression()                  # warm-up, untraced
+    waves = -(-r * r // PIXEL_BATCH) * dcfg.samples_per_progression
+    rec = _window("door_room_progression", door_renderer.run_progression, dev, args.trace)
+    print(json.dumps({"window": "door_room_progression", "waves": waves,
+                      "device_ops_per_wave": rec["device_ops"] / waves,
+                      "triangles": int(door.geo.p0.shape[0]), "resolution": f"{r}x{r}"}),
+          flush=True)
     return 0
 
 
