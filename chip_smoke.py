@@ -43,9 +43,31 @@ Phases:
      must be finite, non-black, within max(3%, 4 standard errors) of the
      JAX reference mean below, and the grid must have valid cells; then
      one wave of both queries through the Pluecker engine;
-  7. CUDA-event timings (median of 7) of each kernel, its plain version
+  7. the interior scene of tools/profile_blocklist_torch.py
+     (make_interior(300000): 294924 triangles, 37 two-level superblocks)
+     with its 524288 camera rays and 524288 bounce rays, each wave
+     through intersect_blocks_sorted (the two-level superblock kernel)
+     and through intersect_blocklist_sorted: both against the dense
+     oracle on 8192 rays (prim equal on every ray but listed exact ties),
+     and the two-level kernel bit-equal to its plain version, work counts
+     included, on 16 tiles of each wave given the same mask and order;
+  8. door_room's two-level tables (30 superblocks) and the kernel on the
+     262144 camera rays of a 512x512 wave, checked as in 7; the BVH
+     kernel bit-equal to its plain version (t, prim, u, v and the node
+     and triangle counts) on 262144 camera and 262144 random rays,
+     closest and any-hit, and against the dense oracle on 8192 rays of
+     each set (occlusion equal on every ray, prim on every ray but exact
+     ties);
+  9. door_room without pair tables through the Morton-sorted blocklist
+     route: ProgressiveRenderer at 512x512, depth 5, 2 spp x 2
+     progressions, guided, held to the reference mean as in 6; then the
+     BVH route: four 131072-ray waves (512x512 x 2 spp, unguided) through
+     trace(accel="bvh"), splatted, held to the reference mean with the
+     standard error of the two spp;
+  10. CUDA-event timings (median of 7) of each kernel, its plain version
      and, where one exists, the one-call PyTorch yardstick; the "kernels"
-     line with bounds from this run's inputs.
+     line with bounds from this run's inputs, and the Mrays/s of the
+     sorted two-level, sorted blocklist and BVH routes.
 
 Each main-path route runs with the launch counts set to 0 just before it
 and read just after it, and is held to the kernels it must launch: the
@@ -53,7 +75,11 @@ Cornell progressive render to gather_rows_t and intersect_tiled, the
 frozen-cache render and the unguided render() to one trace_fused per wave
 (and nothing else), the door_room render to one pair-tile (MT) launch per
 query (160) and one blocklist launch per query that left a ray unproven
-(counted in the same run, ``count_retraces``), the Pluecker wave likewise.
+(counted in the same run, ``count_retraces``), the Pluecker wave likewise,
+the interior waves to one two-level (or blocklist) launch per wave, the
+door_room camera wave to one two-level launch, the sorted-blocklist
+render to one blocklist launch per query (80) and the BVH render to one
+BVH launch per query (40), each with no launch of the other intersectors.
 """
 from __future__ import annotations
 
@@ -129,6 +155,23 @@ DOOR_E2E_MISSES = {"mt": 1, "plk": 2}
 # pair and blocklist code) by tools/door_room_reference_mean.py.
 DOOR_REFERENCE_MEAN = 0.5138526037335396
 DOOR_REFERENCE_SE = 0.003108315952031836
+
+# The routes of a big scene without pair tables: door_room at 512x512,
+# depth 5, 2 spp x 2 progressions through the sorted blocklist (8 waves,
+# 80 queries) and 2 spp through the BVH (4 waves, 40 queries).
+DOOR_SORTED_SPP = 2
+DOOR_BVH_SPP = 2
+# tools/profile_blocklist_torch.py's interior scene at its defaults
+INTERIOR_TRIS = 300000
+INTERIOR_RAYS = 524288
+CHECK_TILES = 16     # tiles of a wave on which the two-level kernel meets its plain version
+ORACLE_RAYS = 8192   # rays of a wave held to the dense oracle
+BVH_MT_OPS = 47      # intersect_bvh.cu bvh_moeller_trumbore: one (ray, triangle) test
+BOX_OPS = 23         # intersect_bvh.cu bvh_ray_aabb: one (ray, node box) test
+DEVICE = "cuda"      # where the phases below put the scenes they build
+NONE_LAUNCHED = {k: 0 for k in ("gather_rows_t", "intersect_tiled", "trace_fused",
+                                "intersect_pairs_mt", "intersect_pairs_plk",
+                                "intersect_blocklist", "intersect_twolevel", "intersect_bvh")}
 
 
 def emit(obj):
@@ -728,7 +771,7 @@ def count_retraces(fn, route):
     return out, n
 
 
-def phase_door_progressive(scene):
+def phase_door_progressive(scene, spp=DOOR_SPP, name="door_room_progressive"):
     import torch
 
     from mitsuba_path_guiding_torch.integrators.progressive import (
@@ -739,7 +782,7 @@ def phase_door_progressive(scene):
 
     cfg = ProgressiveConfig(render=RenderConfig(width=DOOR_W, height=DOOR_H, spp=0,
                                                 max_depth=DEPTH),
-                            samples_per_progression=DOOR_SPP, n_progressions=DOOR_PROGRESSIONS,
+                            samples_per_progression=spp, n_progressions=DOOR_PROGRESSIONS,
                             guiding=True, grid_res=16, n_lobes=8)
     check(PIXEL_BATCH == DOOR_WAVE, f"waves of {PIXEL_BATCH} pixels, expected {DOOR_WAVE}")
     renderer = ProgressiveRenderer(scene, cfg)
@@ -770,7 +813,7 @@ def phase_door_progressive(scene):
     rel = abs(mean - DOOR_REFERENCE_MEAN) / DOOR_REFERENCE_MEAN
     check(rel < tol, f"door_room mean {mean} vs reference {DOOR_REFERENCE_MEAN} (tol {tol})")
     segs = renderer.stats.get("rays traced") / 2
-    emit({"phase": "door_room_progressive", "seconds": round(dt, 3), "mean": mean,
+    emit({"phase": name, "seconds": round(dt, 3), "mean": mean,
           "reference_mean": DOOR_REFERENCE_MEAN, "rel_err": rel, "rel_tol": tol,
           "se_card": se_card, "progression_means": prog_means, "valid_cells": n_valid,
           "spp": renderer.sample_counter, "mrays_per_s": 2 * segs / dt / 1e6})
@@ -923,6 +966,382 @@ def phase_door_timings(scene, checks, launches):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# big scenes without pair tables: the two-level kernel, the sorted
+# blocklist and the BVH
+# ---------------------------------------------------------------------------
+
+def _interior_tools():
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import profile_blocklist_torch
+
+    return profile_blocklist_torch
+
+
+def _bits(x):
+    import torch
+
+    return x.contiguous().view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def oracle_check(geo, o, d, tmax, t, prim, label, occ=None):
+    """Hits (t, prim) of ORACLE_RAYS rays spread over a wave against the
+    dense oracle: prim equal on every ray but exact ties (the same t from
+    another triangle); with ``occ``, occlusion equal on every ray."""
+    import torch
+
+    sel = torch.linspace(0, o.shape[0] - 1, ORACLE_RAYS, device=o.device).round().long()
+    t_ref, prim_ref = brute_chunked(geo, o[sel], d[sel], tmax[sel])
+    t_s, p_s = t[sel], prim[sel]
+    diff = p_s != prim_ref
+    tie = diff & (t_s == t_ref)
+    misses = int((diff & ~tie).sum())
+    bad = torch.nonzero(diff & ~tie).flatten()[:4]
+    check(misses == 0, f"{label}: {misses} prim misses against the oracle; t {t_s[bad].tolist()} "
+                       f"vs {t_ref[bad].tolist()}, prim {p_s[bad].tolist()} vs "
+                       f"{prim_ref[bad].tolist()}")
+    row = {"rays": ORACLE_RAYS, "prim_misses": misses,
+           "exact_ties": [[int(sel[i]), int(p_s[i]), int(prim_ref[i])]
+                          for i in torch.nonzero(tie).flatten().tolist()]}
+    if occ is not None:
+        occ_ref = brute_chunked(geo, o[sel], d[sel], tmax[sel], any_hit=True)
+        o_miss = int((occ[sel] != occ_ref).sum())
+        check(o_miss == 0, f"{label}: {o_miss} occlusion misses against the oracle")
+        row["occlusion_misses"] = o_miss
+    return row
+
+
+def twolevel_inputs(bt, o, d, tmax):
+    """The kernel's inputs (ray, tmax, mask, order) as
+    intersect_blocks_sorted gives them."""
+    import torch
+
+    from mitsuba_path_guiding_torch.ops.intersect_twolevel import (
+        _pad_rays,
+        _ray_sort_keys,
+        superblock_mask,
+    )
+
+    perm = torch.argsort(_ray_sort_keys(bt, o, d), stable=True)
+    o, d, tmax = o[perm], d[perm], tmax[perm]
+    return (*_pad_rays(o, d, tmax), *superblock_mask(bt, o, d, tmax))
+
+
+def twolevel_check(bt, inputs, label):
+    """Kernel 7 against its plain version on CHECK_TILES tiles spread over
+    the wave, given the same mask and order: t, prim, u, v and the work
+    counts bit-equal.  Returns (a summary, the kernel's work over the
+    whole wave)."""
+    import torch
+
+    from mitsuba_path_guiding_torch.ops.intersect_twolevel import (
+        RAY_TILE,
+        twolevel_cuda,
+        twolevel_plain,
+    )
+
+    ray, tmax_p, mask, order = inputs
+    out, work = twolevel_cuda(bt, ray, tmax_p, mask, order)
+    nt = mask.shape[0]
+    tiles = torch.linspace(0, nt - 1, CHECK_TILES, device=ray.device).round().long().unique()
+    cols = (tiles[:, None] * RAY_TILE + torch.arange(RAY_TILE, device=ray.device)).flatten()
+    t0 = time.time()
+    want, wwork = twolevel_plain(bt, ray[:, cols], tmax_p[cols], mask[tiles], order)
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    got = out[:, cols]
+    same_out = torch.equal(_bits(got), _bits(want))
+    same_work = torch.equal(work[tiles], wwork)
+    check(same_out and same_work,
+          f"twolevel {label}: kernel and plain differ on "
+          f"{int((_bits(got) != _bits(want)).any(dim=0).sum())} rays, work equal {same_work}")
+    w = work.sum(dim=0).tolist()
+    return {"tiles": nt, "checked_tiles": int(tiles.numel()), "bit_equal": True,
+            "plain_seconds_on_checked_tiles": round(plain_s, 3),
+            "superblocks_walked": w[0], "blocks_opened": w[1], "tests_run": w[2],
+            "tests_needed": w[3], "hit_share": float((out[1] >= 0).float().mean())}, work
+
+
+def twolevel_bound(inputs, work):
+    """Operations: 23 per (ray, block) gate of every superblock a tile
+    walks, 46 per needed triangle test.  Bytes: rays in, results out, the
+    mask and order, the boxes and rows of the superblocks some tile walks
+    (an upper estimate of the rows read)."""
+    from mitsuba_path_guiding_torch.ops.intersect_twolevel import RAY_TILE, SB_BLOCKS, SB_TRIS
+
+    ray, _, mask, order = inputs
+    walked, opened, run, needed = (int(x) for x in work.sum(dim=0))
+    ops = walked * RAY_TILE * SB_BLOCKS * GATE_OPS + needed * MT_OPS
+    live_sb = int(mask.any(dim=0).sum())
+    n_bytes = (ray.shape[1] * (7 + 4) * 4 + mask.numel() * 4 + order.numel() * 4
+               + live_sb * (SB_BLOCKS * 6 * 4 + 10 * SB_TRIS * 4))
+    b_ms, b_by = bound(n_bytes, ops)
+    return b_ms, b_by, {"superblocks_walked": walked, "blocks_opened": opened,
+                        "tests_run": run, "tests_needed": needed, "fp32_ops": ops,
+                        "bytes": n_bytes}
+
+
+def phase_interior():
+    """The microbenchmark's interior scene: the build, the camera and
+    bounce waves through both sorted routes (each a main-path route of its
+    own), both against the oracle, kernel 7 against its plain version."""
+    import types
+
+    import torch
+
+    from mitsuba_path_guiding_torch.accel.blocks import build_blocklist
+    from mitsuba_path_guiding_torch.accel.bvh import build_bvh, to_device
+    from mitsuba_path_guiding_torch.ops.intersect_blocklist import intersect_blocklist_sorted
+    from mitsuba_path_guiding_torch.ops.intersect_twolevel import (
+        build_blocks,
+        intersect_blocks_sorted,
+    )
+
+    tools = _interior_tools()
+    t0 = time.time()
+    p0, e1, e2 = tools.make_interior(INTERIOR_TRIS)
+    bt = build_blocks(p0, e1, e2, device=DEVICE)
+    bl = to_device(build_blocklist(p0, e1, e2, build_bvh(p0, e1, e2)), DEVICE)
+    geo = types.SimpleNamespace(**{k: torch.from_numpy(v).to(DEVICE)
+                                   for k, v in (("p0", p0), ("e1", e1), ("e2", e2))})
+    n_sb = bt.tri_pack.shape[0]
+    check(p0.shape[0] == 294924 and n_sb == 37,
+          f"interior: {p0.shape[0]} triangles, {n_sb} superblocks")
+    build_s = time.time() - t0
+    tmax = torch.full((INTERIOR_RAYS,), 3.0e38, device=DEVICE)
+    cam, bounce = tools.interior_waves(p0, e1, e2, INTERIOR_RAYS,
+                                       lambda o, d, t: intersect_blocklist_sorted(bl, o, d, t),
+                                       torch.device(DEVICE))
+    waves = {"camera": cam, "bounce": bounce}
+    hits = {}
+
+    def run(route, fn):
+        def go():
+            for wave, (o, d) in waves.items():
+                hits[(route, wave)] = fn(o, d, tmax)
+        return go
+
+    _, c_tl = drive("interior_twolevel",
+                    run("twolevel", lambda o, d, t: intersect_blocks_sorted(bt, o, d, t)),
+                    {**NONE_LAUNCHED, "intersect_twolevel": len(waves)})
+    _, c_bl = drive("interior_blocklist_sorted",
+                    run("blocklist", lambda o, d, t: intersect_blocklist_sorted(bl, o, d, t)),
+                    {**NONE_LAUNCHED, "intersect_blocklist": len(waves)})
+    res, inputs = {}, {}
+    for wave, (o, d) in waves.items():
+        for route in ("twolevel", "blocklist"):
+            t, prim = hits[(route, wave)][0:2]
+            res[f"{route}_{wave}_oracle"] = oracle_check(geo, o, d, tmax, t, prim,
+                                                         f"interior {route} {wave}")
+        tl_in = twolevel_inputs(bt, o, d, tmax)
+        res[f"twolevel_{wave}_kernel"], work = twolevel_check(bt, tl_in, f"interior {wave}")
+        inputs[wave] = (tl_in, work)
+    emit({"phase": "interior", "seconds": round(time.time() - t0, 3),
+          "build_seconds": round(build_s, 3), "triangles": int(p0.shape[0]),
+          "twolevel_superblocks": n_sb, "blocklist_superblocks": int(bl.sb_lo.shape[0]), **res})
+    return {"bt": bt, "bl": bl, "waves": waves, "tmax": tmax, "inputs": inputs,
+            "launches": {"interior_twolevel": c_tl, "interior_blocklist_sorted": c_bl}}
+
+
+def phase_door_twolevel_bvh(scene):
+    """door_room: kernel 7 on the camera rays of a 512x512 wave (a
+    main-path route of its own); the BVH kernel against its plain version
+    and the oracle."""
+    import torch
+
+    from mitsuba_path_guiding_torch.ops.intersect_bvh import bvh_cuda, bvh_plain
+    from mitsuba_path_guiding_torch.ops.intersect_twolevel import (
+        build_blocks,
+        intersect_blocks_sorted,
+    )
+
+    t0 = time.time()
+    geo = scene.geo
+    bt = build_blocks(*(x.cpu().numpy() for x in (geo.p0, geo.e1, geo.e2)), device=DEVICE)
+    check(bt.tri_pack.shape[0] == 30, f"door_room: {bt.tri_pack.shape[0]} two-level superblocks")
+    n = DOOR_W * DOOR_H
+    o_cam, d_cam, _ = camera_rays(scene, 1, 0, w=DOOR_W, h=DOOR_H)
+    t_cam = torch.full((n,), 3.0e37, device=o_cam.device)
+    gen = torch.Generator(device=o_cam.device).manual_seed(5)
+    sets = {"camera": (o_cam, d_cam, t_cam), "random": random_rays(scene, n, gen)}
+    hit, c_tl = drive("door_room_twolevel",
+                      lambda: intersect_blocks_sorted(bt, o_cam, d_cam, t_cam),
+                      {**NONE_LAUNCHED, "intersect_twolevel": 1})
+    res = {"twolevel_camera_oracle": oracle_check(geo, o_cam, d_cam, t_cam, hit[0], hit[1],
+                                                  "door_room twolevel camera")}
+    tl_in = twolevel_inputs(bt, o_cam, d_cam, t_cam)
+    res["twolevel_camera_kernel"], work = twolevel_check(bt, tl_in, "door_room camera")
+    for label, (o, d, tmax) in sets.items():
+        for any_hit in (False, True):
+            got = bvh_cuda(scene.bvh, geo.p0, geo.e1, geo.e2, o, d, tmax, any_hit)
+            t1 = time.time()
+            want = bvh_plain(scene.bvh, geo.p0, geo.e1, geo.e2, o, d, tmax, any_hit)
+            torch.cuda.synchronize()
+            plain_s = time.time() - t1
+            same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+            check(same, f"bvh {label} any_hit={any_hit}: kernel and plain differ on "
+                        f"{int((got[1] != want[1]).sum())} prims, "
+                        f"{int((_bits(got[0]) != _bits(want[0])).sum())} t")
+            row = {"bit_equal": True, "plain_seconds": round(plain_s, 3),
+                   "hit_share": float((got[1] >= 0).float().mean()),
+                   "nodes_popped": int(got[4][0].sum()), "triangles_tested": int(got[4][1].sum())}
+            if not any_hit:
+                t_h = torch.where(got[1] >= 0, got[0], 3.0e38)
+                row["oracle"] = oracle_check(geo, o, d, tmax, t_h, got[1], f"bvh {label}",
+                                             occ=got[1] >= 0)
+            res[f"bvh_{label}_{'any' if any_hit else 'closest'}"] = row
+    emit({"phase": "door_room_twolevel_bvh", "seconds": round(time.time() - t0, 3), **res})
+    return {"bt": bt, "inputs": (tl_in, work), "launches": c_tl}
+
+
+def phase_door_bvh_render(scene, card):
+    """The BVH route: 512x512 x DOOR_BVH_SPP unguided, waves of DOOR_WAVE
+    pixels through trace(accel="bvh"), each spp splatted into a film of
+    its own for the render's standard error."""
+    import torch
+
+    from mitsuba_path_guiding_torch.film.film import splat
+    from mitsuba_path_guiding_torch.integrators.path import trace
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig, wave_keys_and_jitter
+    from mitsuba_path_guiding_torch.models.bsdf import types_present
+    from mitsuba_path_guiding_torch.models.emitter import kinds_present
+    from mitsuba_path_guiding_torch.models.sensor import generate_rays
+
+    cfg = RenderConfig(width=DOOR_W, height=DOOR_H, spp=DOOR_BVH_SPP, max_depth=DEPTH)
+    dev = scene.geo.p0.device
+    n_pix = DOOR_W * DOOR_H
+    films = torch.zeros((DOOR_BVH_SPP, n_pix, 4), device=dev)
+    kw = dict(max_depth=DEPTH, rr_depth=cfg.rr_depth, accel="bvh",
+              em_kinds=kinds_present(scene.emitters), mat_types=types_present(scene.mats))
+    segs = torch.zeros((), dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for s in range(DOOR_BVH_SPP):
+        for start in range(0, n_pix, DOOR_WAVE):
+            pix = torch.arange(start, start + DOOR_WAVE, device=dev)
+            _, rkeys, u_cam, u_pos = wave_keys_and_jitter(cfg, pix, torch.full_like(pix, s))
+            o, d, xy = generate_rays(scene.sensor, DOOR_W, DOOR_H, pix, u_pos, u_cam[..., 2:4],
+                                     kind=scene.sensor.kind)
+            L, aux, _ = trace(scene, o, d, rkeys, **kw)
+            splat(films[s], xy, L, DOOR_W, DOOR_H)
+            segs += aux.n_bounces.sum()
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    means = [float((f[:, 0:3] / f[:, 3:4].clamp_min(1e-8)).mean()) for f in films]
+    total = films.sum(dim=0)
+    img = total[:, 0:3] / total[:, 3:4].clamp_min(1e-8)
+    mean = float(img.mean())
+    check(bool(torch.isfinite(img).all()), "door_room BVH image not finite")
+    check(mean > 0.0, "door_room BVH image is black")
+    se_card = abs(means[0] - means[1]) / 2.0
+    tol = max(MEAN_TOL, 4.0 * (DOOR_REFERENCE_SE**2 + se_card**2) ** 0.5 / DOOR_REFERENCE_MEAN)
+    rel = abs(mean - DOOR_REFERENCE_MEAN) / DOOR_REFERENCE_MEAN
+    check(rel < tol, f"door_room BVH mean {mean} vs reference {DOOR_REFERENCE_MEAN} (tol {tol})")
+    emit({"phase": "door_room_bvh_render", "card": card, "seconds": round(dt, 3), "mean": mean,
+          "reference_mean": DOOR_REFERENCE_MEAN, "rel_err": rel, "rel_tol": tol,
+          "se_card": se_card, "spp_means": means, "waves": DOOR_BVH_SPP * n_pix // DOOR_WAVE,
+          "mrays_per_s": 2 * int(segs) / dt / 1e6})
+
+
+def phase_new_timings(interior, door_tl, door, launches, card):
+    """Kernel 7 on the interior waves and the door_room camera wave, the
+    BVH kernel on a door_room camera wave and a bounce of it, and the
+    sorted routes' Mrays/s on the interior waves."""
+    import torch
+
+    from mitsuba_path_guiding_torch.accel.traverse import intersect_pairs_full
+    from mitsuba_path_guiding_torch.integrators.path import PAIR_CAP
+    from mitsuba_path_guiding_torch.ops.intersect_blocklist import intersect_blocklist_sorted
+    from mitsuba_path_guiding_torch.ops.intersect_bvh import bvh_cuda, bvh_plain
+    from mitsuba_path_guiding_torch.ops.intersect_twolevel import (
+        intersect_blocks_sorted,
+        twolevel_cuda,
+        twolevel_plain,
+    )
+
+    calls = {}
+    for name, bt, (inputs, work) in (
+            ("interior_camera", interior["bt"], interior["inputs"]["camera"]),
+            ("interior_bounce", interior["bt"], interior["inputs"]["bounce"]),
+            ("door_room_camera", door_tl["bt"], door_tl["inputs"])):
+        b_ms, b_by, w = twolevel_bound(inputs, work)
+        calls[name] = {"ms": cuda_ms(lambda: twolevel_cuda(bt, *inputs)), "bound_ms": b_ms,
+                       "bound_by": b_by, "rays": inputs[0].shape[1], "work": w}
+    main_call = calls["interior_camera"]
+    bt, (inputs, _) = interior["bt"], interior["inputs"]["camera"]
+    main_call["plain_ms"] = cuda_ms(lambda: twolevel_plain(bt, *inputs), reps=1, warmup=0)
+    routes = {}
+    tmax = interior["tmax"]
+    for wave, (o, d) in interior["waves"].items():
+        for route, fn in (
+                ("twolevel_sorted", lambda: intersect_blocks_sorted(interior["bt"], o, d, tmax)),
+                ("blocklist_sorted", lambda: intersect_blocklist_sorted(interior["bl"], o, d,
+                                                                        tmax))):
+            ms = cuda_ms(fn, reps=3, warmup=1)
+            routes[f"{route}_{wave}"] = {"ms": ms, "mrays_per_s": INTERIOR_RAYS / ms / 1e3}
+    entries = [{
+        "name": "intersect_twolevel", "route": "cuda",
+        "source": "mitsuba_path_guiding_torch/csrc/intersect_twolevel.cu",
+        "replaces": "mitsuba_path_guiding_tpu/ops/intersect_twolevel.py:161",
+        "launches": sum(launches["intersect_twolevel"].values()),
+        "launches_by_route": launches["intersect_twolevel"],
+        "max_abs_err": 0.0, "ms": main_call["ms"], "plain_ms": main_call["plain_ms"],
+        "bound_ms": main_call["bound_ms"], "bound_by": main_call["bound_by"],
+        "library_ms": None, "library": "none: no one call walks superblocks near to far "
+                                       "behind a per-block gate",
+        "shape": f"interior camera wave: {INTERIOR_RAYS} sorted rays, "
+                 f"{interior['bt'].tri_pack.shape[0]} superblocks",
+        "work": main_call["work"], "calls": calls, "routes": routes,
+        "check": "t, prim, u, v and work counts bit-equal on 16 tiles of each wave"}]
+
+    # the BVH on one wave of its route: 131072 camera rays, and a first
+    # bounce of them (diffuse directions from the camera hits)
+    geo = door.geo
+    o, d, _ = camera_rays(door, 1, 11, w=DOOR_W, h=DOOR_H)
+    o, d = o[DOOR_WAVE:2 * DOOR_WAVE], d[DOOR_WAVE:2 * DOOR_WAVE]
+    tmax = torch.full((DOOR_WAVE,), 3.0e37, device=o.device)
+    hit = intersect_pairs_full(door.pairs, door.blocks, o, d, tmax, cap_factor=PAIR_CAP)
+    side = torch.sign((geo.shade_packed[hit.prim.clamp_min(0).long(), 0:3] * -d)
+                      .sum(-1, keepdim=True))
+    ng = geo.shade_packed[hit.prim.clamp_min(0).long(), 0:3] * side
+    gen = torch.Generator(device=o.device).manual_seed(6)
+    w = torch.nn.functional.normalize(torch.randn(o.shape, generator=gen, device=o.device), dim=-1)
+    w = torch.where((w * ng).sum(-1, keepdim=True) < 0, -w, w)
+    o2 = o + torch.where(hit.valid, hit.t, 1.0)[:, None] * d + ng * 1e-4
+    t2 = torch.where(hit.valid, 3.0e37, -1.0)
+    bvh_calls = {}
+    for label, (oo, dd, tt) in (("camera", (o, d, tmax)), ("bounce", (o2, w, t2))):
+        args = (door.bvh, geo.p0, geo.e1, geo.e2, oo, dd, tt)
+        counts = bvh_cuda(*args)[4]
+        nodes, prims = int(counts[0].sum()), int(counts[1].sum())
+        ops = nodes * BOX_OPS + prims * BVH_MT_OPS
+        # rays in, t/prim/u/v and the counts out; the node and triangle
+        # reads are left out (a lower bound)
+        b_ms, b_by = bound(DOOR_WAVE * (7 + 4 + 2) * 4, ops)
+        bvh_calls[label] = {
+            "ms": cuda_ms(lambda: bvh_cuda(*args)),
+            "plain_ms": cuda_ms(lambda: bvh_plain(*args), reps=1, warmup=0),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "work": {"nodes_popped": nodes, "triangles_tested": prims, "fp32_ops": ops}}
+    main_call = bvh_calls["camera"]
+    entries.append({
+        "name": "intersect_bvh", "route": "cuda",
+        "source": "mitsuba_path_guiding_torch/csrc/intersect_bvh.cu",
+        "replaces": "mitsuba_path_guiding_tpu/accel/traverse.py:137 (a vmapped while_loop, "
+                    "not a Pallas kernel)",
+        "launches": sum(launches["intersect_bvh"].values()),
+        "launches_by_route": launches["intersect_bvh"],
+        "max_abs_err": 0.0, "ms": main_call["ms"], "plain_ms": main_call["plain_ms"],
+        "bound_ms": main_call["bound_ms"], "bound_by": main_call["bound_by"],
+        "library_ms": None, "library": "none: no one call walks a BVH",
+        "shape": f"{DOOR_WAVE} door_room camera rays, closest hit",
+        "work": main_call["work"], "calls": bvh_calls,
+        "mrays_per_s": DOOR_WAVE / main_call["ms"] / 1e3,
+        "check": "t, prim, u, v and node and triangle counts bit-equal, closest and any-hit"})
+    emit({"phase": "new_timings", "card": card, "twolevel_routes": routes})
+    return entries
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -941,7 +1360,8 @@ def main(argv=None):
     scene = build_scene(cornell_box(), device="cuda")
     checks = phase_kernel_checks(scene)
 
-    no_pairs = {"intersect_pairs_mt": 0, "intersect_pairs_plk": 0, "intersect_blocklist": 0}
+    no_pairs = {"intersect_pairs_mt": 0, "intersect_pairs_plk": 0, "intersect_blocklist": 0,
+                "intersect_twolevel": 0, "intersect_bvh": 0}
     only_fused = {"gather_rows_t": 0, "intersect_tiled": 0, **no_pairs}
     grid, c_prog = drive("progressive", lambda: phase_progressive(scene),
                          {"gather_rows_t": None, "intersect_tiled": None, "trace_fused": 0,
@@ -955,7 +1375,8 @@ def main(argv=None):
 
     door = phase_door_build()
     checks.update(phase_door_kernel_checks(door))
-    none_of = {"intersect_tiled": 0, "trace_fused": 0}
+    none_of = {"intersect_tiled": 0, "trace_fused": 0, "intersect_twolevel": 0,
+               "intersect_bvh": 0}
     retraces = {}
 
     def route(name, fn):
@@ -972,12 +1393,27 @@ def main(argv=None):
     _, c_plk = drive("door_room_plk", route("door_room_plk", lambda: phase_door_plk(door)), {
         **none_of, "intersect_pairs_mt": 0, "intersect_pairs_plk": 2,
         "intersect_blocklist": lambda: retraces["door_room_plk"]})
+
+    interior = phase_interior()
+    door_tl = phase_door_twolevel_bvh(door)
+    _, c_sorted = drive("door_room_sorted_blocklist",
+                        lambda: phase_door_progressive(door._replace(pairs=None), DOOR_SORTED_SPP,
+                                                       "door_room_sorted_blocklist"),
+                        {**NONE_LAUNCHED, "gather_rows_t": None,
+                         "intersect_blocklist": 2 * DEPTH * DOOR_PROGRESSIONS * DOOR_SORTED_SPP
+                         * (DOOR_W * DOOR_H // DOOR_WAVE)})
+    _, c_bvh = drive("door_room_bvh", lambda: phase_door_bvh_render(door, card),
+                     {**NONE_LAUNCHED, "gather_rows_t": None,
+                      "intersect_bvh": 2 * DEPTH * DOOR_BVH_SPP * (DOOR_W * DOOR_H // DOOR_WAVE)})
     routes = {"progressive": c_prog, "frozen_render": c_frozen, "unguided_render": c_render,
-              "door_room_progressive": c_door, "door_room_plk": c_plk}
+              "door_room_progressive": c_door, "door_room_plk": c_plk, **interior["launches"],
+              "door_room_twolevel": door_tl["launches"], "door_room_sorted_blocklist": c_sorted,
+              "door_room_bvh": c_bvh}
     launches = {k: {r: c[k] for r, c in routes.items()} for k in c_prog}
 
     entries = phase_timings(scene, tables, grid, checks, launches, card)
     entries += phase_door_timings(door, checks, launches)
+    entries += phase_new_timings(interior, door_tl, door, launches, card)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

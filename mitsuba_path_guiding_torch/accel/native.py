@@ -43,13 +43,16 @@ def _load():
         so = _lib_path()
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
+            # a per-process temporary name: processes that build at the same
+            # moment never write one file, and the rename is atomic
+            tmp = f"{so}.{os.getpid()}.tmp"
             try:
-                subprocess.run(["g++", *GXX_FLAGS, SRC, "-o", so + ".tmp"],
+                subprocess.run(["g++", *GXX_FLAGS, SRC, "-o", tmp],
                                check=True, capture_output=True, text=True, timeout=120)
             except (OSError, subprocess.SubprocessError) as e:
                 raise RuntimeError(f"cannot build {SRC} with g++: "
                                    f"{getattr(e, 'stderr', None) or e}") from e
-            os.replace(so + ".tmp", so)
+            os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         f = lib.build_bvh_native
         f.restype = ctypes.c_int

@@ -4,10 +4,14 @@ accel/traverse.py).
 ``intersect_brute`` / ``occluded_brute`` are the dense all-triangle oracle
 and the plain versions of the ``intersect_tiled`` kernel; ``intersect_pallas``
 / ``occluded_pallas`` go through that kernel's wrapper (the CUDA kernel on
-the card).  Scenes of 16384 triangles or more go through
-``intersect_pairs_full`` / ``occluded_pairs_full``: the pair pipeline with
-the blocklist kernel re-tracing its unproven rays.  The BVH traversal is
-ROADMAP Queue 1 item 4.
+the card).  ``intersect_bvh`` / ``occluded`` walk the scene's BVH
+(``ops/intersect_bvh.py``, the ``intersect_bvh`` kernel on the card).
+Scenes of 16384 triangles or more carry block tables: with pair tables
+they go through ``intersect_pairs_full`` / ``occluded_pairs_full``, the
+pair pipeline with the blocklist kernel re-tracing its unproven rays;
+without, through ``intersect_twolevel`` / ``occluded_twolevel``, the
+blocklist kernel on Morton-sorted rays.  On the card each query launches
+its kernels; on the CPU it runs their plain versions.
 """
 from __future__ import annotations
 
@@ -17,8 +21,11 @@ import torch
 
 from mitsuba_path_guiding_torch.ops.intersect_blocklist import (
     intersect_blocklist_raw,
+    intersect_blocklist_sorted,
     occluded_blocklist_raw,
+    occluded_blocklist_sorted,
 )
+from mitsuba_path_guiding_torch.ops.intersect_bvh import bvh_query
 from mitsuba_path_guiding_torch.ops.intersect_pairs import intersect_pairs_raw
 from mitsuba_path_guiding_torch.ops.intersect_tiled import (
     any_plain,
@@ -26,7 +33,7 @@ from mitsuba_path_guiding_torch.ops.intersect_tiled import (
     intersect_tiled,
     pack_triangles,
 )
-from mitsuba_path_guiding_torch.scene.types import BlockList, Geometry, PairTable
+from mitsuba_path_guiding_torch.scene.types import BVH, BlockList, Geometry, PairTable
 
 INF = 3.0e38
 EPS_T = 1e-4  # min ray t (self-intersection offset)
@@ -111,3 +118,30 @@ def occluded_pairs_full(pairs: PairTable, blocks: BlockList, o, d, tmax, cap_fac
     if idx.numel():
         occ[idx] = occluded_blocklist_raw(blocks, o[idx], d[idx], tmax[idx])
     return occ
+
+
+def intersect_bvh(geo: Geometry, bvh: BVH, o, d, tmax=None, any_hit: bool = False) -> Hit:
+    """Closest hit (or, with ``any_hit``, the first hit found) through the
+    BVH; ties go to the triangle found first."""
+    t, prim, u, v, _ = bvh_query(bvh, geo.p0, geo.e1, geo.e2, o, d, _full_tmax(o, tmax), any_hit)
+    valid = prim >= 0
+    return Hit(t=torch.where(valid, t, INF), prim=prim, u=u, v=v, valid=valid)
+
+
+def occluded(geo: Geometry, bvh: BVH, o, d, tmax, use_bvh: bool = True) -> torch.Tensor:
+    """Shadow-ray visibility: True if any hit before tmax."""
+    if use_bvh:
+        return intersect_bvh(geo, bvh, o, d, tmax, any_hit=True).valid
+    return occluded_brute(geo, o, d, tmax)
+
+
+def intersect_twolevel(blocks: BlockList, o, d, tmax=None) -> Hit:
+    """Closest hit through the blocklist kernel on Morton-sorted rays: the
+    route of a big scene without pair tables."""
+    return Hit(*intersect_blocklist_sorted(blocks, o, d, _full_tmax(o, tmax)))
+
+
+def occluded_twolevel(blocks: BlockList, o, d, tmax) -> torch.Tensor:
+    """Any-hit visibility through the blocklist kernel on Morton-sorted
+    rays."""
+    return occluded_blocklist_sorted(blocks, o, d, tmax)

@@ -4,8 +4,8 @@ The JAX package's ``SceneData`` and ``GuidingGrid`` reach this module as
 plain dictionaries of numpy arrays (nested containers as nested
 dictionaries, ``None`` fields kept), so the same compiled scene and the
 same trained grid can be fed to both packages.  The BVH, blocklist and
-pair tables come across too (the port builds its big-scene intersectors'
-tables from them; it does not traverse the BVH, ROADMAP Queue 1 item 4).
+pair tables come across too, and a two-level ``BlockTable``
+(``ops/intersect_twolevel.py``) through ``block_table_from_numpy``.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 
 from mitsuba_path_guiding_torch.core.device import resolve_device
 from mitsuba_path_guiding_torch.guiding.grid import GuidingGrid
+from mitsuba_path_guiding_torch.ops.intersect_twolevel import BlockTable
 from mitsuba_path_guiding_torch.scene.types import (
     BVH,
     BlockList,
@@ -81,6 +82,12 @@ def scene_from_numpy(d: dict, device=None) -> SceneData:
         blocks=_tables(BlockList, d.get("blocks"), dev, host=("n_blocks",)),
         pairs=_tables(PairTable, d.get("pairs"), dev),
     )
+
+
+def block_table_from_numpy(d: dict, device=None):
+    """Two-level BlockTable on ``device`` from the reference's numpy
+    arrays."""
+    return _fill(BlockTable, d, resolve_device(device))
 
 
 def grid_from_numpy(d: dict, device=None) -> GuidingGrid:

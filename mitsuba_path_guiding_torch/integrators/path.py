@@ -7,17 +7,12 @@ guided sampling, RR} runs on the whole wavefront.  Per hit, the shading
 row and the emitter row are fetched through ``ops.gather.gather_rows_t``
 and the material row once per bounce through ``bsdf.gather_params``
 (reused by NEE evaluation, sampling and the albedo AOV).  Intersection
-goes, for a scene with pair tables (16384 triangles or more), through
-``accel.traverse.intersect_pairs_full`` / ``occluded_pairs_full`` (the
-pair and blocklist kernels on the card) with the reference's constants
-below; otherwise through ``intersect_pallas`` / ``occluded_pallas`` (the
-``intersect_tiled`` kernel on the card) unless ``accel="brute"`` asks for
-the dense oracle.
+follows the reference's routing with the card in the TPU's place
+(``trace``'s docstring): pair route, Morton-sorted blocklist, BVH,
+tiled kernel or dense oracle.
 
-Not ported here (they raise): BVH traversal (``use_bvh=True`` or
-``accel="bvh"`` on a scene without pair tables, ROADMAP Queue 1 item 4),
-textures, bump maps and cloth, explicit ``uniforms`` and transparent
-shadows (Queue 1 items 5 and 9).
+Not ported here (they raise): textures, bump maps and cloth, explicit
+``uniforms`` and transparent shadows (ROADMAP Queue 1 items 4 and 9).
 """
 from __future__ import annotations
 
@@ -27,13 +22,17 @@ import torch
 
 from mitsuba_path_guiding_torch.accel.traverse import (
     intersect_brute,
+    intersect_bvh,
     intersect_pairs_full,
     intersect_pallas,
+    intersect_twolevel,
     occluded_brute,
     occluded_pairs_full,
     occluded_pallas,
+    occluded_twolevel,
     tri_pack_rows,
 )
+from mitsuba_path_guiding_torch.accel.traverse import occluded as occluded_bvh
 from mitsuba_path_guiding_torch.core.math import Frame, dot, normalize, power_heuristic
 from mitsuba_path_guiding_torch.core.rng import bounce_uniform
 from mitsuba_path_guiding_torch.core.spectrum import luminance
@@ -81,8 +80,8 @@ def _offset_ray(p, ng, d):
 def _check_supported(scene, use_bvh, accel, textured, bumped, clothed, uniforms, cone_angle):
     if accel not in ("auto", "pallas", "brute", "bvh", "twolevel"):
         raise ValueError(f"unknown accel '{accel}'")
-    if scene.pairs is None and (use_bvh or accel in ("bvh", "twolevel")):
-        raise NotImplementedError("BVH traversal: ROADMAP Queue 1 item 4")
+    if accel == "twolevel" and scene.blocks is None:
+        raise ValueError("accel='twolevel' needs block tables (16384 triangles or more)")
     if textured or bumped or clothed or cone_angle > 0.0:
         raise NotImplementedError("textures, bump maps and cloth: ROADMAP Queue 1 item 9")
     if uniforms is not None:
@@ -112,19 +111,25 @@ def trace(
 ):
     """Trace one wavefront to completion.
 
-    Returns (L (N, 3), PathAux, PathRecord | None).  A scene with pair
-    tables (16384 triangles or more) takes the pair route unless ``accel``
-    is "brute" or "pallas": every closest-hit and shadow query goes
-    through the pair pipeline and the blocklist fallback (their kernels on
-    the card, their plain versions on the CPU).  Otherwise "auto" and
-    "pallas" take the tiled intersector; "brute" the dense oracle."""
+    Returns (L (N, 3), PathAux, PathRecord | None).  Every closest-hit and
+    shadow query of the wave takes one route, the reference's with the
+    card in the TPU's place (its kernels on the card, their plain versions
+    on the CPU):
+    - "auto" or "twolevel" on a scene with block tables (16384 triangles
+      or more): the pair route if it has pair tables, else the blocklist
+      on Morton-sorted rays ("twolevel" raises without block tables);
+    - "bvh", or "auto" on a smaller scene with ``use_bvh``: the BVH, for
+      shadows too;
+    - "pallas", or "auto" otherwise: the tiled intersector;
+    - "brute": the dense oracle."""
     _check_supported(scene, use_bvh, accel, textured, bumped, clothed, uniforms, cone_angle)
     bsdf_mod.check_types(mat_types)
     em_mod.check_kinds(em_kinds)
     n = ray_o.shape[0]
     dev = ray_o.device
     geo, mats, em = scene.geo, scene.mats, scene.emitters
-    if scene.pairs is not None and accel in ("auto", "bvh", "twolevel"):
+    blocks_route = accel == "twolevel" or (accel == "auto" and scene.blocks is not None)
+    if blocks_route and scene.pairs is not None:
         kw = dict(cap_factor=PAIR_CAP, engine=PAIR_ENGINE)
 
         def intersect(o, d, tmax):
@@ -132,6 +137,18 @@ def trace(
 
         def occluded(o, d, tmax):
             return occluded_pairs_full(scene.pairs, scene.blocks, o, d, tmax, **kw)
+    elif blocks_route:
+        def intersect(o, d, tmax):
+            return intersect_twolevel(scene.blocks, o, d, tmax)
+
+        def occluded(o, d, tmax):
+            return occluded_twolevel(scene.blocks, o, d, tmax)
+    elif accel == "bvh" or (accel == "auto" and use_bvh):
+        def intersect(o, d, tmax):
+            return intersect_bvh(geo, scene.bvh, o, d, tmax)
+
+        def occluded(o, d, tmax):
+            return occluded_bvh(geo, scene.bvh, o, d, tmax)
     elif accel == "brute":
         def intersect(o, d, tmax):
             return intersect_brute(geo, o, d, tmax)

@@ -31,14 +31,15 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "torch_kernels")
 KERNEL_SOURCES = ("gather_rows", "intersect_tiled", "fused_path", "intersect_pairs",
-                  "intersect_blocklist")
+                  "intersect_blocklist", "intersect_twolevel", "intersect_bvh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
 LAUNCHES = {"gather_rows_t": 0, "intersect_tiled": 0, "trace_fused": 0,
-            "intersect_pairs_mt": 0, "intersect_pairs_plk": 0, "intersect_blocklist": 0}
+            "intersect_pairs_mt": 0, "intersect_pairs_plk": 0, "intersect_blocklist": 0,
+            "intersect_twolevel": 0, "intersect_bvh": 0}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

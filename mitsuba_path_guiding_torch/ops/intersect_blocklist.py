@@ -22,6 +22,12 @@ superblocks walked, (block, half tile) visits, and the triangle tests the
 data needed (per visit, the rays of the half tile whose own gate passed
 the block and whose t still admits a hit, times the block's real
 triangles).
+
+``intersect_blocklist_sorted`` / ``occluded_blocklist_sorted``, the
+route of a big scene without pair tables, sort the rays of a wave by a
+Morton key of origin cell and direction (``_ray_sort_keys``) before the
+call, so that a tile's rays are close in both, and scatter the results
+back.
 """
 from __future__ import annotations
 
@@ -45,6 +51,8 @@ MAX_CAND = 128   # candidate-list width (walk-everything above it)
 # their superblocks, exactly where the reference's do.
 CAND_TABLE_INTS = 768 * 1024 // 4
 INF_HI = 0x7F80  # f32 +inf bits >> 16
+SORT_POS_BITS = 4  # origin cell bits per axis of the sorted route's key
+SORT_DIR_BITS = 5  # direction bits per octahedral component
 
 _FN: dict = {}
 
@@ -116,8 +124,8 @@ def _tile_rays(o_p, d_p):
     return ray, inv
 
 
-def _mt_block(tri, ray, any_hit):
-    """Dense MT of rays (6, M, 128) against blocks tri (M, 10, 128):
+def mt_block(tri, ray, any_hit):
+    """Dense MT of rays (6, M, L) against blocks tri (M, 10, 128):
     per ray the block's least t and, among equal t, least id, with its
     u, v (closest), or the per-(tri, ray) hit t (any-hit)."""
     def tcol(c):
@@ -207,11 +215,11 @@ def blocklist_plain(bl: BlockList, o_p, d_p, t_p, cand, cnt, any_hit: bool = Fal
                 rays = (gate[sel, b, lanes] & (cur > EPS_T)).sum(dim=1, dtype=torch.int32)
                 work[ti, 2] += rays * (tri[:, 9, :] >= 0.0).sum(dim=1, dtype=torch.int32)
                 if any_hit:
-                    got = torch.any(_mt_block(tri, rr, True) < cur[:, None, :], dim=1)
+                    got = torch.any(mt_block(tri, rr, True) < cur[:, None, :], dim=1)
                     out[0, ti, lanes] = torch.where(got, -1.0, cur)
                     out[1, ti, lanes] = torch.where(got, 1.0, out[1, ti, lanes])
                 else:
-                    t_b, p_b, u_b, v_b = _mt_block(tri, rr, False)
+                    t_b, p_b, u_b, v_b = mt_block(tri, rr, False)
                     take = t_b < cur
                     for row, val in ((0, t_b), (1, p_b), (2, u_b), (3, v_b)):
                         out[row, ti, lanes] = torch.where(take, val, out[row, ti, lanes])
@@ -297,3 +305,65 @@ def intersect_blocklist_raw(bl: BlockList, o, d, tmax, k: int = MAX_CAND):
 def occluded_blocklist_raw(bl: BlockList, o, d, tmax, k: int = MAX_CAND):
     """Any-hit: True where some triangle lies within (EPS_T, tmax)."""
     return blocklist_run(bl, o, d, tmax, k, any_hit=True)[0][1, :o.shape[0]] > 0.0
+
+
+def spread3(v):
+    """Spread the low 10 bits of int32 v to every third bit."""
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    return (v | (v << 2)) & 0x09249249
+
+
+def _spread2(v):
+    """Spread the low 16 bits of int32 v to every second bit."""
+    v = (v | (v << 8)) & 0x00FF00FF
+    v = (v | (v << 4)) & 0x0F0F0F0F
+    v = (v | (v << 2)) & 0x33333333
+    return (v | (v << 1)) & 0x55555555
+
+
+def _ray_sort_keys(bl: BlockList, o, d):
+    """int32 key: the Morton code of the origin's cell (SORT_POS_BITS per
+    axis in the scene box), then the 2-D Morton code of the octahedral map
+    of the direction (SORT_DIR_BITS per component).  Cells are coarse so
+    that one holds several tiles of rays, whose directions the low bits
+    then order."""
+    lo = torch.min(bl.sb_lo, dim=0).values
+    hi = torch.max(bl.sb_hi, dim=0).values
+    q = torch.clamp((o - lo) / torch.clamp_min(hi - lo, 1e-9), 0.0, 1.0 - 1e-6)
+    cell = (q * float(1 << SORT_POS_BITS)).to(torch.int32)
+    m = (spread3(cell[:, 0]) << 2) | (spread3(cell[:, 1]) << 1) | spread3(cell[:, 2])
+    ad = torch.abs(d)
+    an = ad[:, 0] + ad[:, 1] + ad[:, 2]
+    px = d[:, 0] / an
+    py = d[:, 1] / an
+    ox = torch.where(d[:, 2] < 0, (1 - torch.abs(py)) * torch.sign(px), px)
+    oy = torch.where(d[:, 2] < 0, (1 - torch.abs(px)) * torch.sign(py), py)
+    dres = 1 << SORT_DIR_BITS
+    qu = torch.clamp(((ox + 1) * 0.5 * dres).to(torch.int32), 0, dres - 1)
+    qv = torch.clamp(((oy + 1) * 0.5 * dres).to(torch.int32), 0, dres - 1)
+    return (m << (2 * SORT_DIR_BITS)) | (_spread2(qu) << 1) | _spread2(qv)
+
+
+def unsort(perm, *xs):
+    """Scatter results computed in ``perm`` order back to ray order."""
+    outs = []
+    for x in xs:
+        y = torch.empty_like(x)
+        y[perm] = x
+        outs.append(y)
+    return tuple(outs)
+
+
+def occluded_blocklist_sorted(bl: BlockList, o, d, tmax):
+    """Any-hit on rays sorted by ``_ray_sort_keys`` (stable), scattered
+    back to ray order."""
+    perm = torch.argsort(_ray_sort_keys(bl, o, d), stable=True)
+    return unsort(perm, occluded_blocklist_raw(bl, o[perm], d[perm], tmax[perm]))[0]
+
+
+def intersect_blocklist_sorted(bl: BlockList, o, d, tmax):
+    """Closest hit on rays sorted by ``_ray_sort_keys`` (stable),
+    scattered back to ray order."""
+    perm = torch.argsort(_ray_sort_keys(bl, o, d), stable=True)
+    return unsort(perm, *intersect_blocklist_raw(bl, o[perm], d[perm], tmax[perm]))

@@ -3,11 +3,12 @@
 Port of the reference's scene/builder.py ``build_scene`` for the port's
 subset: triangle shapes (with shape groups and instances flattened),
 ``diffuse`` and ``roughconductor`` materials, ``area`` emitters on shapes
-and the perspective pinhole sensor.  From 16384 triangles on the scene
-also carries its BVH and the blocklist and pair tables of the big-scene
-intersectors.  The arrays are computed host-side in numpy with the
-reference's exact arithmetic, so a compiled scene is equal to the JAX
-build array for array.  Anything else raises ``NotImplementedError``
+and the perspective pinhole sensor.  Every scene carries its BVH (built
+by the native builder, so a compile needs g++; its depth is checked
+against the traversal stack); from 16384 triangles on it also carries
+the blocklist and pair tables of the big-scene intersectors.  The arrays
+are computed host-side in numpy with the reference's exact arithmetic,
+so a compiled scene is equal to the JAX build array for array.  Anything else raises ``NotImplementedError``
 naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
@@ -20,6 +21,7 @@ from mitsuba_path_guiding_torch.accel.bvh import build_bvh, to_device
 from mitsuba_path_guiding_torch.accel.pairs import build_pair_table
 from mitsuba_path_guiding_torch.core.device import resolve_device
 from mitsuba_path_guiding_torch.core.spectrum import LUM_WEIGHTS_NP
+from mitsuba_path_guiding_torch.ops.intersect_bvh import STACK_SIZE
 from mitsuba_path_guiding_torch.scene.shapes import SHAPE_BUILDERS
 from mitsuba_path_guiding_torch.scene.transforms import look_at, scale, translate
 from mitsuba_path_guiding_torch.scene.types import (
@@ -34,8 +36,8 @@ from mitsuba_path_guiding_torch.scene.types import (
     SensorKind,
 )
 
-# From this triangle count on, the scene carries the BVH and the pair and
-# blocklist tables of the big-scene intersectors, as in the reference.
+# From this triangle count on, the scene carries the pair and blocklist
+# tables of the big-scene intersectors, as in the reference.
 TWOLEVEL_MIN_TRIS = 16384
 N_COS = 16  # rough-coating transmittance table width (all zero here)
 
@@ -223,13 +225,15 @@ def build_scene(desc: dict, device=None) -> SceneData:
     tri_mat_np = np.asarray(tri_mat, dtype=np.int32)
     tri_em_np = np.asarray(tri_emitter, dtype=np.int32)
     T = len(tri_mat_np)
-    bvh = blocks = pairs = None
+    # the tables are cut from host arrays and moved to the device once
+    bvh = build_bvh(h["p0"], h["e1"], h["e2"])
+    if bvh.max_depth + 2 > STACK_SIZE:
+        raise ValueError(f"BVH depth {bvh.max_depth} exceeds traversal stack {STACK_SIZE}")
+    blocks = pairs = None
     if T >= TWOLEVEL_MIN_TRIS:
-        # the tables are cut from host arrays and moved to the device once
-        bvh = build_bvh(h["p0"], h["e1"], h["e2"])
         blocks = to_device(build_blocklist(h["p0"], h["e1"], h["e2"], bvh), dev)
         pairs = to_device(build_pair_table(h["p0"], h["e1"], h["e2"], bvh), dev)
-        bvh = to_device(bvh, dev)
+    bvh = to_device(bvh, dev)
 
     # packed shading rows (see the Geometry.shade_packed layout)
     gn = np.cross(h["e1"], h["e2"])

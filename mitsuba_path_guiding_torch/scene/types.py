@@ -152,8 +152,9 @@ class BVH(NamedTuple):
     """Flattened binary BVH (host-built, accel/bvh.py).  Internal node i:
     child0[i], child1[i] >= 0; leaf: child0[i] = -(prim_start + 1),
     child1[i] = -prim_count; ``prim_idx`` permutes into the Geometry
-    arrays.  The port builds its tables from it but does not traverse it
-    (ROADMAP Queue 1 item 4)."""
+    arrays.  Every compiled scene carries one; ``accel/traverse.py``
+    ``intersect_bvh`` walks it, and the block and pair tables are cut
+    from it."""
 
     node_min: torch.Tensor  # (Nn, 3)
     node_max: torch.Tensor  # (Nn, 3)

@@ -1,0 +1,167 @@
+"""The port's BVH traversal (ops/intersect_bvh.py, accel/traverse.py) and
+the routes of ``trace`` that take it or the sorted blocklist, against the
+JAX package on the CPU, on door_room(20000) (17510 triangles): the plain
+version of the kernel gives JAX's ``intersect_bvh`` hits and occlusion on
+camera and random rays; ``trace(accel="bvh")`` gives JAX's; the scene
+without pair tables takes the Morton-sorted blocklist and gives the pair
+route's radiance."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mitsuba_path_guiding_torch.accel.traverse import intersect_bvh, occluded
+from mitsuba_path_guiding_torch.integrators.path import trace
+from mitsuba_path_guiding_torch.models.bsdf import types_present
+from mitsuba_path_guiding_torch.ops import build
+from mitsuba_path_guiding_torch.ops.intersect_bvh import bvh_plain
+from mitsuba_path_guiding_torch.scene.builder import build_scene
+from mitsuba_path_guiding_torch.scene.scenes import cornell_box, door_room
+from mitsuba_path_guiding_tpu.accel import traverse as jtrav
+from mitsuba_path_guiding_tpu.core import rng as jrng
+from mitsuba_path_guiding_tpu.integrators.path import trace as j_trace
+from mitsuba_path_guiding_tpu.models.sensor import generate_rays as j_generate_rays
+from mitsuba_path_guiding_tpu.scene.builder import build_scene as j_build_scene
+from mitsuba_path_guiding_tpu.scene.scenes import door_room as j_door_room
+from torch_port_parity import frac_close, t
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this module runs: its plain versions run
+    many mid-sized tensor ops, and with a thread pool in every worker of
+    the parallel test runner the CPU's cores are oversubscribed."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+TRIS = 20000
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    return j_build_scene(j_door_room(TRIS)), build_scene(door_room(TRIS), device="cpu")
+
+
+def _camera(jscene, w, h, seed=0):
+    pix = jnp.arange(w * h, dtype=jnp.int32)
+    kj = jrng.ray_keys(jrng.base_key(seed), pix, jnp.zeros_like(pix))
+    u = jrng.event_uniform(kj, jrng.TAG_CAMERA, 2)
+    o, d, _ = j_generate_rays(jscene.sensor, w, h, pix, u)
+    return np.asarray(o), np.asarray(d), kj
+
+
+def _random(scene, n, seed):
+    rs = np.random.default_rng(seed)
+    lo, hi = scene.aabb_min.numpy(), scene.aabb_max.numpy()
+    o = (lo + (hi - lo) * rs.random((n, 3))).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d[:16, 1] = 0.0                      # rays parallel to a slab
+    d[:16] /= np.linalg.norm(d[:16], axis=-1, keepdims=True)
+    sel = rs.integers(0, 3, n)
+    tmax = np.where(sel == 0, 3.0e38, np.where(sel == 1, 4.0 * rs.random(n), -1.0))
+    return o, d, tmax.astype(np.float32)
+
+
+@pytest.mark.parametrize("rays", ["camera", "random"])
+def test_bvh_matches_the_reference(scenes, rays):
+    """Closest hit: valid and prim equal (ties go to the triangle found
+    first in both), t within 4e-6 relative, u and v within 5e-5 on 99.9%
+    of hits and 1e-3 on all (XLA contracts multiply-adds on the CPU; a
+    grazing triangle's 1/det scales those few ulps); any-hit: occlusion
+    equal."""
+    jscene, scene = scenes
+    if rays == "camera":
+        o, d, _ = _camera(jscene, 64, 64)
+        tmax = np.full((o.shape[0],), 3.0e38, np.float32)
+    else:
+        o, d, tmax = _random(scene, 3000, 7)
+    build.reset_launches()
+    got = intersect_bvh(scene.geo, scene.bvh, t(o), t(d), t(tmax))
+    occ = occluded(scene.geo, scene.bvh, t(o), t(d), t(tmax))
+    assert sum(build.LAUNCHES.values()) == 0  # the CPU takes the plain version
+    jo, jd, jt = jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax)
+    want = jtrav.intersect_bvh(jscene.geo, jscene.bvh, jo, jd, jt)
+    jocc = np.asarray(jtrav.occluded(jscene.geo, jscene.bvh, jo, jd, jt))
+    valid = np.asarray(want.valid)
+    assert 0.3 < valid.mean() and 0.1 < jocc.mean()
+    np.testing.assert_array_equal(got.valid.numpy(), valid)
+    np.testing.assert_array_equal(got.prim.numpy(), np.asarray(want.prim))
+    np.testing.assert_allclose(got.t.numpy()[valid], np.asarray(want.t)[valid], rtol=4e-6)
+    for a, b in ((got.u, want.u), (got.v, want.v)):
+        err = np.abs(a.numpy()[valid] - np.asarray(b)[valid])
+        assert (err <= 5e-5).mean() >= 0.999 and err.max() <= 1e-3
+    np.testing.assert_array_equal(occ.numpy(), jocc)
+    np.testing.assert_array_equal(occ.numpy(), valid)  # tmax bounds both queries
+
+
+def test_bvh_work_counts(scenes):
+    """Nodes popped and triangles tested: any-hit does at most the
+    closest-hit walk's work, at most 4 triangles a node.  The box test
+    compares the entry distance, negative inside a box, with tmax, so a
+    ray with tmax -1 still walks the boxes around its origin (as in the
+    reference), and hits nothing."""
+    _, scene = scenes
+    o, d, tmax = (torch.from_numpy(x) for x in _random(scene, 1000, 8))
+    g = scene.geo
+    _, prim, _, _, closest = bvh_plain(scene.bvh, g.p0, g.e1, g.e2, o, d, tmax)
+    *_, anyhit = bvh_plain(scene.bvh, g.p0, g.e1, g.e2, o, d, tmax, any_hit=True)
+    assert (anyhit <= closest).all() and (closest[1] <= 4 * closest[0]).all()
+    assert (closest[0] >= 1).all() and closest[0].float().mean() > 10
+    assert (anyhit.sum(dim=1) < closest.sum(dim=1)).all()
+    assert (prim[tmax < 0] == -1).all()
+
+
+def _trace_inputs(jscene):
+    o, d, kj = _camera(jscene, 16, 16)
+    return o, d, kj
+
+
+def test_trace_bvh_route_matches_the_reference(scenes):
+    jscene, scene = scenes
+    o, d, kj = _trace_inputs(jscene)
+    types = types_present(scene.mats)
+    Lj, auxj, _ = j_trace(jscene, jnp.asarray(o), jnp.asarray(d), kj, max_depth=5,
+                          use_bvh=True, accel="bvh", em_kinds=(0,), mat_types=types)
+    Lt, auxt, _ = trace(scene, t(o), t(d), t(kj), max_depth=5, accel="bvh", em_kinds=(0,),
+                        mat_types=types)
+    Lj = np.asarray(Lj)
+    assert Lj.mean() > 0.0
+    assert frac_close(Lt.numpy(), Lj, rtol=1e-4) >= 0.99
+    assert (auxt.n_bounces.numpy() == np.asarray(auxj.n_bounces)).mean() >= 0.99
+
+
+def test_sorted_blocklist_route_matches_the_pair_route(scenes):
+    """Without pair tables "auto" takes the blocklist on sorted rays; both
+    routes find the nearest triangle, so the radiance agrees."""
+    jscene, scene = scenes
+    o, d, kj = _trace_inputs(jscene)
+    types = types_present(scene.mats)
+    kw = dict(max_depth=5, em_kinds=(0,), mat_types=types)
+    L_pair, aux_pair, _ = trace(scene, t(o), t(d), t(kj), **kw)
+    L_sorted, aux_sorted, _ = trace(scene._replace(pairs=None), t(o), t(d), t(kj), **kw)
+    assert L_pair.mean() > 0.0
+    assert frac_close(L_sorted.numpy(), L_pair.numpy(), rtol=1e-4) >= 0.99
+    assert (aux_sorted.n_bounces == aux_pair.n_bounces).float().mean() >= 0.99
+
+
+def test_routes_of_a_small_scene():
+    """A small scene carries a BVH and no block tables: "bvh" and
+    ``use_bvh`` walk it, "twolevel" raises."""
+    scene = build_scene(cornell_box(), device="cpu")
+    assert scene.bvh is not None and scene.blocks is None
+    o = ((scene.aabb_min + scene.aabb_max) / 2).expand(64, 3).contiguous()
+    d = torch.nn.functional.normalize(torch.randn((64, 3), generator=torch.Generator()
+                                                  .manual_seed(0)), dim=-1)
+    keys = torch.randint(0, 2**32, (64, 2), generator=torch.Generator().manual_seed(1))
+    kw = dict(max_depth=3, em_kinds=(0,), mat_types=types_present(scene.mats))
+    L_bvh, _, _ = trace(scene, o, d, keys, accel="bvh", **kw)
+    L_flag, _, _ = trace(scene, o, d, keys, use_bvh=True, **kw)
+    L_tiled, _, _ = trace(scene, o, d, keys, **kw)
+    assert torch.equal(L_bvh, L_flag) and L_bvh.mean() > 0.0
+    assert frac_close(L_bvh.numpy(), L_tiled.numpy(), rtol=1e-4) >= 0.99
+    with pytest.raises(ValueError, match="block tables"):
+        trace(scene, o, d, keys, accel="twolevel", **kw)

@@ -168,3 +168,36 @@ def test_pairs_full_equals_the_oracle(door):
     assert build.LAUNCHES["intersect_blocklist"] == 2
     assert torch.equal(hit.prim, intersect_brute(door.geo, o, d, tmax).prim)
     assert torch.equal(occ, occluded_brute(door.geo, o, d, tmax))
+
+
+def test_twolevel_matches_plain(door):
+    from mitsuba_path_guiding_torch.ops import intersect_twolevel as tl
+
+    bt = tl.build_blocks(door.geo.p0.cpu().numpy(), door.geo.e1.cpu().numpy(),
+                         door.geo.e2.cpu().numpy(), device="cuda")
+    o, d, tmax, _ = _rays(door, 3000, 6)
+    ray, tmax_p = tl._pad_rays(o, d, tmax)
+    mask, order = tl.superblock_mask(bt, o, d, tmax)
+    before = build.LAUNCHES["intersect_twolevel"]
+    got, gw = tl.twolevel_cuda(bt, ray, tmax_p, mask, order)
+    want, ww = tl.twolevel_plain(bt, ray, tmax_p, mask, order)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["intersect_twolevel"] == before + 1
+    assert (want[1] >= 0).sum() > 100
+    assert torch.equal(got, want) and torch.equal(gw, ww)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bvh_matches_plain(door, any_hit):
+    from mitsuba_path_guiding_torch.ops.intersect_bvh import bvh_cuda, bvh_plain
+
+    g = door.geo
+    o, d, tmax, _ = _rays(door, 20_000, 7)
+    before = build.LAUNCHES["intersect_bvh"]
+    got = bvh_cuda(door.bvh, g.p0, g.e1, g.e2, o, d, tmax, any_hit)
+    want = bvh_plain(door.bvh, g.p0, g.e1, g.e2, o, d, tmax, any_hit)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["intersect_bvh"] == before + 1
+    assert (want[1] >= 0).sum() > 100
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
