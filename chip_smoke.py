@@ -32,17 +32,21 @@ Phases:
      wave and 262144 random rays: the MT and Pluecker pair tiles on their
      sorted pairs, closest and any-hit (t and prim equal on >= 99.99% of
      pairs, t within 1e-5 relative); the blocklist kernel on 16384 random
-     rays, on all 262144 camera rays and with k=1 (overflow) on 16384
-     random rays (prim equal on >= 99.99%, t/u/v within 1e-5, work counts
-     equal on >= 99.9% of tiles); intersect_pairs_full (mt and plk) and
+     rays, on all 262144 camera rays, with k=1 (overflow) on 16384 random
+     rays, and on the calls of blocklist_calls (the pair route's fallback
+     of a first bounce and of a camera wave, a 131072-ray sorted bounce
+     wave), closest and any-hit: t, prim, u, v bits and the work counts
+     equal to the plain version's; intersect_pairs_full (mt and plk) and
      occluded_pairs_full on 8192 rays of each set against the dense
      oracle (occlusion equal on every ray, prim on every ray but the
      known misses of DOOR_E2E_MISSES);
   6. the door_room main path: ProgressiveRenderer at 512x512, depth 5,
      4 spp x 2 progressions, a 16^3 grid of 8 lobes, guiding on; the image
      must be finite, non-black, within max(3%, 4 standard errors) of the
-     JAX reference mean below, and the grid must have valid cells; then
-     one wave of both queries through the Pluecker engine;
+     JAX reference mean below, and the grid must have valid cells; the
+     blocklist's kernel time summed over the render's launches (CUDA
+     events around each); then one wave of both queries through the
+     Pluecker engine;
   7. the interior scene of tools/profile_blocklist_torch.py
      (make_interior(300000): 294924 triangles, 37 two-level superblocks)
      with its 524288 camera rays and 524288 bounce rays, each wave
@@ -60,14 +64,17 @@ Phases:
      ties);
   9. door_room without pair tables through the Morton-sorted blocklist
      route: ProgressiveRenderer at 512x512, depth 5, 2 spp x 2
-     progressions, guided, held to the reference mean as in 6; then the
+     progressions, guided, held to the reference mean as in 6, with the
+     blocklist's summed kernel time as in 6; then the
      BVH route: four 131072-ray waves (512x512 x 2 spp, unguided) through
      trace(accel="bvh"), splatted, held to the reference mean with the
      standard error of the two spp;
   10. CUDA-event timings (median of 7) of each kernel, its plain version
      and, where one exists, the one-call PyTorch yardstick; the "kernels"
-     line with bounds from this run's inputs, and the Mrays/s of the
-     sorted two-level, sorted blocklist and BVH routes.
+     line with bounds from this run's inputs (for the blocklist, on its
+     three calls of 5, with launch geometry, the tests run and the tests
+     needed), and the Mrays/s of the sorted two-level, sorted blocklist
+     and BVH routes.
 
 Each main-path route runs with the launch counts set to 0 just before it
 and read just after it, and is held to the kernels it must launch: the
@@ -627,7 +634,102 @@ def _pair_set(scene, o, d, tmax):
     return pair_tiles(skeys, spays, o, d, tmax)
 
 
-def phase_door_kernel_checks(scene):
+def first_bounce(scene, o, d, tmax, seed):
+    """Diffuse bounce rays from the camera hits of (o, d) through the pair
+    route: (origin, direction, tmax), tmax -1 where the camera ray missed."""
+    import torch
+
+    from mitsuba_path_guiding_torch.accel.traverse import intersect_pairs_full
+    from mitsuba_path_guiding_torch.integrators.path import PAIR_CAP
+
+    geo = scene.geo
+    hit = intersect_pairs_full(scene.pairs, scene.blocks, o, d, tmax, cap_factor=PAIR_CAP)
+    ng = geo.shade_packed[hit.prim.clamp_min(0).long(), 0:3]
+    ng = ng * torch.sign((ng * -d).sum(-1, keepdim=True))
+    gen = torch.Generator(device=o.device).manual_seed(seed)
+    w = torch.nn.functional.normalize(torch.randn(o.shape, generator=gen, device=o.device), dim=-1)
+    w = torch.where((w * ng).sum(-1, keepdim=True) < 0, -w, w)
+    o2 = o + torch.where(hit.valid, hit.t, 1.0)[:, None] * d + ng * 1e-4
+    return o2, w, torch.where(hit.valid, 3.0e37, -1.0)
+
+
+def blocklist_calls(scene, sorted_camera=False):
+    """The blocklist kernel's inputs on calls of the main paths, from the
+    second 131072-ray camera wave of door_room at 512x512 (seed 9) and its
+    first bounce (seed 4): the pair route's fallback of the bounce and of
+    the wave (their unproven rays), and the bounce wave sorted as the
+    sorted route sorts it (512 tiles); with ``sorted_camera`` the camera
+    wave sorted too.  Returns {label: ((bl, o_p, d_p, t_p, cand, cnt),
+    info)}."""
+    import torch
+
+    from mitsuba_path_guiding_torch.accel.traverse import _retrace
+    from mitsuba_path_guiding_torch.integrators.path import PAIR_CAP
+    from mitsuba_path_guiding_torch.ops.intersect_blocklist import (
+        _pad_rays,
+        _ray_sort_keys,
+        cand_width,
+        candidate_superblocks,
+    )
+    from mitsuba_path_guiding_torch.ops.intersect_pairs import intersect_pairs_raw
+
+    bl = scene.blocks
+    o, d, _ = camera_rays(scene, 1, 9, w=DOOR_W, h=DOOR_H)
+    o, d = o[DOOR_WAVE:2 * DOOR_WAVE], d[DOOR_WAVE:2 * DOOR_WAVE]
+    tmax = torch.full((DOOR_WAVE,), 3.0e37, device=o.device)
+    bounce = first_bounce(scene, o, d, tmax, 4)
+
+    def call(oo, dd, tt, **info):
+        o_p, d_p, t_p, npad = _pad_rays(oo, dd, tt)
+        k = cand_width(npad, bl.sb_lo.shape[0])
+        cand, cnt = candidate_superblocks(bl.sb_lo, bl.sb_hi, o_p, d_p, t_p, k)
+        return (bl, o_p, d_p, t_p, cand, cnt), {"rays": npad, "k": k,
+                                                "overflow_tiles": int((cnt > k).sum()), **info}
+
+    calls = {}
+    for label, (oo, dd, tt) in (("bounce_fallback", bounce), ("camera_fallback", (o, d, tmax))):
+        idx = _retrace(intersect_pairs_raw(scene.pairs, oo, dd, tt, cap_factor=PAIR_CAP)[-1])
+        calls[label] = call(oo[idx], dd[idx], tt[idx], unproven=int(idx.numel()))
+    waves = [("sorted_bounce_wave", bounce)]
+    if sorted_camera:
+        waves.append(("sorted_camera_wave", (o, d, tmax)))
+    for label, (oo, dd, tt) in waves:
+        perm = torch.argsort(_ray_sort_keys(bl, oo, dd), stable=True)
+        calls[label] = call(oo[perm], dd[perm], tt[perm])
+    return calls
+
+
+def blocklist_kernel_time(fn):
+    """Run ``fn`` with every blocklist launch bracketed by CUDA events.
+    Returns (fn's result, {"launches": n, "kernel_ms_sum": the summed
+    event times})."""
+    import torch
+
+    from mitsuba_path_guiding_torch.ops import intersect_blocklist as ib
+
+    real = ib.blocklist_cuda
+    events = []
+
+    def timed(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(*args, **kw)
+        b.record()
+        events.append((a, b))
+        return out
+
+    ib.blocklist_cuda = timed
+    try:
+        out = fn()
+    finally:
+        ib.blocklist_cuda = real
+    torch.cuda.synchronize()
+    return out, {"launches": len(events),
+                 "kernel_ms_sum": sum(a.elapsed_time(b) for a, b in events)}
+
+
+def phase_door_kernel_checks(scene, bl_calls):
     import torch
 
     from mitsuba_path_guiding_torch.accel.traverse import intersect_pairs_full, occluded_pairs_full
@@ -638,6 +740,7 @@ def phase_door_kernel_checks(scene):
         blocklist_plain,
         cand_width,
         candidate_superblocks,
+        launch_shape,
     )
     from mitsuba_path_guiding_torch.ops.intersect_pairs import (
         INF,
@@ -681,35 +784,35 @@ def phase_door_kernel_checks(scene):
                 worst[engine] = max(worst[engine], err)
 
     # blocklist: the fallback-sized call on random rays, a full wave of
-    # camera rays, and a k=1 (overflow) call
-    calls = (("fallback_random", sets["random"], n // 16, 128),
-             ("full_camera", sets["camera"], n, 128),
-             ("overflow_random", sets["random"], n // 16, 1))
-    for label, (o, d, tmax), m, k in calls:
+    # camera rays, a k=1 (overflow) call, and the calls of blocklist_calls;
+    # t, prim, u, v bits and the work counts equal to the plain version's
+    calls = {}
+    for label, (o, d, tmax), m, k in (("fallback_random", sets["random"], n // 16, 128),
+                                      ("full_camera", sets["camera"], n, 128),
+                                      ("overflow_random", sets["random"], n // 16, 1)):
         o_p, d_p, t_p, npad = _pad_rays(o[:m], d[:m], tmax[:m])
         kw = cand_width(npad, bl.sb_lo.shape[0], k)
         cand, cnt = candidate_superblocks(bl.sb_lo, bl.sb_hi, o_p, d_p, t_p, kw)
+        calls[label] = ((bl, o_p, d_p, t_p, cand, cnt),
+                        {"rays": npad, "k": kw, "overflow_tiles": int((cnt > kw).sum())})
+    calls.update(bl_calls)
+    for label, (args, info) in calls.items():
         for any_hit in (False, True):
-            got, gw = blocklist_cuda(bl, o_p, d_p, t_p, cand, cnt, any_hit)
-            want, ww = blocklist_plain(bl, o_p, d_p, t_p, cand, cnt, any_hit)
+            got, gw = blocklist_cuda(*args, any_hit)
+            want, ww, run = blocklist_plain(*args, any_hit, tests_run=True)
             torch.cuda.synchronize()
-            p_eq = float((got[1, :m] == want[1, :m]).float().mean())
-            w_eq = float((gw == ww).all(dim=1).float().mean())
-            valid = (want[1, :m] >= 0) & (got[1, :m] == want[1, :m]) & (want[0, :m] < INF)
-            rel, err = 0.0, 0.0
-            if not any_hit:
-                for r in range(3):
-                    rr, ee = _rel(got[r, :m], want[r, :m], valid)
-                    rel, err = max(rel, rr), max(err, ee)
-            what = f"blocklist {label} any_hit={any_hit}"
-            check(p_eq >= 0.9999, f"{what}: prim equal on {p_eq}")
-            check(rel <= 1e-5, f"{what}: t/u/v rel err {rel}")
-            check(w_eq >= 0.999, f"{what}: work counts equal on {w_eq} of tiles")
+            same_out = torch.equal(_bits(got), _bits(want))
+            same_work = torch.equal(gw, ww)
+            check(same_out and same_work,
+                  f"blocklist {label} any_hit={any_hit}: kernel and plain differ on "
+                  f"{int((_bits(got) != _bits(want)).any(dim=0).sum())} rays, "
+                  f"work equal {same_work}")
+            walked, visits, needed = (int(x) for x in gw.sum(dim=0))
             res["blocklist"][f"{label}_{'any' if any_hit else 'closest'}"] = {
-                "rays": m, "k": kw, "overflow_tiles": int((cnt > kw).sum()),
-                "prim_equal": p_eq, "work_equal": w_eq, "max_rel_err": rel,
-                "superblocks_walked": int(gw[:, 0].sum()), "visits": int(gw[:, 1].sum())}
-            worst["blocklist"] = max(worst["blocklist"], err)
+                **info, "bit_equal": True, "superblocks_walked": walked, "visits": visits,
+                "tests_needed": needed, "tests_run": int(run.sum()),
+                "hit_share": float((got[1] >= 0).float().mean()),
+                "geometry": launch_shape(info["rays"], any_hit)}
 
     # end to end against the dense oracle: random rays, and camera rays of
     # the image's lower half (spheres and floor), whose lists the pair
@@ -742,7 +845,7 @@ def phase_door_kernel_checks(scene):
                            "unproven_retraced": int((~proven).sum())}
         res["end_to_end"][label] = row
     emit({"phase": "door_room_kernel_checks", "seconds": round(time.time() - t0, 3), **res})
-    return {k: {"max_abs_err": v} for k, v in worst.items()}
+    return {k: {"max_abs_err": v} for k, v in worst.items()}, res["blocklist"]
 
 
 def count_retraces(fn, route):
@@ -813,10 +916,12 @@ def phase_door_progressive(scene, spp=DOOR_SPP, name="door_room_progressive"):
     rel = abs(mean - DOOR_REFERENCE_MEAN) / DOOR_REFERENCE_MEAN
     check(rel < tol, f"door_room mean {mean} vs reference {DOOR_REFERENCE_MEAN} (tol {tol})")
     segs = renderer.stats.get("rays traced") / 2
-    emit({"phase": name, "seconds": round(dt, 3), "mean": mean,
-          "reference_mean": DOOR_REFERENCE_MEAN, "rel_err": rel, "rel_tol": tol,
-          "se_card": se_card, "progression_means": prog_means, "valid_cells": n_valid,
-          "spp": renderer.sample_counter, "mrays_per_s": 2 * segs / dt / 1e6})
+    rec = {"phase": name, "seconds": round(dt, 3), "mean": mean,
+           "reference_mean": DOOR_REFERENCE_MEAN, "rel_err": rel, "rel_tol": tol,
+           "se_card": se_card, "progression_means": prog_means, "valid_cells": n_valid,
+           "spp": renderer.sample_counter, "mrays_per_s": 2 * segs / dt / 1e6}
+    emit(rec)
+    return rec
 
 
 def phase_door_plk(scene):
@@ -842,39 +947,35 @@ def phase_door_plk(scene):
           "occluded_equals_hit": agree})
 
 
-def phase_door_timings(scene, checks, launches):
+def phase_door_timings(scene, checks, launches, bl_calls, bl_rows, bl_render):
     """CUDA-event medians of the three pair-pipeline kernels at the main
     path's shapes: the second camera wave (pixels 131072-262143 of 512x512)
-    gives the tile kernels its sorted pairs; the blocklist runs the
-    fallback of that wave's first bounce and of the wave itself.  Each
-    bound counts the triangle tests this run's data needs: for the tiles,
-    per live tile the pairs that can still hit (t range above EPS_T) times
-    the real triangles of its block; for the blocklist, the kernel's own
-    count of them (its work row 2)."""
+    gives the tile kernels its sorted pairs; the blocklist runs the calls
+    of ``blocklist_calls`` (the fallback of that wave's first bounce and of
+    the wave itself, and the sorted bounce wave).  Each bound counts the
+    triangle tests this run's data needs: for the tiles, per live tile the
+    pairs that can still hit (t range above EPS_T) times the real triangles
+    of its block; for the blocklist, the kernel's own count of them (its
+    work row 2).  ``bl_render``: the blocklist's summed kernel time over
+    the door_room renders' launches."""
     import torch
 
-    from mitsuba_path_guiding_torch.accel.traverse import _retrace, intersect_pairs_full
-    from mitsuba_path_guiding_torch.integrators.path import PAIR_CAP
     from mitsuba_path_guiding_torch.ops.intersect_blocklist import (
         RAY_TILE,
         SB_BLOCKS,
-        _pad_rays,
         blocklist_cuda,
         blocklist_plain,
-        cand_width,
-        candidate_superblocks,
     )
     from mitsuba_path_guiding_torch.ops.intersect_pairs import (
         EPS_T,
         TILE,
-        intersect_pairs_raw,
         mt_tiles,
         mt_tiles_plain,
         plk_tiles,
         plk_tiles_plain,
     )
 
-    pt, bl = scene.pairs, scene.blocks
+    pt = scene.pairs
     o, d, _ = camera_rays(scene, 1, 9, w=DOOR_W, h=DOOR_H)
     o, d = o[DOOR_WAVE:2 * DOOR_WAVE], d[DOOR_WAVE:2 * DOOR_WAVE]
     tmax = torch.full((DOOR_WAVE,), 3.0e37, device=o.device)
@@ -913,40 +1014,28 @@ def phase_door_timings(scene, checks, launches):
             "work": {"pairs_that_can_hit": hit_pairs, "triangle_tests": tests, "fp32_ops": ops},
             "check": "t and prim equal on >= 99.99% of pairs, t rel err <= 1e-5"})
 
-    # the blocklist on two fallback calls of the main path: the camera
-    # wave's, and a first bounce's (diffuse directions from the camera
-    # hits), whose unproven rays are incoherent
-    hit = intersect_pairs_full(pt, bl, o, d, tmax, cap_factor=PAIR_CAP)
-    side = torch.sign((scene.geo.shade_packed[hit.prim.clamp_min(0).long(), 0:3] * -d)
-                      .sum(-1, keepdim=True))
-    ng = scene.geo.shade_packed[hit.prim.clamp_min(0).long(), 0:3] * side
-    gen = torch.Generator(device=o.device).manual_seed(4)
-    w = torch.nn.functional.normalize(torch.randn(o.shape, generator=gen, device=o.device), dim=-1)
-    w = torch.where((w * ng).sum(-1, keepdim=True) < 0, -w, w)
-    o2 = o + torch.where(hit.valid, hit.t, 1.0)[:, None] * d + ng * 1e-4
-    t2 = torch.where(hit.valid, 3.0e37, -1.0)
+    # the blocklist on three calls of the main paths: the two fallbacks
+    # and a sorted bounce wave
     calls = {}
-    for label, (oo, dd, tt) in (("bounce", (o2, w, t2)), ("camera", (o, d, tmax))):
-        proven = intersect_pairs_raw(pt, oo, dd, tt, cap_factor=PAIR_CAP)[-1]
-        idx = _retrace(proven)
-        o_p, d_p, t_p, npad = _pad_rays(oo[idx], dd[idx], tt[idx])
-        kw = cand_width(npad, bl.sb_lo.shape[0])
-        cand, cnt = candidate_superblocks(bl.sb_lo, bl.sb_hi, o_p, d_p, t_p, kw)
-        args = (bl, o_p, d_p, t_p, cand, cnt)
-        _, work = blocklist_cuda(*args)
-        walked, visits, tests = (int(x) for x in work.sum(dim=0))
-        ops = walked * RAY_TILE * SB_BLOCKS * GATE_OPS + tests * MT_OPS
+    for label, (args, info) in bl_calls.items():
+        row = bl_rows[f"{label}_closest"]
+        walked, needed, run = row["superblocks_walked"], row["tests_needed"], row["tests_run"]
+        ops = walked * RAY_TILE * SB_BLOCKS * GATE_OPS + needed * MT_OPS
+        cand = args[4]
         # rays in (o, d, tmax), t/prim/u/v out, the candidate table; the
         # block tables are not counted (a lower bound)
-        b_ms, b_by = bound(npad * (7 + 4) * 4 + cand.numel() * 4 + cnt.numel() * 4, ops)
+        b_ms, b_by = bound(info["rays"] * (7 + 4) * 4 + cand.numel() * 4 + cand.shape[0] * 4,
+                           ops)
         calls[label] = {
             "ms": cuda_ms(lambda: blocklist_cuda(*args)),
             "plain_ms": cuda_ms(lambda: blocklist_plain(*args), reps=1, warmup=0),
-            "bound_ms": b_ms, "bound_by": b_by, "rays": npad,
-            "unproven": int((~proven).sum()), "k": kw,
-            "work": {"superblocks_walked": walked, "block_visits": visits,
-                     "triangle_tests": tests, "fp32_ops": ops}}
-    main_call = calls["bounce"]
+            "bound_ms": b_ms, "bound_by": b_by,
+            # the operations of every test the visits run, over the same rate
+            "tests_run_floor_ms": (walked * RAY_TILE * SB_BLOCKS * GATE_OPS + run * MT_OPS)
+                                  / FP32_OPS_PER_S * 1e3,
+            **{k: v for k, v in row.items() if k not in ("bit_equal",)},
+            "fp32_ops": ops}
+    main_call = calls["bounce_fallback"]
     entries.append({
         "name": "intersect_blocklist", "route": "cuda",
         "source": "mitsuba_path_guiding_torch/csrc/intersect_blocklist.cu",
@@ -961,8 +1050,9 @@ def phase_door_timings(scene, checks, launches):
         "shape": f"fallback of a first bounce of the second {DOOR_WAVE}-ray camera wave: "
                  f"{main_call['rays']} rays ({main_call['unproven']} unproven), "
                  f"k={main_call['k']}",
-        "work": main_call["work"], "calls": calls,
-        "check": "prim equal on >= 99.99% of rays, t/u/v rel err <= 1e-5, work counts equal"})
+        "calls": calls, "render_kernel_time": bl_render,
+        "check": "t, prim, u, v bits and work counts equal to the plain version's, closest "
+                 "and any-hit, on every checked call"})
     return entries
 
 
@@ -1249,8 +1339,6 @@ def phase_new_timings(interior, door_tl, door, launches, card):
     sorted routes' Mrays/s on the interior waves."""
     import torch
 
-    from mitsuba_path_guiding_torch.accel.traverse import intersect_pairs_full
-    from mitsuba_path_guiding_torch.integrators.path import PAIR_CAP
     from mitsuba_path_guiding_torch.ops.intersect_blocklist import intersect_blocklist_sorted
     from mitsuba_path_guiding_torch.ops.intersect_bvh import bvh_cuda, bvh_plain
     from mitsuba_path_guiding_torch.ops.intersect_twolevel import (
@@ -1300,17 +1388,9 @@ def phase_new_timings(interior, door_tl, door, launches, card):
     o, d, _ = camera_rays(door, 1, 11, w=DOOR_W, h=DOOR_H)
     o, d = o[DOOR_WAVE:2 * DOOR_WAVE], d[DOOR_WAVE:2 * DOOR_WAVE]
     tmax = torch.full((DOOR_WAVE,), 3.0e37, device=o.device)
-    hit = intersect_pairs_full(door.pairs, door.blocks, o, d, tmax, cap_factor=PAIR_CAP)
-    side = torch.sign((geo.shade_packed[hit.prim.clamp_min(0).long(), 0:3] * -d)
-                      .sum(-1, keepdim=True))
-    ng = geo.shade_packed[hit.prim.clamp_min(0).long(), 0:3] * side
-    gen = torch.Generator(device=o.device).manual_seed(6)
-    w = torch.nn.functional.normalize(torch.randn(o.shape, generator=gen, device=o.device), dim=-1)
-    w = torch.where((w * ng).sum(-1, keepdim=True) < 0, -w, w)
-    o2 = o + torch.where(hit.valid, hit.t, 1.0)[:, None] * d + ng * 1e-4
-    t2 = torch.where(hit.valid, 3.0e37, -1.0)
     bvh_calls = {}
-    for label, (oo, dd, tt) in (("camera", (o, d, tmax)), ("bounce", (o2, w, t2))):
+    for label, (oo, dd, tt) in (("camera", (o, d, tmax)),
+                                ("bounce", first_bounce(door, o, d, tmax, 6))):
         args = (door.bvh, geo.p0, geo.e1, geo.e2, oo, dd, tt)
         counts = bvh_cuda(*args)[4]
         nodes, prims = int(counts[0].sum()), int(counts[1].sum())
@@ -1374,14 +1454,23 @@ def main(argv=None):
     checks["trace_fused"] = phase_fused_check(scene, tables, grid)
 
     door = phase_door_build()
-    checks.update(phase_door_kernel_checks(door))
+    bl_calls = blocklist_calls(door)
+    door_checks, bl_rows = phase_door_kernel_checks(door, bl_calls)
+    checks.update(door_checks)
     none_of = {"intersect_tiled": 0, "trace_fused": 0, "intersect_twolevel": 0,
                "intersect_bvh": 0}
     retraces = {}
+    bl_render = {}  # the blocklist's summed kernel time over a route's launches
+
+    def timed(name, fn):
+        def run():
+            bl_render[name] = blocklist_kernel_time(fn)[1]
+            emit({"phase": "blocklist_kernel_time", "route": name, **bl_render[name]})
+        return run
 
     def route(name, fn):
         def run():
-            retraces[name] = count_retraces(fn, name)[1]
+            retraces[name] = count_retraces(timed(name, fn), name)[1]
         return run
 
     _, c_door = drive("door_room_progressive",
@@ -1397,8 +1486,10 @@ def main(argv=None):
     interior = phase_interior()
     door_tl = phase_door_twolevel_bvh(door)
     _, c_sorted = drive("door_room_sorted_blocklist",
-                        lambda: phase_door_progressive(door._replace(pairs=None), DOOR_SORTED_SPP,
-                                                       "door_room_sorted_blocklist"),
+                        timed("door_room_sorted_blocklist",
+                              lambda: phase_door_progressive(door._replace(pairs=None),
+                                                             DOOR_SORTED_SPP,
+                                                             "door_room_sorted_blocklist")),
                         {**NONE_LAUNCHED, "gather_rows_t": None,
                          "intersect_blocklist": 2 * DEPTH * DOOR_PROGRESSIONS * DOOR_SORTED_SPP
                          * (DOOR_W * DOOR_H // DOOR_WAVE)})
@@ -1412,7 +1503,7 @@ def main(argv=None):
     launches = {k: {r: c[k] for r, c in routes.items()} for k in c_prog}
 
     entries = phase_timings(scene, tables, grid, checks, launches, card)
-    entries += phase_door_timings(door, checks, launches)
+    entries += phase_door_timings(door, checks, launches, bl_calls, bl_rows, bl_render)
     entries += phase_new_timings(interior, door_tl, door, launches, card)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

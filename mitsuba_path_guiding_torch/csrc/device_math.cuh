@@ -112,6 +112,26 @@ PG_HD uint32_t pg_packed_key(bool hit, float t, uint32_t tid, uint32_t lo_mask) 
 }
 
 // ---------------------------------------------------------------------------
+// 64-bit merge key of the blocklist kernel: t bits (t > EPS_T > 0, so their
+// integer order is float order), the block index (5 bits), the triangle id
+// (27 bits; ids are exact floats below 2^24).  Integer order is the
+// lexicographic order of (t, block, id).  A miss is the key of (3e38, 31,
+// the largest id): it orders after every hit at or below 3e38, and its t
+// is the plain version's INF, which no best t exceeds.
+// ---------------------------------------------------------------------------
+#define PG_KEY_MISS ((0x7F61B1E6ull << 32) | (31ull << 27) | 0x7FFFFFFull)
+
+PG_HD uint64_t pg_block_key(float t, uint32_t block, uint32_t tid) {
+  return ((uint64_t)pg_f2u(t) << 32) | ((uint64_t)block << 27) | tid;
+}
+
+PG_HD float pg_key_t(uint64_t key) { return pg_u2f((uint32_t)(key >> 32)); }
+
+PG_HD uint32_t pg_key_block(uint64_t key) { return (uint32_t)(key >> 27) & 31u; }
+
+PG_HD uint32_t pg_key_tid(uint64_t key) { return (uint32_t)key & 0x7FFFFFFu; }
+
+// ---------------------------------------------------------------------------
 // Moeller-Trumbore re-evaluation of the winning triangle (fused_path.py
 // _mt_exact).  tri: p0, e1, e2 (9 floats).
 // ---------------------------------------------------------------------------

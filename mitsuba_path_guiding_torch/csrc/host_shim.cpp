@@ -85,4 +85,17 @@ void host_mt_closest(const float* tri, int n_tri, const float* o, const float* d
   }
 }
 
+// the blocklist kernel's merge keys of (t, block, id), and their unpacking
+void host_block_key(const float* t, const uint32_t* block, const uint32_t* tid, int n,
+                    uint64_t* key, float* t_out, uint32_t* block_out, uint32_t* tid_out) {
+  for (int i = 0; i < n; ++i) {
+    key[i] = pg_block_key(t[i], block[i], tid[i]);
+    t_out[i] = pg_key_t(key[i]);
+    block_out[i] = pg_key_block(key[i]);
+    tid_out[i] = pg_key_tid(key[i]);
+  }
+}
+
+uint64_t host_key_miss(void) { return PG_KEY_MISS; }
+
 }  // extern "C"

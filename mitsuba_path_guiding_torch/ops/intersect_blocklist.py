@@ -8,16 +8,21 @@ direction interval) against every superblock box and lists the hits by
 their conservative entry distance.  Stage B, the kernel
 (``csrc/intersect_blocklist.cu``), walks a tile's list while the next
 candidate's entry distance does not exceed the worst current best t of
-the tile; per superblock it gates each ray against the 32 block boxes,
-ORs the gates over each half tile of 128 rays and runs a dense
-Moeller-Trumbore of the half tile against every block whose bit is set,
-in ascending block order.  A tile whose raw candidate count exceeds the
-list width k walks every superblock in index order with no early exit.
+the tile; per superblock it gates each ray against the 32 block boxes
+with its best t from before the step, ORs the gates over each half tile
+of 128 rays and runs a dense Moeller-Trumbore of the half tile against
+every block whose bit is set.  The step's result for a ray is the least
+(t, block index, triangle id) over those blocks, taken where strictly
+nearer than its best (any-hit: a hit below its t in any of them), so the
+visits of a step can run in any order.  A tile whose raw candidate count
+exceeds the list width k walks every superblock in index order with no
+early exit.
 
 On a CUDA tensor the wrappers launch the kernel and count the launch in
 ``build.LAUNCHES["intersect_blocklist"]``; on a CPU tensor they run
 ``blocklist_plain``, which walks tiles and candidates in the kernel's
-order, vectorised over tiles.  Both also return per-tile work counts:
+order, vectorised over tiles, one reduction over all visits per step.
+Both also return per-tile work counts:
 superblocks walked, (block, half tile) visits, and the triangle tests the
 data needed (per visit, the rays of the half tile whose own gate passed
 the block and whose t still admits a hit, times the block's real
@@ -53,6 +58,7 @@ CAND_TABLE_INTS = 768 * 1024 // 4
 INF_HI = 0x7F80  # f32 +inf bits >> 16
 SORT_POS_BITS = 4  # origin cell bits per axis of the sorted route's key
 SORT_DIR_BITS = 5  # direction bits per octahedral component
+VISIT_CHUNK = 256  # visits per dense MT of the plain version (~1.6 MB of temporaries each)
 
 _FN: dict = {}
 
@@ -161,17 +167,58 @@ def mt_block(tri, ray, any_hit):
             torch.sum(torch.where(first, v, 0.0), dim=1))
 
 
-def blocklist_plain(bl: BlockList, o_p, d_p, t_p, cand, cnt, any_hit: bool = False):
-    """Plain version of the kernel on padded rays.  Returns (out (4, npad)
-    rows t, prim, u, v as the kernel leaves them; work (nt, 3) int32
-    superblocks walked, (block, half tile) visits and needed triangle
-    tests)."""
+def _step_visits(bl: BlockList, ray, cur, tiles, sb, bits, any_hit: bool):
+    """One superblock step of the tiles ``tiles`` as one reduction over all
+    of its (block, half tile) visits ``bits`` (A, 32, 2).  Closest hit:
+    per ray the least (t, block index, triangle id) over the visited blocks
+    of its half, as (t, prim, u, v) (A, 256) with t INF where no block hit.
+    Any-hit: per ray the first visited block holding a hit below ``cur``
+    (A, 256), SB_BLOCKS where none does."""
+    a = tiles.shape[0]
+    dev = ray.device
+    va, vb, vs = torch.nonzero(bits, as_tuple=True)                 # visits, any order
+    lanes = vs[:, None] * SUB_TILE + torch.arange(SUB_TILE, device=dev)    # (V, 128)
+    rows = 1 if any_hit else 4
+    per_block = torch.zeros((rows, a, SB_BLOCKS, RAY_TILE), dtype=torch.float32, device=dev)
+    per_block[0] = INF
+    for c0 in range(0, va.numel(), VISIT_CHUNK):
+        ca, cb, cl = va[c0:c0 + VISIT_CHUNK], vb[c0:c0 + VISIT_CHUNK], lanes[c0:c0 + VISIT_CHUNK]
+        tri = bl.tri_pack[sb[ca], cb, 0:10, :]                       # (V, 10, 128)
+        rr = ray[:, tiles[ca][:, None], cl]                          # (6, V, 128)
+        if any_hit:
+            got = torch.any(mt_block(tri, rr, True) < cur[ca[:, None], cl][:, None, :], dim=1)
+            per_block[0, ca[:, None], cb[:, None], cl] = torch.where(got, 0.0, INF)
+        else:
+            for row, val in enumerate(mt_block(tri, rr, False)):
+                per_block[row, ca[:, None], cb[:, None], cl] = val
+    blk = torch.arange(SB_BLOCKS, device=dev)[None, :, None]
+    if any_hit:
+        return torch.min(torch.where(per_block[0] < INF, blk, SB_BLOCKS), dim=1).values
+    # the block's own winner is the least (t, id); among blocks of equal t
+    # the least block index
+    t_min = per_block[0].min(dim=1).values                              # (A, 256)
+    first = torch.min(torch.where(per_block[0] == t_min[:, None], blk, SB_BLOCKS), dim=1).values
+    first = torch.clamp_max(first, SB_BLOCKS - 1)[:, None, :]
+    return (t_min, *(torch.gather(per_block[r], 1, first)[:, 0] for r in (1, 2, 3)))
+
+
+def blocklist_plain(bl: BlockList, o_p, d_p, t_p, cand, cnt, any_hit: bool = False,
+                    tests_run: bool = False):
+    """Plain version of the kernel on padded rays: each superblock step is
+    one reduction over all of its visits (``_step_visits``), taken where it
+    is strictly nearer than the best from before the step.  Returns (out
+    (4, npad) rows t, prim, u, v as the kernel leaves them; work (nt, 3)
+    int32 superblocks walked, (block, half tile) visits and needed
+    triangle tests); with ``tests_run`` also the triangle tests the visits
+    run (nt,) int64: per visit 128 rays times the block's real triangles."""
     npad = o_p.shape[0]
     nt = npad // RAY_TILE
     n_sb = bl.tri_pack.shape[0]
     k = cand.shape[1]
     dev = o_p.device
     ray, inv = _tile_rays(o_p, d_p)
+    real = (bl.tri_pack[:, :, 9, :] >= 0.0).sum(dim=2, dtype=torch.int32)   # (S, 32)
+    blk = torch.arange(SB_BLOCKS, device=dev)[None, :, None]
     out = torch.zeros((4, nt, RAY_TILE), dtype=torch.float32, device=dev)
     out[0] = torch.clamp_max(t_p, INF).reshape(nt, RAY_TILE)
     out[1] = -1.0
@@ -180,6 +227,7 @@ def blocklist_plain(bl: BlockList, o_p, d_p, t_p, cand, cnt, any_hit: bool = Fal
     worst_hi = torch.full((nt,), INF_HI, dtype=torch.int32, device=dev)
     walking = torch.ones((nt,), dtype=torch.bool, device=dev)
     work = torch.zeros((nt, 3), dtype=torch.int32, device=dev)
+    run = torch.zeros((nt,), dtype=torch.int64, device=dev)
     j = 0
     while True:
         v_ = cand[:, min(j, k - 1)]
@@ -200,35 +248,32 @@ def blocklist_plain(bl: BlockList, o_p, d_p, t_p, cand, cnt, any_hit: bool = Fal
             hi_t.append(torch.maximum(t0, t1))
         tnr = torch.maximum(torch.maximum(lo_t[0], lo_t[1]), torch.clamp_min(lo_t[2], 0.0))
         tfr = torch.minimum(torch.minimum(hi_t[0], hi_t[1]), hi_t[2])
-        gate = (tfr >= tnr) & (tnr <= out[0, tiles][:, None, :])  # (A, 32, 256)
+        cur = out[0, tiles]                                      # best before the step
+        gate = (tfr >= tnr) & (tnr <= cur[:, None, :])           # (A, 32, 256)
         bits = gate.reshape(-1, SB_BLOCKS, N_SUB, SUB_TILE).any(dim=3)  # (A, 32, 2)
-        for b in range(SB_BLOCKS):
-            for s in range(N_SUB):
-                sel = torch.nonzero(bits[:, b, s]).flatten()
-                if sel.numel() == 0:
-                    continue
-                ti = tiles[sel]
-                lanes = slice(s * SUB_TILE, (s + 1) * SUB_TILE)
-                tri = bl.tri_pack[sb[sel], b, 0:10, :]
-                rr = ray[:, ti, lanes]
-                cur = out[0, ti, lanes]
-                rays = (gate[sel, b, lanes] & (cur > EPS_T)).sum(dim=1, dtype=torch.int32)
-                work[ti, 2] += rays * (tri[:, 9, :] >= 0.0).sum(dim=1, dtype=torch.int32)
-                if any_hit:
-                    got = torch.any(mt_block(tri, rr, True) < cur[:, None, :], dim=1)
-                    out[0, ti, lanes] = torch.where(got, -1.0, cur)
-                    out[1, ti, lanes] = torch.where(got, 1.0, out[1, ti, lanes])
-                else:
-                    t_b, p_b, u_b, v_b = mt_block(tri, rr, False)
-                    take = t_b < cur
-                    for row, val in ((0, t_b), (1, p_b), (2, u_b), (3, v_b)):
-                        out[row, ti, lanes] = torch.where(take, val, out[row, ti, lanes])
-                work[ti, 1] += 1
+        res = _step_visits(bl, ray, cur, tiles, sb, bits, any_hit)
+        if any_hit:
+            first = res
+            got = first < SB_BLOCKS
+            out[0, tiles] = torch.where(got, -1.0, cur)
+            out[1, tiles] = torch.where(got, 1.0, out[1, tiles])
+        else:
+            first = torch.full_like(cur, SB_BLOCKS, dtype=torch.int64)
+            take = res[0] < cur
+            for row, val in enumerate(res):
+                out[row, tiles] = torch.where(take, val, out[row, tiles])
+        # needed tests: per ray the blocks its own gate passed, up to and
+        # including its first hit (any-hit), times their real triangles
+        own = gate & (cur > EPS_T)[:, None, :] & (blk <= first[:, None, :])
+        work[tiles, 2] += (own.sum(dim=2, dtype=torch.int32) * real[sb]).sum(dim=1,
+                                                                             dtype=torch.int32)
+        work[tiles, 1] += bits.sum(dim=(1, 2), dtype=torch.int32)
         work[tiles, 0] += 1
+        run[tiles] += (bits.sum(dim=2) * real[sb]).sum(dim=1) * SUB_TILE
         worst = out[0, tiles].contiguous().view(torch.int32).max(dim=1).values
         worst_hi[tiles] = worst >> 16
         j += 1
-    return out.reshape(4, npad), work
+    return (out.reshape(4, npad), work, run) if tests_run else (out.reshape(4, npad), work)
 
 
 def _kernel_fn(any_hit: bool):
@@ -244,6 +289,18 @@ def _kernel_fn(any_hit: bool):
         f.restype = ctypes.c_int
         _FN[key] = f
     return f
+
+
+def launch_shape(npad: int, any_hit: bool = False) -> dict:
+    """The kernel's launch geometry for npad padded rays on the current
+    card: CTAs, threads per CTA, CTAs per cluster (one cluster per tile)
+    and shared memory per CTA in bytes."""
+    f = build.load("intersect_blocklist").blocklist_geometry
+    f.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    build.check(f(npad, int(any_hit), ctypes.cast(out, ctypes.c_void_p)), "intersect_blocklist")
+    return dict(zip(("ctas", "threads", "cluster", "smem_bytes"), out))
 
 
 def blocklist_cuda(bl: BlockList, o_p, d_p, t_p, cand, cnt, any_hit: bool = False):
@@ -263,6 +320,8 @@ def blocklist_cuda(bl: BlockList, o_p, d_p, t_p, cand, cnt, any_hit: bool = Fals
     if cand.dtype != torch.int32 or cnt.dtype != torch.int32 or cand.shape[0] != nt \
             or cnt.shape != (nt,):
         raise TypeError("intersect_blocklist: cand (nt, k) and cnt (nt,) must be int32")
+    if cand.shape[1] > MAX_CAND:
+        raise ValueError(f"intersect_blocklist: list width {cand.shape[1]} above {MAX_CAND}")
     if any(x.dtype != torch.float32 for x in (bl.tri_pack, bl.blk_box, o_p, d_p, t_p)):
         raise TypeError("intersect_blocklist: expected float32 rays and tables")
     # the kernel reads these while it runs: keep every buffer referenced

@@ -96,6 +96,45 @@ def test_plucker_winner(lib, rays, any_hit):
         assert (prim >= 0).mean() > 0.5
 
 
+def test_blocklist_merge_key_orders_like_t_block_id(lib):
+    """pg_block_key: for t in (EPS_T, 3e38], blocks 0-31 and float-exact
+    ids, integer order of the keys is the lexicographic order of (t, block,
+    id), the miss key (3e38, 31, largest id) orders after every hit, and
+    unpacking gives back the same bits."""
+    rs = np.random.default_rng(9)
+    pool = np.concatenate([np.float32([1.00001e-4, 1.0, 1.0000001, 3.0e38]),
+                           (10.0 ** rs.uniform(-3.9, 38.4, 60)).astype(np.float32)])
+    t = np.clip(rs.choice(pool, N), np.float32(1.00001e-4), np.float32(3.0e38)).astype(np.float32)
+    block = rs.integers(0, 32, N).astype(np.uint32)
+    tid = np.where(rs.random(N) < 0.5, rs.integers(0, 4, N),
+                   rs.integers(0, 2**24, N)).astype(np.uint32)
+    key = np.zeros(N, np.uint64)
+    t_out, b_out, id_out = np.zeros(N, np.float32), np.zeros(N, np.uint32), np.zeros(N, np.uint32)
+    lib.host_block_key(_p(t), _p(block), _p(tid), ctypes.c_int(N), _p(key), _p(t_out), _p(b_out),
+                       _p(id_out))
+    np.testing.assert_array_equal(t_out.view(np.uint32), t.view(np.uint32))
+    np.testing.assert_array_equal(b_out, block)
+    np.testing.assert_array_equal(id_out, tid)
+
+    lib.host_key_miss.restype = ctypes.c_uint64
+    miss = np.uint64(lib.host_key_miss())
+    one = (np.float32([3.0e38]), np.uint32([31]), np.uint32([2**27 - 1]))
+    m_key, m_t, m_b, m_id = (np.zeros(1, x) for x in (np.uint64, np.float32, np.uint32, np.uint32))
+    lib.host_block_key(*(_p(x) for x in one), ctypes.c_int(1), _p(m_key), _p(m_t), _p(m_b),
+                       _p(m_id))
+    assert m_key[0] == miss and (m_t[0], m_b[0], m_id[0]) == (np.float32(3.0e38), 31, 2**27 - 1)
+    assert (key < miss).all()
+
+    keys = np.append(key, miss)
+    tup = tuple(np.concatenate([a, b]) for a, b in zip((tid, block, t), one[::-1]))
+    order = np.lexsort(tup)   # by t, then block, then id
+    ks = keys[order]
+    same = np.all([x[order][1:] == x[order][:-1] for x in tup], axis=0)
+    assert (ks[1:] >= ks[:-1]).all()
+    np.testing.assert_array_equal(ks[1:] == ks[:-1], same)
+    assert same.sum() > 10 and (~same).sum() > N // 2
+
+
 def test_mt_exact_and_dense_closest(lib, rays):
     scene, tables, o, d, tmax = rays
     geo = scene.geo

@@ -137,21 +137,20 @@ def test_pair_tiles_match_plain(door, engine, any_hit):
 
 @pytest.mark.parametrize("any_hit", [False, True])
 @pytest.mark.parametrize("k", [128, 1])
-def test_blocklist_matches_plain(door, any_hit, k):
+@pytest.mark.parametrize("n", [3000, 1500])   # 12 tiles, and 6: clusters of 16 CTAs
+def test_blocklist_matches_plain(door, any_hit, k, n):
     from mitsuba_path_guiding_torch.ops import intersect_blocklist as ib
 
     bl = door.blocks
-    o, d, tmax, _ = _rays(door, 3000, 4)
+    o, d, tmax, _ = _rays(door, n, 4)
     o_p, d_p, t_p, npad = ib._pad_rays(o, d, tmax)
     cand, cnt = ib.candidate_superblocks(bl.sb_lo, bl.sb_hi, o_p, d_p, t_p,
                                          ib.cand_width(npad, bl.sb_lo.shape[0], k))
     got, gw = ib.blocklist_cuda(bl, o_p, d_p, t_p, cand, cnt, any_hit)
     want, ww = ib.blocklist_plain(bl, o_p, d_p, t_p, cand, cnt, any_hit)
     torch.cuda.synchronize()
-    assert torch.equal(got[1], want[1]) and torch.equal(gw, ww)
-    ok = want[1] >= 0
-    for r in (0, 2, 3):
-        assert torch.allclose(got[r][ok], want[r][ok], rtol=1e-5, atol=1e-6)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)) and torch.equal(gw, ww)
+    assert (want[1] >= 0).sum() > 100
 
 
 def test_pairs_full_equals_the_oracle(door):
