@@ -21,17 +21,18 @@ Phases:
      depth 5, 4 spp x 4 progressions, a 16^3 grid of 8 lobes, guiding on;
      the image must be finite, non-black, within 3% of the JAX reference
      mean below, and the grid must have valid cells;
-  4. the frozen-cache render (256x256 x 8 spp per wave = 524288 lanes,
-     16 waves, guided through trace_fused with the phase-3 grid) and the
-     unguided render() at 256x256 x 16 spp (fused route); Mrays/s =
-     2 * sum(n_bounces) / s.  Then trace_fused against its plain version
-     at 256x256 x 1 spp, guided and unguided: L within rtol 1e-3 on >= 99%
-     of lanes, image means within 0.5%;
+  4. trace_fused against its plain version at 256x256 x 1 spp, guided
+     (with the phase-3 grid) and unguided: L within rtol 1e-3 on >= 99% of
+     lanes, image means within 0.5%; then the frozen-cache render (256x256
+     x 8 spp per wave = 524288 lanes, 16 waves, guided through
+     trace_fused) and the unguided render() at 256x256 x 16 spp (fused
+     route); Mrays/s = 2 * sum(n_bounces) / s, and trace_fused's kernel
+     time summed over the frozen render's 16 launches;
   5. door_room() (244838 triangles): the build (pair and blocklist
      tables), then the kernel checks on 262144 camera rays of a 512x512
      wave and 262144 random rays: the MT and Pluecker pair tiles on their
-     sorted pairs, closest and any-hit (t and prim equal on >= 99.99% of
-     pairs, t within 1e-5 relative); the blocklist kernel on 16384 random
+     sorted pairs, closest and any-hit (t and prim bit-equal on every
+     pair); the blocklist kernel on 16384 random
      rays, on all 262144 camera rays, with k=1 (overflow) on 16384 random
      rays, and on the calls of blocklist_calls (the pair route's fallback
      of a first bounce and of a camera wave, a 131072-ray sorted bounce
@@ -44,9 +45,9 @@ Phases:
      4 spp x 2 progressions, a 16^3 grid of 8 lobes, guiding on; the image
      must be finite, non-black, within max(3%, 4 standard errors) of the
      JAX reference mean below, and the grid must have valid cells; the
-     blocklist's kernel time summed over the render's launches (CUDA
-     events around each); then one wave of both queries through the
-     Pluecker engine;
+     blocklist's and the MT tiles' kernel times summed over the render's
+     launches (CUDA events around each); then one wave of both queries
+     through the Pluecker engine;
   7. the interior scene of tools/profile_blocklist_torch.py
      (make_interior(300000): 294924 triangles, 37 two-level superblocks)
      with its 524288 camera rays and 524288 bounce rays, each wave
@@ -73,6 +74,7 @@ Phases:
      and, where one exists, the one-call PyTorch yardstick; the "kernels"
      line with bounds from this run's inputs (for the blocklist, on its
      three calls of 5, with launch geometry, the tests run and the tests
+     needed; for the MT tiles, the tests their kernel runs beside the tests
      needed), and the Mrays/s of the sorted two-level, sorted blocklist
      and BVH routes.
 
@@ -384,10 +386,11 @@ def phase_frozen(scene, grid, card):
     mean = float(img.mean())
     check(abs(mean - CORNELL_REFERENCE_MEAN) / CORNELL_REFERENCE_MEAN < MEAN_TOL,
           f"frozen-cache mean {mean}")
-    emit({"phase": "frozen_render", "card": card, "waves": FROZEN_WAVES,
-          "lanes_per_wave": 8 * n_pix, "seconds": round(dt, 4),
-          "mrays_per_s": 2 * int(segs) / dt / 1e6, "mean": mean})
-    return tables
+    rec = {"phase": "frozen_render", "card": card, "waves": FROZEN_WAVES,
+           "lanes_per_wave": 8 * n_pix, "seconds": round(dt, 4),
+           "mrays_per_s": 2 * int(segs) / dt / 1e6, "mean": mean}
+    emit(rec)
+    return tables, rec
 
 
 def phase_unguided_render(scene, card):
@@ -588,13 +591,6 @@ def phase_door_build():
     return scene
 
 
-def _rel(a, b, mask):
-    if not bool(mask.any()):
-        return 0.0, 0.0
-    diff = (a[mask] - b[mask]).abs()
-    return (float((diff / b[mask].abs().clamp_min(1e-6)).max()), float(diff.max()))
-
-
 def brute_chunked(geo, o, d, tmax, any_hit=False, chunk=4096):
     """The dense oracle over triangle chunks in ascending id (a strictly
     nearer hit replaces the best, so ties keep the lowest id): (t, prim),
@@ -699,15 +695,13 @@ def blocklist_calls(scene, sorted_camera=False):
     return calls
 
 
-def blocklist_kernel_time(fn):
-    """Run ``fn`` with every blocklist launch bracketed by CUDA events.
-    Returns (fn's result, {"launches": n, "kernel_ms_sum": the summed
-    event times})."""
+def kernel_time(fn, module, attr):
+    """Run ``fn`` with every call of ``module.attr`` (a kernel's wrapper)
+    bracketed by CUDA events.  Returns (fn's result, {"launches": n,
+    "kernel_ms_sum": the summed event times})."""
     import torch
 
-    from mitsuba_path_guiding_torch.ops import intersect_blocklist as ib
-
-    real = ib.blocklist_cuda
+    real = getattr(module, attr)
     events = []
 
     def timed(*args, **kw):
@@ -719,14 +713,49 @@ def blocklist_kernel_time(fn):
         events.append((a, b))
         return out
 
-    ib.blocklist_cuda = timed
+    setattr(module, attr, timed)
     try:
         out = fn()
     finally:
-        ib.blocklist_cuda = real
+        setattr(module, attr, real)
     torch.cuda.synchronize()
     return out, {"launches": len(events),
                  "kernel_ms_sum": sum(a.elapsed_time(b) for a, b in events)}
+
+
+def blocklist_kernel_time(fn):
+    """``kernel_time`` of the blocklist kernel's launches in ``fn``."""
+    from mitsuba_path_guiding_torch.ops import intersect_blocklist as ib
+
+    return kernel_time(fn, ib, "blocklist_cuda")
+
+
+def mt_kernel_time(fn):
+    """``kernel_time`` of the MT pair-tile kernel's launches in ``fn``."""
+    from mitsuba_path_guiding_torch.ops import intersect_pairs as ip
+
+    return kernel_time(fn, ip, "mt_tiles")
+
+
+def mt_tile_work(pt, pdata, tile_block):
+    """The MT tile kernel's work on one call, from the tile data: the
+    tests the data needs (per live tile, the pairs that can hit, tmax >
+    EPS_T, times the real triangles of its block) and the tests the kernel
+    runs (per live tile, its live pairs rounded up to whole 32-pair slots
+    times the triangle slots up to the block's last real one)."""
+    import torch
+
+    from mitsuba_path_guiding_torch.ops.intersect_pairs import EPS_T, LEAF, TILE
+
+    live = tile_block >= 0
+    can_hit = (pdata[6] > EPS_T).reshape(-1, TILE).sum(dim=1)
+    real = pt.tri_rows[tile_block.clamp_min(0).long(), 9, :] >= 0
+    slots = torch.arange(1, LEAF + 1, device=real.device)
+    looped = torch.where(real, slots, 0).max(dim=1).values
+    lanes = (can_hit + 31) // 32 * 32
+    return {"pairs_that_can_hit": int(torch.where(live, can_hit, 0).sum()),
+            "triangle_tests": int(torch.where(live, can_hit * real.sum(dim=1), 0).sum()),
+            "tests_run": int(torch.where(live, lanes * looped, 0).sum())}
 
 
 def phase_door_kernel_checks(scene, bl_calls):
@@ -772,16 +801,13 @@ def phase_door_kernel_checks(scene, bl_calls):
                 got = kern(*tabs, tile_block, pdata, any_hit)
                 want = plain(*tabs, tile_block, pdata, any_hit)
                 torch.cuda.synchronize()
-                t_eq = float((got[0] == want[0]).float().mean())
-                p_eq = float((got[1] == want[1]).float().mean())
-                rel, err = _rel(got[0], want[0], (got[0] < INF) & (want[0] < INF))
-                what = f"{engine} {label} any_hit={any_hit}"
-                check(t_eq >= 0.9999 and p_eq >= 0.9999, f"{what}: t/prim equal on {t_eq}/{p_eq}")
-                check(rel <= 1e-5, f"{what}: t rel err {rel}")
+                differ = (_bits(got) != _bits(want)).any(dim=0)
+                check(not bool(differ.any()),
+                      f"{engine} {label} any_hit={any_hit}: t or prim bits differ on "
+                      f"{int(differ.sum())} of {differ.numel()} pairs")
                 res[engine][f"{label}_{'any' if any_hit else 'closest'}"] = {
                     "pairs": pdata.shape[1], "live_tiles": int((tile_block >= 0).sum()),
-                    "t_equal": t_eq, "prim_equal": p_eq, "max_rel_err": rel}
-                worst[engine] = max(worst[engine], err)
+                    "bit_equal": True, "hits": int((want[0] < INF).sum())}
 
     # blocklist: the fallback-sized call on random rays, a full wave of
     # camera rays, a k=1 (overflow) call, and the calls of blocklist_calls;
@@ -947,7 +973,7 @@ def phase_door_plk(scene):
           "occluded_equals_hit": agree})
 
 
-def phase_door_timings(scene, checks, launches, bl_calls, bl_rows, bl_render):
+def phase_door_timings(scene, checks, launches, bl_calls, bl_rows, bl_render, mt_render):
     """CUDA-event medians of the three pair-pipeline kernels at the main
     path's shapes: the second camera wave (pixels 131072-262143 of 512x512)
     gives the tile kernels its sorted pairs; the blocklist runs the calls
@@ -957,7 +983,11 @@ def phase_door_timings(scene, checks, launches, bl_calls, bl_rows, bl_render):
     pairs that can still hit (t range above EPS_T) times the real triangles
     of its block; for the blocklist, the kernel's own count of them (its
     work row 2).  ``bl_render``: the blocklist's summed kernel time over
-    the door_room renders' launches."""
+    the door_room renders' launches, ``mt_render`` the MT tiles' over the
+    pair render's.  The MT entry also counts the tests its kernel runs
+    (``mt_tile_work``) and their operations over the FP32 rate
+    (``tests_run_floor_ms``), which splits its gap to the bound into tests
+    run and time per test."""
     import torch
 
     from mitsuba_path_guiding_torch.ops.intersect_blocklist import (
@@ -967,7 +997,6 @@ def phase_door_timings(scene, checks, launches, bl_calls, bl_rows, bl_render):
         blocklist_plain,
     )
     from mitsuba_path_guiding_torch.ops.intersect_pairs import (
-        EPS_T,
         TILE,
         mt_tiles,
         mt_tiles_plain,
@@ -984,14 +1013,13 @@ def phase_door_timings(scene, checks, launches, bl_calls, bl_rows, bl_render):
     blocks_used = int(torch.unique(tile_block[tile_block >= 0]).numel())
     n_pairs = pdata.shape[1]
     # dead and dummy pairs carry tmax 0, padding triangles id -1
-    can_hit = (pdata[6] > EPS_T).reshape(-1, TILE).sum(dim=1)
-    real_tris = (pt.tri_rows[tile_block.clamp_min(0).long(), 9, :] >= 0).sum(dim=1)
-    tests = int(torch.where(tile_block >= 0, can_hit * real_tris, 0).sum())
-    hit_pairs = int(can_hit.sum())
+    work = mt_tile_work(pt, pdata, tile_block)
+    tests, hit_pairs = work["triangle_tests"], work["pairs_that_can_hit"]
     io_bytes = n_pairs * (7 + 2) * 4 + tile_block.numel() * 4
     no_library = ("none: no single PyTorch call computes a per-pair best hit over a "
                   "gathered triangle block")
     entries = []
+    bit_equal = "t and prim bit-equal to the plain version's on every pair, closest and any-hit"
     for name, kern, plain, tabs, row_bytes, ops in (
             ("intersect_pairs_mt", mt_tiles, mt_tiles_plain, (pt.tri_rows,), 10 * TILE * 4,
              tests * MT_OPS),
@@ -1012,7 +1040,11 @@ def phase_door_timings(scene, checks, launches, bl_calls, bl_rows, bl_render):
             "shape": f"{DOOR_WAVE} camera rays: {n_pairs} sorted pairs, {live} live tiles of "
                      f"{TILE}, {blocks_used} distinct blocks, closest hit",
             "work": {"pairs_that_can_hit": hit_pairs, "triangle_tests": tests, "fp32_ops": ops},
-            "check": "t and prim equal on >= 99.99% of pairs, t rel err <= 1e-5"})
+            "check": bit_equal})
+    mt = entries[0]
+    mt["work"]["tests_run"] = work["tests_run"]
+    mt["tests_run_floor_ms"] = work["tests_run"] * MT_OPS / FP32_OPS_PER_S * 1e3
+    mt["render_kernel_time"] = mt_render
 
     # the blocklist on three calls of the main paths: the two fallbacks
     # and a sorted bounce wave
@@ -1431,6 +1463,7 @@ def main(argv=None):
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mitsuba_path_guiding_torch.ops import fused_path
     from mitsuba_path_guiding_torch.scene.builder import build_scene
     from mitsuba_path_guiding_torch.scene.scenes import cornell_box
 
@@ -1446,12 +1479,16 @@ def main(argv=None):
     grid, c_prog = drive("progressive", lambda: phase_progressive(scene),
                          {"gather_rows_t": None, "intersect_tiled": None, "trace_fused": 0,
                           **no_pairs})
-    tables, c_frozen = drive("frozen_render", lambda: phase_frozen(scene, grid, card),
-                             {**only_fused, "trace_fused": FROZEN_WAVES})
+    # the fused kernel against its plain version first, so that the renders
+    # below time a kernel that is loaded and checked
+    checks["trace_fused"] = phase_fused_check(scene, fused_path.build_fused_tables(scene), grid)
+    ((tables, _), fused_t), c_frozen = drive(
+        "frozen_render",
+        lambda: kernel_time(lambda: phase_frozen(scene, grid, card), fused_path, "trace_fused_cuda"),
+        {**only_fused, "trace_fused": FROZEN_WAVES})
+    emit({"phase": "trace_fused_kernel_time", "route": "frozen_render", **fused_t})
     _, c_render = drive("unguided_render", lambda: phase_unguided_render(scene, card),
                         {**only_fused, "trace_fused": RENDER_SPP})
-
-    checks["trace_fused"] = phase_fused_check(scene, tables, grid)
 
     door = phase_door_build()
     bl_calls = blocklist_calls(door)
@@ -1461,11 +1498,15 @@ def main(argv=None):
                "intersect_bvh": 0}
     retraces = {}
     bl_render = {}  # the blocklist's summed kernel time over a route's launches
+    mt_render = {}  # the MT tiles' likewise
 
     def timed(name, fn):
         def run():
-            bl_render[name] = blocklist_kernel_time(fn)[1]
+            (_, bl_render[name]), mt = mt_kernel_time(lambda: blocklist_kernel_time(fn))
             emit({"phase": "blocklist_kernel_time", "route": name, **bl_render[name]})
+            if mt["launches"]:
+                mt_render[name] = mt
+                emit({"phase": "mt_kernel_time", "route": name, **mt})
         return run
 
     def route(name, fn):
@@ -1503,7 +1544,8 @@ def main(argv=None):
     launches = {k: {r: c[k] for r, c in routes.items()} for k in c_prog}
 
     entries = phase_timings(scene, tables, grid, checks, launches, card)
-    entries += phase_door_timings(door, checks, launches, bl_calls, bl_rows, bl_render)
+    entries += phase_door_timings(door, checks, launches, bl_calls, bl_rows, bl_render,
+                                  mt_render)
     entries += phase_new_timings(interior, door_tl, door, launches, card)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

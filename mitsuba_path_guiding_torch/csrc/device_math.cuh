@@ -104,6 +104,35 @@ PG_HD bool pg_plucker_hit(const float* c, const float* o, const float* d,
   return inside && ok_den && (t > PG_EPS_T) && (t < tmax);
 }
 
+// ---------------------------------------------------------------------------
+// pg_plucker_hit in two stages, each with the same operations in the same
+// order: pg_plucker_inside, the edge sides from c[0:18], says whether the
+// ray passes inside the triangle; pg_plucker_depth, the plane distance and
+// its division from c[18:25], gives t and the range test.  Their AND is
+// pg_plucker_hit, so a kernel may skip the second stage wherever the first
+// failed (the fused kernel does, for a triangle no lane of a warp is in).
+// ---------------------------------------------------------------------------
+PG_HD bool pg_plucker_inside(const float* c, const float* d, const float* m, bool any_hit) {
+  const float s0 = pg_side(c + 0, d, m);
+  const float s1 = pg_side(c + 6, d, m);
+  const float s2 = pg_side(c + 12, d, m);
+  const float smin = fminf(fminf(s0, s1), s2);
+  const float smax = fmaxf(fmaxf(s0, s1), s2);
+  if (any_hit) return (smin >= 0.0f) || (smax <= 0.0f);
+  const float eps = 1e-6f * ((fabsf(s0) + fabsf(s1)) + fabsf(s2));
+  return (smin >= -eps) || (smax <= eps);
+}
+
+PG_HD bool pg_plucker_depth(const float* c, const float* o, const float* d, float tmax,
+                            float* t_out) {
+  const float num = ((c[18] * o[0] + c[19] * o[1]) + c[20] * o[2]) + c[21];
+  const float den = (c[22] * d[0] + c[23] * d[1]) + c[24] * d[2];
+  const bool ok_den = den != 0.0f;
+  const float t = num / (ok_den ? den : 1.0f);
+  *t_out = t;
+  return ok_den && (t > PG_EPS_T) && (t < tmax);
+}
+
 // packed winner key: the low `bits` mantissa bits of t carry the triangle
 // id (t > EPS_T > 0, so integer order is float order); INF for a miss
 PG_HD uint32_t pg_packed_key(bool hit, float t, uint32_t tid, uint32_t lo_mask) {
@@ -182,6 +211,44 @@ PG_HD bool pg_mt_test(float p0x, float p0y, float p0z, float e1x, float e1y,
   const float t = ((e2x * qvx + e2y * qvy) + e2z * qvz) * inv_det;
   *t_out = t;
   *u_out = u;
+  *v_out = v;
+  return (inv_det != 0.0f) && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > PG_EPS_T);
+}
+
+// ---------------------------------------------------------------------------
+// pg_mt_test in two stages, each with the same operations in the same
+// order.  pg_mt_u computes u and what the second stage needs (tvec and
+// 1/det) and returns whether the pair can still hit: inv_det != 0 and
+// 0 <= u <= 1 (a hit has v >= 0 and fl(u + v) <= 1, and fl(u + v) >= u,
+// so it has u <= 1).  pg_mt_vt then gives v and t and pg_mt_test's whole
+// hit condition.  A kernel may skip pg_mt_vt wherever pg_mt_u failed.
+// ---------------------------------------------------------------------------
+PG_HD bool pg_mt_u(float p0x, float p0y, float p0z, float e1x, float e1y, float e1z,
+                   float e2x, float e2y, float e2z, float ox, float oy, float oz, float dx,
+                   float dy, float dz, float* tv, float* inv_out, float* u_out) {
+  const float pvx = dy * e2z - dz * e2y;
+  const float pvy = dz * e2x - dx * e2z;
+  const float pvz = dx * e2y - dy * e2x;
+  const float det = (e1x * pvx + e1y * pvy) + e1z * pvz;
+  const float inv_det = fabsf(det) < 1e-12f ? 0.0f : 1.0f / (det == 0.0f ? 1.0f : det);
+  tv[0] = ox - p0x;
+  tv[1] = oy - p0y;
+  tv[2] = oz - p0z;
+  const float u = ((tv[0] * pvx + tv[1] * pvy) + tv[2] * pvz) * inv_det;
+  *inv_out = inv_det;
+  *u_out = u;
+  return (inv_det != 0.0f) && (u >= 0.0f) && (u <= 1.0f);
+}
+
+PG_HD bool pg_mt_vt(float e1x, float e1y, float e1z, float e2x, float e2y, float e2z,
+                    float dx, float dy, float dz, const float* tv, float inv_det, float u,
+                    float* t_out, float* v_out) {
+  const float qvx = tv[1] * e1z - tv[2] * e1y;
+  const float qvy = tv[2] * e1x - tv[0] * e1z;
+  const float qvz = tv[0] * e1y - tv[1] * e1x;
+  const float v = ((dx * qvx + dy * qvy) + dz * qvz) * inv_det;
+  const float t = ((e2x * qvx + e2y * qvy) + e2z * qvz) * inv_det;
+  *t_out = t;
   *v_out = v;
   return (inv_det != 0.0f) && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > PG_EPS_T);
 }

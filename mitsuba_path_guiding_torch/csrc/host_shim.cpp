@@ -51,6 +51,43 @@ void host_plucker_closest(const float* plk, int n_tri, uint32_t lo_mask, const f
   }
 }
 
+// host_plucker_closest through the two stages pg_plucker_inside and
+// pg_plucker_depth, the second run only where the first passed, as the
+// fused kernel runs them
+void host_plucker_split_closest(const float* plk, int n_tri, uint32_t lo_mask, const float* o,
+                                const float* d, const float* tmax, int n, int any_hit,
+                                int* prim, float* t_best) {
+  for (int i = 0; i < n; ++i) {
+    const float* oi = o + 3 * i;
+    const float* di = d + 3 * i;
+    float m[3];
+    pg_cross(oi, di, m);
+    uint32_t best = PG_INF_BITS;
+    bool occ = false;
+    for (int t = 0; t < n_tri; ++t) {
+      const float* c = plk + 25 * t;
+      float tt = 0.0f;
+      const bool h = pg_plucker_inside(c, di, m, any_hit != 0) &&
+                     pg_plucker_depth(c, oi, di, tmax[i], &tt);
+      if (any_hit) {
+        occ = occ || h;
+      } else {
+        const uint32_t key = pg_packed_key(h, tt, (uint32_t)t, lo_mask);
+        best = key < best ? key : best;
+      }
+    }
+    if (any_hit) {
+      prim[i] = occ ? 1 : 0;
+      t_best[i] = 0.0f;
+    } else {
+      const float tb = pg_u2f(best & ~lo_mask);
+      const bool valid = tb < INFINITY;
+      prim[i] = valid ? (int)(best & lo_mask) : -1;
+      t_best[i] = tb;
+    }
+  }
+}
+
 void host_mt_exact(const float* tri, const float* o, const float* d, int n, float* t,
                    float* u, float* v) {
   for (int i = 0; i < n; ++i) pg_mt_exact(tri + 9 * i, o + 3 * i, d + 3 * i, t + i, u + i, v + i);
@@ -83,6 +120,47 @@ void host_mt_closest(const float* tri, int n_tri, const float* o, const float* d
     u_out[i] = bu;
     v_out[i] = bv;
   }
+}
+
+// host_mt_closest through the two stages pg_mt_u and pg_mt_vt, the second
+// run only where the first passed, as the pair tile kernel runs them.
+// Returns the (ray, triangle) tests where pg_mt_u failed and pg_mt_test
+// hits, which must be none.
+int host_mt_split_closest(const float* tri, int n_tri, const float* o, const float* d,
+                          const float* tmax, int n, float* t_out, int* prim, float* u_out,
+                          float* v_out) {
+  int wrong = 0;
+  for (int i = 0; i < n; ++i) {
+    const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
+    const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
+    float best = tmax[i] < 3.0e38f ? tmax[i] : 3.0e38f;
+    int bp = -1;
+    float bu = 0.0f, bv = 0.0f;
+    for (int j = 0; j < n_tri; ++j) {
+      const float* c = tri + 9 * j;
+      float tv[3], inv, u, t = 0.0f, v = 0.0f;
+      const bool may = pg_mt_u(c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], ox, oy,
+                               oz, dx, dy, dz, tv, &inv, &u);
+      const bool h = may && pg_mt_vt(c[3], c[4], c[5], c[6], c[7], c[8], dx, dy, dz, tv, inv, u,
+                                     &t, &v);
+      float t1, u1, v1;
+      if (!may && pg_mt_test(c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], ox, oy, oz,
+                             dx, dy, dz, &t1, &u1, &v1)) {
+        ++wrong;
+      }
+      if (h && t < best) {
+        best = t;
+        bp = j;
+        bu = u;
+        bv = v;
+      }
+    }
+    t_out[i] = bp >= 0 ? best : 3.0e38f;
+    prim[i] = bp;
+    u_out[i] = bu;
+    v_out[i] = bv;
+  }
+  return wrong;
 }
 
 // the blocklist kernel's merge keys of (t, block, id), and their unpacking

@@ -10,20 +10,45 @@
 // Pluecker matrix product on the MXU plus _plk_epilogue).
 //
 // Bound: operations.  A tile moves 128 pairs x 7 floats in and 2 out
-// (4.6 KB) plus its block's rows, and does 128 x 128 triangle tests of
-// ~46 (MT) or ~52 (Pluecker) FP32 operations: ~150 operations per byte,
-// far above the card's ~10 FP32 operations per byte of HBM.  Design: one
-// CTA of 128 threads per tile, thread j owns pair j; the block's rows
-// (MT: p0 e1 e2 id, 10 x 128 floats; Pluecker: 25 coefficients + id per
-// triangle, from tri_cols) are staged once in shared memory and read as
-// broadcasts (every thread reads the same triangle at the same time).
-// An inert tile (tile_block < 0: dummies or the sort's tail) writes
-// (INF, -1) and returns before touching the table.  The Pluecker test runs
-// in FP32 on the CUDA cores, summing in the plain version's order
+// (4.6 KB) plus its block's rows, and does up to 128 x 128 triangle tests
+// of ~46 (MT) or ~52 (Pluecker) FP32 operations: ~150 operations per byte,
+// far above the card's ~10 FP32 operations per byte of HBM.  The bound
+// counts the tests the data needs: pairs that can hit (tmax > EPS_T) times
+// the real triangles of their block.
+//
+// MT design (pair_mt_kernel): one CTA of 4 warps per tile, and the issue
+// slots go to the tests the data needs.
+//   * A dead or dummy pair (tmax <= EPS_T) can find no hit: it writes
+//     (INF, -1) at once, and the live pairs are compacted to the front of
+//     the tile (one ballot per 32 pairs).  Lane l of every warp owns live
+//     pairs l, l + 32, ... (up to 4), and the triangle loop runs for only
+//     as many of those 32-pair slots as hold a live pair, so a wholly dead
+//     group of 32 pairs costs nothing.
+//   * Padding triangles (id -1) sit at a block's tail: the loop stops after
+//     the last real one (a max over the staged ids).
+//   * Each triangle is staged as one 48-byte record (p0, e1, e2, id, two
+//     floats of padding) and read as 3 LDS.128 broadcasts, which feed the
+//     tests of all of a lane's pairs.
+//   * Warp w tests triangles w, w + 4, ...: a quarter of the tile's tests,
+//     so tiles of unequal cost spread evenly over the card; the four
+//     partial winners of each pair merge in shared memory.
+//   * The test runs in two stages (device_math.cuh pg_mt_u, pg_mt_vt): a
+//     slot whose 32 pairs all fail 0 <= u <= 1 (a warp vote) skips v, t
+//     and the winner update for that triangle; such a pair cannot hit.
+// The winner is the least t and, among equal t, the least original
+// triangle id (row 9), an order-free reduction, so skipping, splitting and
+// compacting change no bit; any-hit keeps the least t too and writes +-1
+// in row 1.
+//
+// Pluecker design (pair_plk_kernel): one CTA of 128 threads per tile,
+// thread j owns pair j; the 25 coefficients + id of each triangle (from
+// tri_cols) are staged once in shared memory and read as broadcasts.  The
+// test runs in FP32 on the CUDA cores, summing in the plain version's order
 // (device_math.cuh pg_plucker_hit), not on the tensor cores, whose TF32 or
-// bf16 inputs would drop hits.  The winner is the least t and, among equal
-// t, the least original triangle id (row 9), as the Pallas kernels reduce
-// it; any-hit writes +-1 in row 1.  Dead pairs carry tmax 0.
+// bf16 inputs would drop hits.
+//
+// An inert tile (tile_block < 0: dummies or the sort's tail) writes
+// (INF, -1) and returns before touching the table.
 //
 // Build: ops/build.py, nvcc -fmad=false (no contraction), so the tests
 // agree bit for bit with ops/intersect_pairs.py mt_tiles_plain /
@@ -39,6 +64,8 @@
 #define PLK_COLS (5 * LEAF)
 #define INF_T 3.0e38f
 #define NO_ID 2.0e9f
+#define MT_WARPS (PAIR_TILE / 32)  // warps of an MT tile's CTA, each with a share of the triangles
+#define MT_SLOTS (PAIR_TILE / 32)  // 32-pair slots of a tile: live pairs a lane owns at most
 
 __device__ __forceinline__ void pg_take(bool hit, float t, float tid, float* bt, float* bid) {
   if (hit && (t < *bt || (t == *bt && tid < *bid))) {
@@ -54,35 +81,119 @@ __device__ __forceinline__ void pg_pair_out(float* out, int64_t P, int64_t p, fl
   out[P + p] = ANY_HIT ? (hit ? 1.0f : -1.0f) : (hit ? bid : -1.0f);
 }
 
+// one warp's share of a tile: the live pairs of slots 0..S-1 (lane l,
+// slot s: live pair 32 s + l) against the staged triangles k = warp,
+// warp + MT_WARPS, ... below n_tri; the best (t, id) of each slot and lane
+// goes to best[warp][s][lane]
+template <int S>
+__device__ __forceinline__ void mt_slots(const float4* __restrict__ rec, int n_tri,
+                                         const int* live, int n_live,
+                                         const float* __restrict__ pd, int64_t P, int64_t base,
+                                         float2* best) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float ox[S], oy[S], oz[S], dx[S], dy[S], dz[S], tmax[S], bt[S], bid[S];
+  bool has[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int j = 32 * s + lane;
+    has[s] = j < n_live;
+    const int64_t p = base + (has[s] ? live[j] : 0);
+    ox[s] = pd[p];
+    oy[s] = pd[P + p];
+    oz[s] = pd[2 * P + p];
+    dx[s] = pd[3 * P + p];
+    dy[s] = pd[4 * P + p];
+    dz[s] = pd[5 * P + p];
+    tmax[s] = pd[6 * P + p];
+    bt[s] = INF_T;
+    bid[s] = NO_ID;
+  }
+  for (int k = warp; k < n_tri; k += MT_WARPS) {
+    const float4 a = rec[3 * k], b = rec[3 * k + 1], c = rec[3 * k + 2];
+    // a: p0 e1x, b: e1y e1z e2x e2y, c: e2z id - -
+    float tv[S][3], inv[S], u[S];
+    bool may[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      may[s] = pg_mt_u(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, ox[s], oy[s], oz[s], dx[s],
+                       dy[s], dz[s], tv[s], &inv[s], &u[s]) && has[s];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (__any_sync(0xffffffffu, may[s])) {
+        float t, v;
+        const bool hit = pg_mt_vt(a.w, b.x, b.y, b.z, b.w, c.x, dx[s], dy[s], dz[s], tv[s],
+                                  inv[s], u[s], &t, &v);
+        pg_take(may[s] && hit && t < tmax[s] && c.y >= 0.0f, t, c.y, &bt[s], &bid[s]);
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) best[(warp * MT_SLOTS + s) * 32 + lane] = make_float2(bt[s], bid[s]);
+}
+
 template <bool ANY_HIT>
 __global__ void __launch_bounds__(PAIR_TILE)
 pair_mt_kernel(const float* __restrict__ tri_rows, int n_blocks,
                const int* __restrict__ tile_block, const float* __restrict__ pd,
                float* __restrict__ out, int64_t P) {
-  __shared__ float s[10][LEAF];
-  const int j = threadIdx.x;
-  const int64_t p = (int64_t)blockIdx.x * PAIR_TILE + j;
+  __shared__ float4 rec[3 * LEAF];      // per triangle: p0 e1 e2 id, 2 floats of padding
+  __shared__ int live[PAIR_TILE];       // the tile's live pairs, in order
+  __shared__ float2 best[MT_WARPS * MT_SLOTS * 32];  // each warp's best (t, id) per pair
+  __shared__ int s_live[MT_WARPS], s_last[MT_WARPS];
+  const int i = threadIdx.x, lane = i & 31, warp = i >> 5;
+  const int64_t base = (int64_t)blockIdx.x * PAIR_TILE;
   const int blk = tile_block[blockIdx.x];
   if (blk < 0) {  // uniform over the CTA
-    pg_pair_out<ANY_HIT>(out, P, p, INF_T, NO_ID);
+    pg_pair_out<ANY_HIT>(out, P, base + i, INF_T, NO_ID);
     return;
   }
-  const float* src = tri_rows + (int64_t)min(blk, n_blocks - 1) * 10 * LEAF;
+  // thread i: pair i's liveness and triangle i's record
+  const bool is_live = pd[6 * P + base + i] > PG_EPS_T;
+  const unsigned m = __ballot_sync(0xffffffffu, is_live);
+  const float* src = tri_rows + (int64_t)min(blk, n_blocks - 1) * 10 * LEAF + i;
+  float* r = reinterpret_cast<float*>(rec) + 12 * i;
 #pragma unroll
-  for (int r = 0; r < 10; ++r) s[r][j] = src[r * LEAF + j];
-  __syncthreads();
-  const float ox = pd[p], oy = pd[P + p], oz = pd[2 * P + p];
-  const float dx = pd[3 * P + p], dy = pd[4 * P + p], dz = pd[5 * P + p];
-  const float tmax = pd[6 * P + p];
-  float bt = INF_T, bid = NO_ID;
-  for (int k = 0; k < LEAF; ++k) {
-    const float tid = s[9][k];
-    float t, u, v;
-    const bool hit = pg_mt_test(s[0][k], s[1][k], s[2][k], s[3][k], s[4][k], s[5][k],
-                                s[6][k], s[7][k], s[8][k], ox, oy, oz, dx, dy, dz, &t, &u, &v);
-    pg_take(hit && t < tmax && tid >= 0.0f, t, tid, &bt, &bid);
+  for (int c = 0; c < 10; ++c) r[c] = src[c * LEAF];
+  // one past the last real triangle (padding sits at a block's tail)
+  const int last = __reduce_max_sync(0xffffffffu, src[9 * LEAF] >= 0.0f ? i + 1 : 0);
+  if (lane == 0) {
+    s_live[warp] = __popc(m);
+    s_last[warp] = last;
   }
-  pg_pair_out<ANY_HIT>(out, P, p, bt, bid);
+  __syncthreads();
+  int n_live = 0, before = 0, n_tri = 0;
+#pragma unroll
+  for (int w = 0; w < MT_WARPS; ++w) {
+    before += w < warp ? s_live[w] : 0;
+    n_live += s_live[w];
+    n_tri = max(n_tri, s_last[w]);
+  }
+  // the live pairs compacted to the front; a dead pair writes its miss now
+  if (is_live) {
+    live[before + __popc(m & ((1u << lane) - 1u))] = i;
+  } else {
+    pg_pair_out<ANY_HIT>(out, P, base + i, INF_T, NO_ID);
+  }
+  if (n_live == 0) return;  // uniform over the CTA
+  __syncthreads();
+  switch ((n_live + 31) / 32) {
+    case 1: mt_slots<1>(rec, n_tri, live, n_live, pd, P, base, best); break;
+    case 2: mt_slots<2>(rec, n_tri, live, n_live, pd, P, base, best); break;
+    case 3: mt_slots<3>(rec, n_tri, live, n_live, pd, P, base, best); break;
+    default: mt_slots<4>(rec, n_tri, live, n_live, pd, P, base, best); break;
+  }
+  __syncthreads();
+  // thread i merges live pair i over the warps' shares (an order-free
+  // minimum of (t, id)) and writes it
+  if (i < n_live) {
+    float bt = INF_T, bid = NO_ID;
+#pragma unroll
+    for (int w = 0; w < MT_WARPS; ++w) {
+      const float2 c = best[(w * MT_SLOTS + (i >> 5)) * 32 + (i & 31)];
+      pg_take(true, c.x, c.y, &bt, &bid);
+    }
+    pg_pair_out<ANY_HIT>(out, P, base + live[i], bt, bid);
+  }
 }
 
 template <bool ANY_HIT>

@@ -164,3 +164,52 @@ def test_mt_exact_and_dense_closest(lib, rays):
     np.testing.assert_array_equal(te, wt.numpy())
     np.testing.assert_array_equal(ue, wu.numpy())
     np.testing.assert_array_equal(ve, wv.numpy())
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_plucker_two_stages(lib, rays, any_hit):
+    """pg_plucker_inside then pg_plucker_depth, the second only where the
+    first passed (as the fused kernel skips it), give the plain version's
+    winner bit for bit."""
+    scene, tables, o, d, tmax = rays
+    t_pad = tables.shade_rows.shape[0]
+    lo_mask = (1 << max((t_pad - 1).bit_length(), 1)) - 1
+    plk = tables.plk_rows.numpy()
+    prim = np.zeros(N, np.int32)
+    tb = np.zeros(N, np.float32)
+    lib.host_plucker_split_closest(_p(plk), ctypes.c_int(tables.n_tri), ctypes.c_uint32(lo_mask),
+                                   _p(o), _p(d), _p(tmax), ctypes.c_int(N),
+                                   ctypes.c_int(int(any_hit)), _p(prim), _p(tb))
+    ot, dt = torch.from_numpy(o), torch.from_numpy(d)
+    want = tfused._intersect_plain(tables.plk_rows, (ot[:, 0], ot[:, 1], ot[:, 2]),
+                                   (dt[:, 0], dt[:, 1], dt[:, 2]), torch.from_numpy(tmax),
+                                   tables.n_tri, any_hit)
+    if any_hit:
+        np.testing.assert_array_equal(prim.astype(bool), want[0].numpy())
+        assert 0.05 < want[0].numpy().mean() < 0.95
+    else:
+        np.testing.assert_array_equal(prim, want[0].numpy())
+        assert (prim >= 0).mean() > 0.5
+
+
+def test_mt_two_stages(lib, rays):
+    """pg_mt_u then pg_mt_vt, the second only where the first passed (as
+    the pair tile kernel skips it): the dense closest hit equals the plain
+    version's bit for bit, and no (ray, triangle) that pg_mt_u rules out
+    is a hit of pg_mt_test."""
+    scene, tables, o, d, tmax = rays
+    geo = scene.geo
+    tri9 = torch.cat([geo.p0, geo.e1, geo.e2], dim=1).numpy().copy()
+    t, u, v = (np.zeros(N, np.float32) for _ in range(3))
+    prim = np.zeros(N, np.int32)
+    lib.host_mt_split_closest.restype = ctypes.c_int
+    wrong = lib.host_mt_split_closest(_p(tri9), ctypes.c_int(tri9.shape[0]), _p(o), _p(d),
+                                      _p(tmax), ctypes.c_int(N), _p(t), _p(prim), _p(u), _p(v))
+    assert wrong == 0
+    bt, bp, bu, bv, valid = closest_plain(geo.p0, geo.e1, geo.e2, torch.from_numpy(o),
+                                          torch.from_numpy(d), torch.from_numpy(tmax))
+    np.testing.assert_array_equal(prim, bp.numpy())
+    np.testing.assert_array_equal(t, bt.numpy())
+    np.testing.assert_array_equal(u[valid.numpy()], bu.numpy()[valid.numpy()])
+    np.testing.assert_array_equal(v[valid.numpy()], bv.numpy()[valid.numpy()])
+    assert valid.numpy().mean() > 0.5

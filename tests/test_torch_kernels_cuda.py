@@ -107,6 +107,43 @@ def test_trace_fused_matches_plain(card, guided):
     assert torch.isfinite(got).all()
 
 
+def test_trace_fused_uneven_depths(card):
+    """Half the lanes start inside the box toward its open side (most
+    escape at once), half are camera rays (most run all 5 bounces): the
+    kernel's warps refill as paths end.  30001 lanes, not a multiple of
+    the block; every row against the plain version."""
+    from mitsuba_path_guiding_torch.guiding.grid import make_grid
+
+    scene = card
+    tables = build_fused_tables(scene)
+    n = 30_001
+    o, d, _, g = _rays(scene, n, 9)
+    half = torch.arange(n, device="cuda") < n // 2
+    out_dir = torch.nn.functional.normalize(d * torch.tensor([0.3, 0.3, 0.0], device="cuda")
+                                            + torch.tensor([0.0, 0.0, -1.0], device="cuda"), dim=-1)
+    cam = scene.sensor.to_world[:3, 3].to("cuda")
+    d_cam = torch.nn.functional.normalize(o - cam, dim=-1)
+    o = torch.where(half[:, None], o, cam.expand_as(o))
+    d = torch.where(half[:, None], out_dir, d_cam)
+    keys = torch.randint(0, 2**32, (n, 2), generator=g, device="cuda", dtype=torch.int64)
+    grid = make_grid(scene.aabb_min, scene.aabb_max, res=16, n_lobes=8)
+    grid = grid._replace(valid=torch.rand(grid.valid.shape, generator=g, device="cuda") < 0.7,
+                         kappa=20.0 * torch.rand(grid.kappa.shape, generator=g, device="cuda"))
+    guide_tab, meta = _pack_guide(grid)
+    kw = dict(max_depth=5, rr_depth=5, guided=True, alpha=0.5)
+    got = trace_fused_cuda(tables, o, d, keys, guide_tab, meta, **kw)
+    want = trace_fused_plain(tables, o, d, keys, guide_tab, meta, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    depth = want[14]
+    assert (depth[half] == 1).float().mean() > 0.5 and (depth[~half] == 5).float().mean() > 0.2
+    close = torch.isclose(got, want, rtol=1e-3, atol=1e-6)
+    for rows in (slice(0, 3), slice(3, 6), slice(6, 9), slice(9, 10), slice(11, 14)):
+        assert close[rows].all(dim=0).float().mean() >= 0.99
+    assert (got[10] == want[10]).float().mean() >= 0.99
+    assert (got[14:16] == want[14:16]).all(dim=0).float().mean() >= 0.99
+
+
 @pytest.fixture(scope="module")
 def door(card):
     from mitsuba_path_guiding_torch.scene.scenes import door_room
@@ -114,16 +151,70 @@ def door(card):
     return build_scene(door_room(20000), device="cuda")
 
 
-@pytest.mark.parametrize("engine", ["mt", "plk"])
-@pytest.mark.parametrize("any_hit", [False, True])
-def test_pair_tiles_match_plain(door, engine, any_hit):
+def _edge_tiles(door, g):
+    """Pair tiles on the cases the MT kernel's design branches on: blocks
+    with 128, 1 and 79 real triangles (two of them tying in t), a tile
+    whose pairs are all live, one live only in its first 41 pairs (a
+    partly and two wholly dead 32-pair slots), an inert tile, one whose
+    first 64 pairs are dead (dummies of the block before), a live block
+    with every pair dead, one with every other pair dead and one live only
+    in its last 32 pairs with some tmax at or below EPS_T.  Returns
+    (tri_rows, tri_cols, tile_block, pdata)."""
     from mitsuba_path_guiding_torch.ops import intersect_pairs as ip
 
-    o, d, tmax, _ = _rays(door, 20_000, 3)
-    ids, _ = ip.build_pair_lists(door.pairs, o, d, tmax)
-    skeys, spays, _ = ip.sorted_pairs(door.pairs, ids, o.shape[0], 5)
-    pdata, tile_block = ip.pair_tiles(skeys, spays, o, d, tmax)
-    tabs = (door.pairs.tri_rows,) if engine == "mt" else (door.pairs.tri_cols, door.pairs.tri_rows)
+    pt = door.pairs
+    # three blocks of 128 real triangles each, taken in table order
+    real = torch.nonzero(pt.tri_rows[:, 9, :] >= 0)[:3 * ip.LEAF]
+    b_src, s_src = real[:, 0], real[:, 1]
+    rows = pt.tri_rows[b_src, :, s_src].reshape(3, ip.LEAF, 10).transpose(1, 2).contiguous()
+    cols = torch.stack([pt.tri_cols[b_src, :, grp * ip.LEAF + s_src] for grp in range(5)], dim=1)
+    cols = cols.reshape(3, ip.LEAF, 5, 16).permute(0, 3, 2, 1).reshape(3, 16, 5 * ip.LEAF)
+    cols = cols.contiguous()
+    rows[0, :, 11] = rows[0, :, 10]                  # a duplicate triangle: equal t,
+    rows[0, 9, 11] = rows[0, 9, 10] - 0.5            # the lesser id must win
+    cols[0, :, 11::128] = cols[0, :, 10::128]
+    rows[1, 9, 1:] = -1.0                            # 1 real triangle, the rest padding
+    rows[2, 9, 79:] = -1.0                           # 79 real triangles
+    tile_block = torch.tensor([0, 1, -1, 2, 0, 1, 2], dtype=torch.int32, device="cuda")
+    n_tiles = tile_block.numel()
+    # each pair aims at a point of a random real triangle of its block
+    blk = tile_block.clamp_min(0).long().repeat_interleave(ip.TILE)
+    n_real = torch.tensor([128, 1, 79], device="cuda")[blk]
+    k = (torch.rand(blk.shape, generator=g, device="cuda") * n_real).long()
+    tri = rows[blk, :, k]
+    b = torch.rand((blk.numel(), 2), generator=g, device="cuda") * 0.5
+    target = tri[:, 0:3] + b[:, 0:1] * tri[:, 3:6] + b[:, 1:2] * tri[:, 6:9]
+    o = target + torch.randn((blk.numel(), 3), generator=g, device="cuda")
+    d = torch.nn.functional.normalize(target - o, dim=-1)
+    d = torch.where(torch.rand((blk.numel(), 1), generator=g, device="cuda") < 0.2,
+                    torch.nn.functional.normalize(torch.randn_like(d), dim=-1), d)
+    tmax = torch.where(torch.rand(blk.shape, generator=g, device="cuda") < 0.8, 3.0e37, 1.0)
+    pair = torch.arange(ip.TILE, device="cuda").repeat(n_tiles)
+    tile = torch.arange(n_tiles, device="cuda").repeat_interleave(ip.TILE)
+    dead = (((tile == 1) & (pair >= 41)) | ((tile == 3) & (pair < 64)) | (tile == 4)
+            | ((tile == 5) & (pair % 2 == 1)) | ((tile == 6) & (pair < 96)))
+    tmax = torch.where(dead, torch.where(pair % 3 == 0, -1.0, 0.0), tmax)
+    tmax = torch.where((tile == 6) & (pair >= 120), torch.where(pair % 2 == 0, 1e-4, 5e-5), tmax)
+    pdata = torch.cat([o.T, d.T, tmax[None, :]], dim=0).contiguous()
+    return rows, cols, tile_block, pdata
+
+
+@pytest.mark.parametrize("engine", ["mt", "plk"])
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("case", ["door", "edges"])
+def test_pair_tiles_match_plain(door, engine, any_hit, case):
+    from mitsuba_path_guiding_torch.ops import intersect_pairs as ip
+
+    if case == "door":
+        o, d, tmax, _ = _rays(door, 20_000, 3)
+        ids, _ = ip.build_pair_lists(door.pairs, o, d, tmax)
+        skeys, spays, _ = ip.sorted_pairs(door.pairs, ids, o.shape[0], 5)
+        pdata, tile_block = ip.pair_tiles(skeys, spays, o, d, tmax)
+        rows, cols = door.pairs.tri_rows, door.pairs.tri_cols
+    else:
+        rows, cols, tile_block, pdata = _edge_tiles(door, torch.Generator(device="cuda")
+                                                    .manual_seed(8))
+    tabs = (rows,) if engine == "mt" else (cols, rows)
     kern = ip.mt_tiles if engine == "mt" else ip.plk_tiles
     plain = ip.mt_tiles_plain if engine == "mt" else ip.plk_tiles_plain
     before = build.LAUNCHES[f"intersect_pairs_{engine}"]
@@ -132,7 +223,11 @@ def test_pair_tiles_match_plain(door, engine, any_hit):
     torch.cuda.synchronize()
     assert build.LAUNCHES[f"intersect_pairs_{engine}"] == before + 1
     assert (got[0] < ip.INF).sum() > 100
-    assert torch.equal(got, want)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if case == "edges":
+        dead = ~(pdata[6] > ip.EPS_T) | (tile_block.repeat_interleave(ip.TILE) < 0)
+        assert bool((got[0][dead] == ip.INF).all() and (got[1][dead] == -1.0).all())
+        assert ((got[0] < ip.INF) & ~dead).sum() < (~dead).sum()   # live misses too
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
