@@ -12,7 +12,8 @@ The last line is the device record
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Phases:
-  1. card name and power limit (nvidia-smi), kernel build and ptxas report;
+  1. card name and power limit (nvidia-smi), kernel build and ptxas report
+     (registers, stack frames, spills of every kernel);
   2. gather_rows_t (R in {36, 512}, C=32, N=524288, indices outside [0, R)
      included; bit-equal) and intersect_tiled (524288 Cornell camera rays
      and 524288 random rays, closest and any-hit, mixed and negative tmax;
@@ -58,8 +59,8 @@ Phases:
      included, on 16 tiles of each wave given the same mask and order;
   8. door_room's two-level tables (30 superblocks) and the kernel on the
      262144 camera rays of a 512x512 wave, checked as in 7; the BVH
-     kernel bit-equal to its plain version (t, prim, u, v and the node
-     and triangle counts) on 262144 camera and 262144 random rays,
+     kernel bit-equal to its plain version (t, prim, u, v and the box-test
+     and triangle-test counts) on 262144 camera and 262144 random rays,
      closest and any-hit, and against the dense oracle on 8192 rays of
      each set (occlusion equal on every ray, prim on every ray but exact
      ties);
@@ -70,17 +71,27 @@ Phases:
      BVH route: four 131072-ray waves (512x512 x 2 spp, unguided) through
      trace(accel="bvh"), splatted, held to the reference mean with the
      standard error of the two spp;
-  10. CUDA-event timings (median of 7) of each kernel, its plain version
-     and, where one exists, the one-call PyTorch yardstick; the "kernels"
+  10. CUDA-event timings (median of 7, each call enqueued while the card
+     spins, so that the events time the card and not the host's enqueue)
+     of each kernel, its plain version and, where one exists, the
+     one-call PyTorch yardstick; the "kernels"
      line with bounds from this run's inputs (for the blocklist, on its
      three calls of 5, with launch geometry, the tests run and the tests
      needed; for the MT tiles, the tests their kernel runs beside the tests
-     needed), and the Mrays/s of the sorted two-level, sorted blocklist
+     needed; for gather_rows_t, Cornell's 36x32 shading table with 65536
+     random indices and door_room's 244838x32 shading table with the hit
+     indices of the BVH's timed camera wave and of its first bounce, each
+     bit-equal to the plain version, beside torch.index_select, its bytes
+     bound counting each distinct row once, and its launches split by
+     table size; for the BVH, boxes and triangles tested and its ptxas
+     report; the gather and the BVH also timed with the L2 evicted before
+     each call, ms_l2_cold), and the Mrays/s of the sorted two-level, sorted blocklist
      and BVH routes.
 
 Each main-path route runs with the launch counts set to 0 just before it
 and read just after it, and is held to the kernels it must launch: the
-Cornell progressive render to gather_rows_t and intersect_tiled, the
+Cornell progressive render to gather_rows_t (none on a table of more than
+512 rows, gather_rows_t_large) and intersect_tiled, the
 frozen-cache render and the unguided render() to one trace_fused per wave
 (and nothing else), the door_room render to one pair-tile (MT) launch per
 query (160) and one blocklist launch per query that left a ray unproven
@@ -88,7 +99,9 @@ query (160) and one blocklist launch per query that left a ray unproven
 the interior waves to one two-level (or blocklist) launch per wave, the
 door_room camera wave to one two-level launch, the sorted-blocklist
 render to one blocklist launch per query (80) and the BVH render to one
-BVH launch per query (40), each with no launch of the other intersectors.
+BVH launch per query (40), each with no launch of the other intersectors;
+the three door_room renders to three gathers a bounce, one of them on the
+244838-row shading table (240 and 80, 120 and 40, 60 and 20).
 """
 from __future__ import annotations
 
@@ -133,6 +146,14 @@ BOUNCE_OPS = {False: 289, True: 734}
 GATE_OPS = 23    # intersect_blocklist.cu: one (ray, block box) gate
 PLK_M_OPS = 9    # intersect_pairs.cu: m = o x d, once per pair
 
+# about a millisecond of the card's clock: cuda_ms enqueues each timed call
+# behind such a spin
+SLEEP_CYCLES = 2_000_000
+# cuda_ms(cold=True) reads this many bytes before each timed call: five
+# times the H100's 50 MB L2, so the call finds its inputs in HBM
+L2_FLUSH_BYTES = 256 << 20
+_L2_FLUSH = []
+
 W = H = 256
 DEPTH = 5
 FROZEN_WAVES = 16  # bench.py's headline: 16 waves of 256x256 x 8 spp
@@ -175,11 +196,11 @@ INTERIOR_TRIS = 300000
 INTERIOR_RAYS = 524288
 CHECK_TILES = 16     # tiles of a wave on which the two-level kernel meets its plain version
 ORACLE_RAYS = 8192   # rays of a wave held to the dense oracle
-BVH_MT_OPS = 47      # intersect_bvh.cu bvh_moeller_trumbore: one (ray, triangle) test
-BOX_OPS = 23         # intersect_bvh.cu bvh_ray_aabb: one (ray, node box) test
+BVH_MT_OPS = 47      # device_math.cuh pg_bvh_mt: one (ray, triangle) test of the BVH walk
+BOX_OPS = 23         # device_math.cuh pg_bvh_ray_aabb: one (ray, node box) test
 DEVICE = "cuda"      # where the phases below put the scenes they build
-NONE_LAUNCHED = {k: 0 for k in ("gather_rows_t", "intersect_tiled", "trace_fused",
-                                "intersect_pairs_mt", "intersect_pairs_plk",
+NONE_LAUNCHED = {k: 0 for k in ("gather_rows_t", "gather_rows_t_large", "intersect_tiled",
+                                "trace_fused", "intersect_pairs_mt", "intersect_pairs_plk",
                                 "intersect_blocklist", "intersect_twolevel", "intersect_bvh")}
 
 
@@ -192,9 +213,18 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def cuda_ms(fn, reps=7, warmup=2):
+def cuda_ms(fn, reps=7, warmup=2, cold=False):
+    """The median of ``reps`` CUDA-event times of fn(), each call enqueued
+    while the card spins SLEEP_CYCLES, so that the events time the card's
+    work and not the host's enqueue of it (a short kernel is over before
+    its wrapper returns).  With ``cold``, a read of L2_FLUSH_BYTES between
+    the spin and the first event evicts the L2, so the call reads its
+    inputs from HBM as the bounds assume; a read and not a write, so that
+    the call pays for no write-back of the flush's lines."""
     import torch
 
+    if cold and not _L2_FLUSH:
+        _L2_FLUSH.append(torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda"))
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -202,6 +232,9 @@ def cuda_ms(fn, reps=7, warmup=2):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        if cold:
+            _L2_FLUSH[0].sum()
         a.record()
         fn()
         b.record()
@@ -214,6 +247,32 @@ def bound(n_bytes, n_ops):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gather_call(table, idx):
+    """gather_rows_t on one call: bit-equal to its plain version, then the
+    kernel, the plain version and torch.index_select(...).T.contiguous()
+    timed, and the bound: the indices read, each distinct row read once
+    (counted from the call's own indices) and the (C, N) output written."""
+    import torch
+
+    from mitsuba_path_guiding_torch.ops.gather import gather_rows_t_cuda, gather_rows_t_plain
+
+    got = gather_rows_t_cuda(table, idx)
+    torch.cuda.synchronize()
+    check(torch.equal(got, gather_rows_t_plain(table, idx)),
+          f"gather_rows_t {tuple(table.shape)} x {idx.numel()}: not bit-equal")
+    r, c = table.shape
+    n = idx.numel()
+    distinct = int(torch.unique(idx.long().clamp(0, r - 1)).numel())
+    b_ms, b_by = bound(n * idx.element_size() + distinct * c * 4 + c * n * 4, 0)
+    return {"ms": cuda_ms(lambda: gather_rows_t_cuda(table, idx)),
+            "ms_l2_cold": cuda_ms(lambda: gather_rows_t_cuda(table, idx), cold=True),
+            "plain_ms": cuda_ms(lambda: gather_rows_t_plain(table, idx).contiguous()),
+            "library_ms": cuda_ms(lambda: torch.index_select(table, 0, idx).T.contiguous()),
+            "bound_ms": b_ms, "bound_by": b_by, "distinct_rows": distinct,
+            "shape": f"table {r}x{c} f32, {n} {str(idx.dtype).replace('torch.', '')} indices",
+            "bit_equal": True}
 
 
 def camera_rays(scene, spp, sample_base, seed=0, w=W, h=H):
@@ -259,12 +318,18 @@ def phase_build():
     print(smi, flush=True)
     t0 = time.time()
     build.build_all()
-    ptxas = {}
-    for name in build.KERNEL_SOURCES:
-        ptxas[name] = [ln.strip() for ln in build.build_log(name).splitlines()
-                       if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    ptxas = {name: ptxas_report(name) for name in build.KERNEL_SOURCES}
     emit({"phase": "build", "seconds": round(time.time() - t0, 3), "ptxas": ptxas})
     return smi
+
+
+def ptxas_report(name):
+    """The lines of a source's ptxas report that name its kernels, their
+    registers, stack frames and spills."""
+    from mitsuba_path_guiding_torch.ops import build
+
+    return [ln.strip() for ln in build.build_log(name).splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
 
 
 def phase_kernel_checks(scene):
@@ -411,6 +476,13 @@ def phase_unguided_render(scene, card):
           "seconds": round(dt, 4), "mean": mean})
 
 
+def door_gathers(waves):
+    """The gathers of a door_room route of ``waves`` waves: each bounce
+    fetches one shading row (the 244838-row table, a large one), one
+    material row and one emitter row (small tables)."""
+    return {"gather_rows_t": 3 * DEPTH * waves, "gather_rows_t_large": DEPTH * waves}
+
+
 def drive(name, fn, expect):
     """Run one main-path route with every launch count set to 0 just
     before it and read just after it.  ``expect`` maps each kernel to the
@@ -482,7 +554,7 @@ def phase_timings(scene, tables, grid, checks, launches, card):
         trace_fused_cuda,
         trace_fused_plain,
     )
-    from mitsuba_path_guiding_torch.ops.gather import gather_rows_t_cuda, gather_rows_t_plain
+    from mitsuba_path_guiding_torch.ops.gather import SMALL_ROWS
     from mitsuba_path_guiding_torch.ops.intersect_tiled import intersect_tiled_cuda, pack_triangles
 
     dev = scene.geo.p0.device
@@ -492,20 +564,22 @@ def phase_timings(scene, tables, grid, checks, launches, card):
     geo = scene.geo
     table = geo.shade_packed
     idx = torch.randint(0, table.shape[0], (n_pix,), device=dev, dtype=torch.int32)
-    ms = cuda_ms(lambda: gather_rows_t_cuda(table, idx))
-    plain = cuda_ms(lambda: gather_rows_t_plain(table, idx).contiguous())
-    lib = cuda_ms(lambda: torch.index_select(table, 0, idx).T.contiguous())
+    cornell = gather_call(table, idx)
     r, c = table.shape
-    b_ms, b_by = bound(r * c * 4 + n_pix * 4 + c * n_pix * 4, 0)
     entries.append({
         "name": "gather_rows_t", "route": "cuda",
         "source": "mitsuba_path_guiding_torch/csrc/gather_rows.cu",
         "replaces": "mitsuba_path_guiding_tpu/ops/gather_pallas.py:32",
         "launches": sum(launches["gather_rows_t"].values()),
         "launches_by_route": launches["gather_rows_t"],
+        "launches_by_table": {
+            f"rows<={SMALL_ROWS}": {k: v - launches["gather_rows_t_large"][k]
+                                    for k, v in launches["gather_rows_t"].items()},
+            f"rows>{SMALL_ROWS}": launches["gather_rows_t_large"]},
         "max_abs_err": checks["gather_rows_t"]["max_abs_err"],
-        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-        "shape": f"table {r}x{c} f32, {n_pix} int32 indices", "check": "bit-equal"})
+        **{k: cornell[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": cornell["shape"], "calls": {"cornell": cornell},
+        "ptxas": ptxas_report("gather_rows"), "check": "bit-equal on every checked and timed call"})
 
     # intersect_tiled: one closest-hit wave of 65536 camera rays
     o, d, _ = camera_rays(scene, 1, 2000)
@@ -1295,9 +1369,9 @@ def phase_door_twolevel_bvh(scene):
     res["twolevel_camera_kernel"], work = twolevel_check(bt, tl_in, "door_room camera")
     for label, (o, d, tmax) in sets.items():
         for any_hit in (False, True):
-            got = bvh_cuda(scene.bvh, geo.p0, geo.e1, geo.e2, o, d, tmax, any_hit)
+            got = bvh_cuda(scene.bvh, o, d, tmax, any_hit)
             t1 = time.time()
-            want = bvh_plain(scene.bvh, geo.p0, geo.e1, geo.e2, o, d, tmax, any_hit)
+            want = bvh_plain(scene.bvh, o, d, tmax, any_hit)
             torch.cuda.synchronize()
             plain_s = time.time() - t1
             same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
@@ -1306,7 +1380,7 @@ def phase_door_twolevel_bvh(scene):
                         f"{int((_bits(got[0]) != _bits(want[0])).sum())} t")
             row = {"bit_equal": True, "plain_seconds": round(plain_s, 3),
                    "hit_share": float((got[1] >= 0).float().mean()),
-                   "nodes_popped": int(got[4][0].sum()), "triangles_tested": int(got[4][1].sum())}
+                   "box_tests": int(got[4][0].sum()), "triangles_tested": int(got[4][1].sum())}
             if not any_hit:
                 t_h = torch.where(got[1] >= 0, got[0], 3.0e38)
                 row["oracle"] = oracle_check(geo, o, d, tmax, t_h, got[1], f"bvh {label}",
@@ -1359,16 +1433,20 @@ def phase_door_bvh_render(scene, card):
     tol = max(MEAN_TOL, 4.0 * (DOOR_REFERENCE_SE**2 + se_card**2) ** 0.5 / DOOR_REFERENCE_MEAN)
     rel = abs(mean - DOOR_REFERENCE_MEAN) / DOOR_REFERENCE_MEAN
     check(rel < tol, f"door_room BVH mean {mean} vs reference {DOOR_REFERENCE_MEAN} (tol {tol})")
-    emit({"phase": "door_room_bvh_render", "card": card, "seconds": round(dt, 3), "mean": mean,
-          "reference_mean": DOOR_REFERENCE_MEAN, "rel_err": rel, "rel_tol": tol,
-          "se_card": se_card, "spp_means": means, "waves": DOOR_BVH_SPP * n_pix // DOOR_WAVE,
-          "mrays_per_s": 2 * int(segs) / dt / 1e6})
+    rec = {"phase": "door_room_bvh_render", "card": card, "seconds": round(dt, 3), "mean": mean,
+           "reference_mean": DOOR_REFERENCE_MEAN, "rel_err": rel, "rel_tol": tol,
+           "se_card": se_card, "spp_means": means, "waves": DOOR_BVH_SPP * n_pix // DOOR_WAVE,
+           "mrays_per_s": 2 * int(segs) / dt / 1e6}
+    emit(rec)
+    return rec
 
 
 def phase_new_timings(interior, door_tl, door, launches, card):
     """Kernel 7 on the interior waves and the door_room camera wave, the
-    BVH kernel on a door_room camera wave and a bounce of it, and the
-    sorted routes' Mrays/s on the interior waves."""
+    BVH kernel on a door_room camera wave and a bounce of it, the
+    shading-row gather of each of those two waves' hits (the 244838-row
+    table), and the sorted routes' Mrays/s on the interior waves.
+    Returns (the kernels' entries, the gather's calls)."""
     import torch
 
     from mitsuba_path_guiding_torch.ops.intersect_blocklist import intersect_blocklist_sorted
@@ -1420,21 +1498,25 @@ def phase_new_timings(interior, door_tl, door, launches, card):
     o, d, _ = camera_rays(door, 1, 11, w=DOOR_W, h=DOOR_H)
     o, d = o[DOOR_WAVE:2 * DOOR_WAVE], d[DOOR_WAVE:2 * DOOR_WAVE]
     tmax = torch.full((DOOR_WAVE,), 3.0e37, device=o.device)
-    bvh_calls = {}
+    bvh_calls, gather_calls = {}, {}
     for label, (oo, dd, tt) in (("camera", (o, d, tmax)),
                                 ("bounce", first_bounce(door, o, d, tmax, 6))):
-        args = (door.bvh, geo.p0, geo.e1, geo.e2, oo, dd, tt)
-        counts = bvh_cuda(*args)[4]
-        nodes, prims = int(counts[0].sum()), int(counts[1].sum())
-        ops = nodes * BOX_OPS + prims * BVH_MT_OPS
+        args = (door.bvh, oo, dd, tt)
+        hit = bvh_cuda(*args)
+        counts = hit[4]
+        # the shading-row gather of this wave's hits, as trace() makes it
+        gather_calls[f"door_room_{label}"] = gather_call(geo.shade_packed, hit[1].clamp_min(0))
+        boxes, tests = int(counts[0].sum()), int(counts[1].sum())
+        ops = boxes * BOX_OPS + tests * BVH_MT_OPS
         # rays in, t/prim/u/v and the counts out; the node and triangle
         # reads are left out (a lower bound)
         b_ms, b_by = bound(DOOR_WAVE * (7 + 4 + 2) * 4, ops)
         bvh_calls[label] = {
             "ms": cuda_ms(lambda: bvh_cuda(*args)),
+            "ms_l2_cold": cuda_ms(lambda: bvh_cuda(*args), cold=True),
             "plain_ms": cuda_ms(lambda: bvh_plain(*args), reps=1, warmup=0),
             "bound_ms": b_ms, "bound_by": b_by,
-            "work": {"nodes_popped": nodes, "triangles_tested": prims, "fp32_ops": ops}}
+            "work": {"box_tests": boxes, "triangle_tests": tests, "fp32_ops": ops}}
     main_call = bvh_calls["camera"]
     entries.append({
         "name": "intersect_bvh", "route": "cuda",
@@ -1447,11 +1529,11 @@ def phase_new_timings(interior, door_tl, door, launches, card):
         "bound_ms": main_call["bound_ms"], "bound_by": main_call["bound_by"],
         "library_ms": None, "library": "none: no one call walks a BVH",
         "shape": f"{DOOR_WAVE} door_room camera rays, closest hit",
-        "work": main_call["work"], "calls": bvh_calls,
+        "work": main_call["work"], "calls": bvh_calls, "ptxas": ptxas_report("intersect_bvh"),
         "mrays_per_s": DOOR_WAVE / main_call["ms"] / 1e3,
-        "check": "t, prim, u, v and node and triangle counts bit-equal, closest and any-hit"})
+        "check": "t, prim, u, v and box and triangle counts bit-equal, closest and any-hit"})
     emit({"phase": "new_timings", "card": card, "twolevel_routes": routes})
-    return entries
+    return entries, gather_calls
 
 
 def main(argv=None):
@@ -1475,10 +1557,11 @@ def main(argv=None):
 
     no_pairs = {"intersect_pairs_mt": 0, "intersect_pairs_plk": 0, "intersect_blocklist": 0,
                 "intersect_twolevel": 0, "intersect_bvh": 0}
-    only_fused = {"gather_rows_t": 0, "intersect_tiled": 0, **no_pairs}
+    only_fused = {"gather_rows_t": 0, "gather_rows_t_large": 0, "intersect_tiled": 0,
+                  **no_pairs}
     grid, c_prog = drive("progressive", lambda: phase_progressive(scene),
-                         {"gather_rows_t": None, "intersect_tiled": None, "trace_fused": 0,
-                          **no_pairs})
+                         {"gather_rows_t": None, "gather_rows_t_large": 0,
+                          "intersect_tiled": None, "trace_fused": 0, **no_pairs})
     # the fused kernel against its plain version first, so that the renders
     # below time a kernel that is loaded and checked
     checks["trace_fused"] = phase_fused_check(scene, fused_path.build_fused_tables(scene), grid)
@@ -1496,6 +1579,7 @@ def main(argv=None):
     checks.update(door_checks)
     none_of = {"intersect_tiled": 0, "trace_fused": 0, "intersect_twolevel": 0,
                "intersect_bvh": 0}
+    waves_per_spp = DOOR_W * DOOR_H // DOOR_WAVE
     retraces = {}
     bl_render = {}  # the blocklist's summed kernel time over a route's launches
     mt_render = {}  # the MT tiles' likewise
@@ -1516,12 +1600,12 @@ def main(argv=None):
 
     _, c_door = drive("door_room_progressive",
                       route("door_room_progressive", lambda: phase_door_progressive(door)), {
-        **none_of, "gather_rows_t": None, "intersect_pairs_plk": 0,
+        **none_of, **door_gathers(DOOR_WAVES), "intersect_pairs_plk": 0,
         "intersect_pairs_mt": DOOR_QUERIES,
         "intersect_blocklist": lambda: retraces["door_room_progressive"]})
     check(c_door["intersect_blocklist"] > 0, "door_room_progressive: no blocklist launch")
     _, c_plk = drive("door_room_plk", route("door_room_plk", lambda: phase_door_plk(door)), {
-        **none_of, "intersect_pairs_mt": 0, "intersect_pairs_plk": 2,
+        **none_of, "gather_rows_t_large": 0, "intersect_pairs_mt": 0, "intersect_pairs_plk": 2,
         "intersect_blocklist": lambda: retraces["door_room_plk"]})
 
     interior = phase_interior()
@@ -1531,12 +1615,13 @@ def main(argv=None):
                               lambda: phase_door_progressive(door._replace(pairs=None),
                                                              DOOR_SORTED_SPP,
                                                              "door_room_sorted_blocklist")),
-                        {**NONE_LAUNCHED, "gather_rows_t": None,
+                        {**NONE_LAUNCHED,
+                         **door_gathers(DOOR_PROGRESSIONS * DOOR_SORTED_SPP * waves_per_spp),
                          "intersect_blocklist": 2 * DEPTH * DOOR_PROGRESSIONS * DOOR_SORTED_SPP
-                         * (DOOR_W * DOOR_H // DOOR_WAVE)})
+                         * waves_per_spp})
     _, c_bvh = drive("door_room_bvh", lambda: phase_door_bvh_render(door, card),
-                     {**NONE_LAUNCHED, "gather_rows_t": None,
-                      "intersect_bvh": 2 * DEPTH * DOOR_BVH_SPP * (DOOR_W * DOOR_H // DOOR_WAVE)})
+                     {**NONE_LAUNCHED, **door_gathers(DOOR_BVH_SPP * waves_per_spp),
+                      "intersect_bvh": 2 * DEPTH * DOOR_BVH_SPP * waves_per_spp})
     routes = {"progressive": c_prog, "frozen_render": c_frozen, "unguided_render": c_render,
               "door_room_progressive": c_door, "door_room_plk": c_plk, **interior["launches"],
               "door_room_twolevel": door_tl["launches"], "door_room_sorted_blocklist": c_sorted,
@@ -1546,7 +1631,9 @@ def main(argv=None):
     entries = phase_timings(scene, tables, grid, checks, launches, card)
     entries += phase_door_timings(door, checks, launches, bl_calls, bl_rows, bl_render,
                                   mt_render)
-    entries += phase_new_timings(interior, door_tl, door, launches, card)
+    new_entries, gather_calls = phase_new_timings(interior, door_tl, door, launches, card)
+    entries[0]["calls"].update(gather_calls)
+    entries += new_entries
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

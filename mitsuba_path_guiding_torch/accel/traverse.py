@@ -122,8 +122,10 @@ def occluded_pairs_full(pairs: PairTable, blocks: BlockList, o, d, tmax, cap_fac
 
 def intersect_bvh(geo: Geometry, bvh: BVH, o, d, tmax=None, any_hit: bool = False) -> Hit:
     """Closest hit (or, with ``any_hit``, the first hit found) through the
-    BVH; ties go to the triangle found first."""
-    t, prim, u, v, _ = bvh_query(bvh, geo.p0, geo.e1, geo.e2, o, d, _full_tmax(o, tmax), any_hit)
+    BVH; ties go to the triangle found first.  ``geo`` is the reference's
+    argument: the walk reads the copy of its triangles that ``pack_bvh``
+    put in ``bvh``."""
+    t, prim, u, v, _ = bvh_query(bvh, o, d, _full_tmax(o, tmax), any_hit)
     valid = prim >= 0
     return Hit(t=torch.where(valid, t, INF), prim=prim, u=u, v=v, valid=valid)
 

@@ -3,15 +3,17 @@
 The JAX package's ``SceneData`` and ``GuidingGrid`` reach this module as
 plain dictionaries of numpy arrays (nested containers as nested
 dictionaries, ``None`` fields kept), so the same compiled scene and the
-same trained grid can be fed to both packages.  The BVH, blocklist and
-pair tables come across too, and a two-level ``BlockTable``
-(``ops/intersect_twolevel.py``) through ``block_table_from_numpy``.
+same trained grid can be fed to both packages.  The BVH (given the port's
+packed layout), blocklist and pair tables come across too, and a
+two-level ``BlockTable`` (``ops/intersect_twolevel.py``) through
+``block_table_from_numpy``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from mitsuba_path_guiding_torch.accel.bvh import pack_bvh
 from mitsuba_path_guiding_torch.core.device import resolve_device
 from mitsuba_path_guiding_torch.guiding.grid import GuidingGrid
 from mitsuba_path_guiding_torch.ops.intersect_twolevel import BlockTable
@@ -67,9 +69,11 @@ def scene_from_numpy(d: dict, device=None) -> SceneData:
     if med is not None:
         medium = _fill(MediumData, {k: med[k] for k in MediumData._fields if k in med}, dev,
                        host=("enabled", "heterogeneous", "phase_kind"))
+    geo = _fill(Geometry, d["geo"], dev)
+    bvh = _tables(BVH, d.get("bvh"), dev, host=("max_depth",))
     return SceneData(
-        geo=_fill(Geometry, d["geo"], dev),
-        bvh=_tables(BVH, d.get("bvh"), dev, host=("max_depth",)),
+        geo=geo,
+        bvh=None if bvh is None else pack_bvh(bvh, geo.p0, geo.e1, geo.e2),
         mats=_fill(Materials, d["mats"], dev),
         emitters=_fill(Emitters, d["emitters"], dev),
         sensor=_fill(Sensor, d["sensor"], dev, host=("kind",)),

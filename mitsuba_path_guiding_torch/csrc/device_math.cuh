@@ -5,7 +5,8 @@
 // -ffp-contract=off) and by nvcc (with -fmad=false) gives the same bits.
 // tests/test_torch_csrc_host.py compiles this header on the CPU behind the
 // small C shim csrc/host_shim.cpp and checks it against the plain PyTorch
-// versions in ops/fused_path.py and ops/intersect_tiled.py.
+// versions in ops/fused_path.py, ops/intersect_tiled.py and
+// ops/intersect_bvh.py.
 #pragma once
 
 #include <math.h>
@@ -251,4 +252,188 @@ PG_HD bool pg_mt_vt(float e1x, float e1y, float e1z, float e2x, float e2y, float
   *t_out = t;
   *v_out = v;
   return (inv_det != 0.0f) && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > PG_EPS_T);
+}
+
+// ---------------------------------------------------------------------------
+// The BVH walk of csrc/intersect_bvh.cu for one ray (traverse.py
+// intersect_bvh, with each box tested once, at its parent), over the packed
+// layout of accel/bvh.py pack_bvh:
+//   nodes: records of 16 words (4 x 16 bytes).  Record 0 holds the root's
+//     box (words 0:6, lo then hi) and its reference (word 12); record k >= 1
+//     is an inner node: child 0's box (0:6), child 1's box (6:12), their
+//     references (12, 13).  A reference r >= 1 is an inner node's record; a
+//     leaf is r = -(8 * start + count), its count (<= 4) triangles from
+//     `start` of
+//   tris: records of 12 words (3 x 16 bytes) in leaf order: p0, e1, e2 and
+//     the original triangle id (int bits, word 9).
+// Integers travel as float bits.
+// ---------------------------------------------------------------------------
+#ifdef __CUDACC__
+typedef float4 pg_f4;
+#else
+struct pg_f4 {
+  float x, y, z, w;
+};
+#endif
+
+PG_HD pg_f4 pg_ld4(const pg_f4* p) {
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+PG_HD int pg_f2i(float f) {
+  int i;
+  memcpy(&i, &f, 4);
+  return i;
+}
+
+#define PG_BVH_STACK 48
+#define PG_BVH_MAX_LEAF 4
+#define PG_BVH_INF 3.0e38f
+
+PG_HD float pg_bvh_safe_rcp(float x) {
+  return (x >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(x), 1e-20f);
+}
+
+// traverse.py _ray_aabb for one ray and box (lo, hi): the hit against
+// tmax, and t_near in *tn_out.  tn and tf do not depend on tmax.
+PG_HD bool pg_bvh_ray_aabb(const float* o, const float* inv, const float* lo, const float* hi,
+                           float tmax, float* tn_out) {
+  float l[3], h[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const bool parallel = fabsf(inv[a]) >= 1e19f;
+    const bool inside = o[a] >= lo[a] && o[a] <= hi[a];
+    const float t0 = (lo[a] - o[a]) * inv[a];
+    const float t1 = (hi[a] - o[a]) * inv[a];
+    l[a] = parallel ? (inside ? -PG_BVH_INF : PG_BVH_INF) : fminf(t0, t1);
+    h[a] = parallel ? (inside ? PG_BVH_INF : -PG_BVH_INF) : fmaxf(t0, t1);
+  }
+  const float tn = fmaxf(fmaxf(l[0], l[1]), l[2]);
+  const float tf = fminf(fminf(h[0], h[1]), h[2]);
+  *tn_out = tn;
+  return tf >= fmaxf(tn, 0.0f) && tn <= tmax;
+}
+
+// traverse.py moeller_trumbore on a triangle record (a, b, c): safe_rcp(det)
+// and |det| > 1e-12, which pg_mt_test (inv_det 0 below 1e-12) does not
+// share.
+PG_HD bool pg_bvh_mt(const float* o, const float* d, pg_f4 a, pg_f4 b, pg_f4 c, float tmax,
+                     float* t_out, float* u_out, float* v_out) {
+  const float p0x = a.x, p0y = a.y, p0z = a.z;
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = c.x;
+  const float pvx = d[1] * e2z - d[2] * e2y;
+  const float pvy = d[2] * e2x - d[0] * e2z;
+  const float pvz = d[0] * e2y - d[1] * e2x;
+  const float det = (e1x * pvx + e1y * pvy) + e1z * pvz;
+  const float inv_det = pg_bvh_safe_rcp(det);
+  const float tvx = o[0] - p0x, tvy = o[1] - p0y, tvz = o[2] - p0z;
+  const float u = ((tvx * pvx + tvy * pvy) + tvz * pvz) * inv_det;
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  const float v = ((d[0] * qvx + d[1] * qvy) + d[2] * qvz) * inv_det;
+  const float t = ((e2x * qvx + e2y * qvy) + e2z * qvz) * inv_det;
+  *t_out = t;
+  *u_out = u;
+  *v_out = v;
+  return fabsf(det) > 1e-12f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > PG_EPS_T &&
+         t < tmax;
+}
+
+struct pg_bvh_result {
+  float t, u, v;
+  int prim, boxes, tris;
+};
+
+struct alignas(8) pg_bvh_entry {
+  int ref;
+  float tn;
+};
+
+// One ray's walk.  The root's box is tested first, against tmax.  A
+// popped entry whose entry distance tn exceeds the best t so far is
+// dropped; a leaf tests its triangles in order (EPS_T < t < best t, so a
+// tie stays with the triangle found first); an inner node slab-tests both
+// children against the best t, orders them by tn0 <= tn1 (near first) and
+// pushes the far child if its test passed, then the near one if its test
+// passed, each with its tn.  Any-hit stops at the first hit.  The entry
+// pushed last, the next one popped, stays in registers (`top`): the near
+// child goes on at once, and only the far one goes to `stack`.
+//
+// This visits the leaves of the walk that pushes both children and tests
+// each box when it pops it (the reference's), in the same order: tn and tf
+// do not depend on tmax; the test passes at a smaller tmax only if it
+// passes at a larger one; and the best t never grows.  So a child dropped
+// at its parent would fail its own test at its pop, and a pushed child
+// passes at its pop exactly when tn <= best t then.  Hence t, prim, u and v
+// keep their bits.  Counts: boxes tested (1 for the root, 2 an inner node
+// expanded) and triangles tested; on a closest-hit walk, which pops every
+// node it pushes, the box count equals the reference's nodes popped.
+template <bool ANY_HIT>
+PG_HD pg_bvh_result pg_bvh_walk(const pg_f4* nodes, const pg_f4* tris, int n_tris,
+                                const float* o, const float* d, float tmax,
+                                pg_bvh_entry* stack) {
+  const float inv[3] = {pg_bvh_safe_rcp(d[0]), pg_bvh_safe_rcp(d[1]), pg_bvh_safe_rcp(d[2])};
+  pg_bvh_result r = {tmax, 0.0f, 0.0f, -1, 1, 0};
+  pg_bvh_entry top;
+  bool has_top;
+  {
+    const pg_f4 w0 = pg_ld4(nodes), w1 = pg_ld4(nodes + 1), w3 = pg_ld4(nodes + 3);
+    const float lo[3] = {w0.x, w0.y, w0.z}, hi[3] = {w0.w, w1.x, w1.y};
+    has_top = pg_bvh_ray_aabb(o, inv, lo, hi, tmax, &top.tn);
+    top.ref = pg_f2i(w3.x);
+  }
+  int sp = 0;
+  while ((has_top || sp > 0) && (!ANY_HIT || r.prim < 0)) {
+    pg_bvh_entry e = top;
+    if (!has_top) {
+      --sp;
+      e = stack[sp < PG_BVH_STACK - 1 ? sp : PG_BVH_STACK - 1];
+    }
+    has_top = false;
+    if (e.tn > r.t) continue;
+    if (e.ref <= 0) {
+      const int start = (-e.ref) >> 3, count = (-e.ref) & 7;
+      for (int k = 0; k < PG_BVH_MAX_LEAF && k < count; ++k) {
+        const int j = start + k < n_tris - 1 ? start + k : n_tris - 1;
+        const pg_f4* rec = tris + 3 * (int64_t)j;
+        const pg_f4 a = pg_ld4(rec), b = pg_ld4(rec + 1), c = pg_ld4(rec + 2);
+        ++r.tris;
+        float t, u, v;
+        if (pg_bvh_mt(o, d, a, b, c, r.t, &t, &u, &v)) {
+          r.t = t;
+          r.u = u;
+          r.v = v;
+          r.prim = pg_f2i(c.y);
+          if (ANY_HIT) break;
+        }
+      }
+    } else {
+      const pg_f4* rec = nodes + 4 * (int64_t)e.ref;
+      const pg_f4 w0 = pg_ld4(rec), w1 = pg_ld4(rec + 1), w2 = pg_ld4(rec + 2),
+                  w3 = pg_ld4(rec + 3);
+      const float lo0[3] = {w0.x, w0.y, w0.z}, hi0[3] = {w0.w, w1.x, w1.y};
+      const float lo1[3] = {w1.z, w1.w, w2.x}, hi1[3] = {w2.y, w2.z, w2.w};
+      float tn0, tn1;
+      const bool h0 = pg_bvh_ray_aabb(o, inv, lo0, hi0, r.t, &tn0);
+      const bool h1 = pg_bvh_ray_aabb(o, inv, lo1, hi1, r.t, &tn1);
+      r.boxes += 2;
+      const int ref0 = pg_f2i(w3.x), ref1 = pg_f2i(w3.y);
+      const bool first = tn0 <= tn1;
+      if (first ? h1 : h0) {
+        const pg_bvh_entry far_e = {first ? ref1 : ref0, first ? tn1 : tn0};
+        stack[sp < PG_BVH_STACK - 1 ? sp : PG_BVH_STACK - 1] = far_e;
+        ++sp;
+      }
+      has_top = first ? h0 : h1;
+      top.ref = first ? ref0 : ref1;
+      top.tn = first ? tn0 : tn1;
+    }
+  }
+  return r;
 }

@@ -176,4 +176,28 @@ void host_block_key(const float* t, const uint32_t* block, const uint32_t* tid, 
 
 uint64_t host_key_miss(void) { return PG_KEY_MISS; }
 
+// the BVH walk of csrc/intersect_bvh.cu over a packed BVH (accel/bvh.py
+// pack_bvh) for n rays: t, prim, u, v and counts (2, n), boxes tested and
+// triangles tested
+void host_bvh_walk(const float* nodes, const float* tris, int n_tris, const float* o,
+                   const float* d, const float* tmax, int n, int any_hit, float* t, int* prim,
+                   float* u, float* v, int* counts) {
+  const pg_f4* nd = (const pg_f4*)nodes;
+  const pg_f4* tr = (const pg_f4*)tris;
+  pg_bvh_entry stack[PG_BVH_STACK];
+  for (int i = 0; i < n; ++i) {
+    const float* oi = o + 3 * i;
+    const float* di = d + 3 * i;
+    const pg_bvh_result r = any_hit
+                                ? pg_bvh_walk<true>(nd, tr, n_tris, oi, di, tmax[i], stack)
+                                : pg_bvh_walk<false>(nd, tr, n_tris, oi, di, tmax[i], stack);
+    t[i] = r.t;
+    prim[i] = r.prim;
+    u[i] = r.u;
+    v[i] = r.v;
+    counts[i] = r.boxes;
+    counts[n + i] = r.tris;
+  }
+}
+
 }  // extern "C"

@@ -16,7 +16,9 @@ build is kept beside the library as ``<name>.log``.
 
 Every wrapper counts its launches in ``LAUNCHES`` (one per kernel launch,
 nowhere else), so a run can show that the main path went through the
-kernels.
+kernels.  ``gather_rows_t_large`` counts, among the ``gather_rows_t``
+launches, those on a table of more than 512 rows (a scene's shading
+table; the JAX package gives only smaller tables to its Pallas kernel).
 """
 from __future__ import annotations
 
@@ -37,9 +39,9 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"gather_rows_t": 0, "intersect_tiled": 0, "trace_fused": 0,
-            "intersect_pairs_mt": 0, "intersect_pairs_plk": 0, "intersect_blocklist": 0,
-            "intersect_twolevel": 0, "intersect_bvh": 0}
+LAUNCHES = {"gather_rows_t": 0, "gather_rows_t_large": 0, "intersect_tiled": 0,
+            "trace_fused": 0, "intersect_pairs_mt": 0, "intersect_pairs_plk": 0,
+            "intersect_blocklist": 0, "intersect_twolevel": 0, "intersect_bvh": 0}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

@@ -1,11 +1,11 @@
-"""Transposed row gather for small parameter tables.
+"""Transposed row gather of the material, emitter and shading tables.
 
 Port of ``mitsuba_path_guiding_tpu/ops/gather_pallas.py`` ``gather_rows_t``:
 (R, C) table and (N,) indices -> (C, N) rows, indices clamped to the table.
-On a CUDA tensor it launches ``csrc/gather_rows.cu`` (one thread per lane,
-coalesced stores, bit-equal to the plain gather; see the note there); on a
-CPU tensor it takes the plain version.  There is no fallback between the
-two.
+On a CUDA tensor it launches ``csrc/gather_rows.cu`` (whole rows read into
+a shared-memory tile, written transposed with coalesced stores; bit-equal
+to the plain gather, see the note there); on a CPU tensor it takes the
+plain version.  There is no fallback between the two.
 """
 from __future__ import annotations
 
@@ -16,6 +16,10 @@ import torch
 from mitsuba_path_guiding_torch.ops import build
 
 _FN: dict = {}
+# the largest table the JAX package sends to its Pallas kernel
+# (mitsuba_path_guiding_tpu/ops/gather_pallas.py); launches on larger
+# tables are counted apart
+SMALL_ROWS = 512
 
 
 def gather_rows_t_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -52,6 +56,8 @@ def gather_rows_t_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     build.check(fn(build.ptr(table), build.ptr(idx), build.ptr(out), r, c, n,
                    build.stream_ptr(table.device)), "gather_rows_t")
     build.LAUNCHES["gather_rows_t"] += 1
+    if r > SMALL_ROWS:
+        build.LAUNCHES["gather_rows_t_large"] += 1
     return out
 
 

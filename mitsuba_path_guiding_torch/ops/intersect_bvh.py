@@ -3,19 +3,28 @@
 Port of ``mitsuba_path_guiding_tpu/accel/traverse.py`` ``intersect_bvh``,
 a vmapped ``lax.while_loop`` over a stack of ``STACK_SIZE`` nodes (not a
 Pallas kernel; on the card it is ``csrc/intersect_bvh.cu``, one thread per
-ray).  Each step pops a node and slab-tests its box against the ray's
-current best t (``ray_aabb``: an axis on which the ray is parallel,
-|1/d| >= 1e19, takes a containment test); a leaf tests its up to 4
-triangles in order (``moeller_trumbore``, a hit needs EPS_T < t < best
-t, so a tie stays with the triangle found first); an inner node pushes
-the far child, then the near one (near: entry distance tn0 <= tn1 at the
-current best t).  Any-hit stops at the first triangle hit.
+ray).  The walk tests each box once, at its parent (``ray_aabb``: an axis
+on which the ray is parallel, |1/d| >= 1e19, takes a containment test):
+the root's box first, against tmax; then each step pops a (node, t_near)
+entry and drops it if t_near exceeds the best t so far; a leaf tests its
+up to 4 triangles in order (``moeller_trumbore``, a hit needs EPS_T < t <
+best t, so a tie stays with the triangle found first); an inner node
+slab-tests both children against the best t and pushes the far child if
+its box passed, then the near one if its box passed (near: entry distance
+tn0 <= tn1).  Any-hit stops at the first hit.  This visits the reference's
+leaves in the reference's order, which pushes both children and tests
+each box again when it pops it, so t, prim, u and v are the reference's
+(the proof is in ``csrc/device_math.cuh`` ``pg_bvh_walk``).
 
-On a CUDA tensor ``bvh_query`` launches the kernel and counts the launch
-in ``build.LAUNCHES["intersect_bvh"]``; on a CPU tensor it runs
+Both paths read the triangles from the BVH's packed layout
+(``accel/bvh.py`` ``pack_bvh``, built with the tree in the scene), so
+they cannot see different geometry.  On a CUDA tensor ``bvh_query``
+launches the kernel, which reads the packed nodes as well, and counts the
+launch in ``build.LAUNCHES["intersect_bvh"]``; on a CPU tensor it runs
 ``bvh_plain``, the same walk vectorised over rays, one node per ray per
-step.  Both return per-ray work counts: nodes popped and triangles
-tested.
+step, over the unpacked nodes.  Both return per-ray work counts: boxes
+tested (on a closest-hit walk, the reference's nodes popped) and
+triangles tested.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ import ctypes
 
 import torch
 
+from mitsuba_path_guiding_torch.accel.bvh import MAX_LEAF, NODE_WORDS, TRI_WORDS
 from mitsuba_path_guiding_torch.core.math import cross, dot, safe_rcp
 from mitsuba_path_guiding_torch.ops import build
 from mitsuba_path_guiding_torch.scene.types import BVH
@@ -30,7 +40,6 @@ from mitsuba_path_guiding_torch.scene.types import BVH
 INF = 3.0e38
 EPS_T = 1e-4
 STACK_SIZE = 48  # traversal stack depth; scene/builder.py checks the tree against it
-MAX_LEAF = 4
 
 _FN: dict = {}
 
@@ -64,42 +73,54 @@ def moeller_trumbore(o, d, p0, e1, e2, tmin, tmax):
     return t, u, v, hit
 
 
-def bvh_plain(bvh: BVH, p0, e1, e2, o, d, tmax, any_hit: bool = False):
+def _packed_tris(bvh: BVH):
+    if bvh.packed_nodes is None or bvh.packed_tris is None:
+        raise ValueError("intersect_bvh: the BVH has no packed layout (accel/bvh.py pack_bvh)")
+    return bvh.packed_tris
+
+
+def bvh_plain(bvh: BVH, o, d, tmax, any_hit: bool = False):
     """Plain version of the kernel.  Returns (t, prim int32, u, v as the
     walk leaves them: t is tmax and prim -1 on a miss; counts (2, N)
-    int32: nodes popped, triangles tested)."""
+    int32: boxes tested, triangles tested)."""
+    tris = _packed_tris(bvh)
+    tri_id = tris.view(torch.int32)[:, 9].long()
     n = o.shape[0]
     dev = o.device
     inv = safe_rcp(d)
     stack = torch.zeros((n, STACK_SIZE), dtype=torch.int64, device=dev)
-    sp = torch.ones((n,), dtype=torch.int64, device=dev)
+    stack_tn = torch.zeros((n, STACK_SIZE), dtype=torch.float32, device=dev)
     best_t = tmax.clone()
     best_prim = torch.full((n,), -1, dtype=torch.int64, device=dev)
     best_u = torch.zeros((n,), dtype=torch.float32, device=dev)
     best_v = torch.zeros_like(best_u)
     counts = torch.zeros((2, n), dtype=torch.int32, device=dev)
+    counts[0] = 1
     child0, child1 = bvh.child0.long(), bvh.child1.long()
-    prim_idx = bvh.prim_idx.long()
-    last = prim_idx.shape[0] - 1
-    act = torch.arange(n, device=dev)
+    last = tris.shape[0] - 1
+    root_hit, stack_tn[:, 0] = ray_aabb(o, inv, bvh.node_min[0].expand(n, 3),
+                                        bvh.node_max[0].expand(n, 3), tmax)
+    sp = root_hit.long()
+    act = torch.nonzero(root_hit).flatten()
+    top = STACK_SIZE - 1
     while act.numel():
         oa, da, ia = o[act], d[act], inv[act]
         sp_a = sp[act] - 1
-        node = stack[act, sp_a.clamp(0, STACK_SIZE - 1)]
-        counts[0, act] += 1
+        node = stack[act, sp_a.clamp(0, top)]
         bt, bp = best_t[act], best_prim[act]
         bu, bv = best_u[act], best_v[act]
-        hit_box, _ = ray_aabb(oa, ia, bvh.node_min[node], bvh.node_max[node], bt)
+        live = ~(stack_tn[act, sp_a.clamp(0, top)] > bt)
         c0, c1 = child0[node], child1[node]
-        leaf = hit_box & (c0 < 0)
-        inner = hit_box & (c0 >= 0)
+        leaf = live & (c0 < 0)
+        inner = live & (c0 >= 0)
         start, count = -(c0 + 1), -c1
         for k in range(MAX_LEAF):
             tested = leaf & (k < count)
             if any_hit:
                 tested = tested & (bp < 0)
-            pid = prim_idx[(start + k).clamp(0, last)]
-            t, u, v, h = moeller_trumbore(oa, da, p0[pid], e1[pid], e2[pid], EPS_T, bt)
+            j = (start + k).clamp(0, last)
+            row, pid = tris[j], tri_id[j]
+            t, u, v, h = moeller_trumbore(oa, da, row[:, 0:3], row[:, 3:6], row[:, 6:9], EPS_T, bt)
             take = tested & h
             counts[1, act] += tested.to(torch.int32)
             bp = torch.where(take, pid, bp)
@@ -107,17 +128,22 @@ def bvh_plain(bvh: BVH, p0, e1, e2, o, d, tmax, any_hit: bool = False):
             bv = torch.where(take, v, bv)
             bt = torch.where(take, t, bt)
         c0c, c1c = c0.clamp_min(0), c1.clamp_min(0)
-        _, tn0 = ray_aabb(oa, ia, bvh.node_min[c0c], bvh.node_max[c0c], bt)
-        _, tn1 = ray_aabb(oa, ia, bvh.node_min[c1c], bvh.node_max[c1c], bt)
+        h0, tn0 = ray_aabb(oa, ia, bvh.node_min[c0c], bvh.node_max[c0c], bt)
+        h1, tn1 = ray_aabb(oa, ia, bvh.node_min[c1c], bvh.node_max[c1c], bt)
+        counts[0, act] += 2 * inner.to(torch.int32)
         first = tn0 <= tn1
-        near, far = torch.where(first, c0, c1), torch.where(first, c1, c0)
-        rows, at = act[inner], sp_a[inner]
-        stack[rows, at.clamp(0, STACK_SIZE - 1)] = far[inner]
-        stack[rows, (at + 1).clamp(0, STACK_SIZE - 1)] = near[inner]
-        sp_new = torch.where(inner, sp_a + 2, sp_a)
-        sp[act], best_t[act], best_prim[act] = sp_new, bt, bp
+        at = sp_a
+        for child, tn, hit in ((torch.where(first, c1, c0), torch.where(first, tn1, tn0),
+                                torch.where(first, h1, h0)),
+                               (torch.where(first, c0, c1), torch.where(first, tn0, tn1),
+                                torch.where(first, h0, h1))):
+            push = inner & hit
+            rows, pos = act[push], at[push].clamp(0, top)
+            stack[rows, pos], stack_tn[rows, pos] = child[push], tn[push]
+            at = at + push.long()
+        sp[act], best_t[act], best_prim[act] = at, bt, bp
         best_u[act], best_v[act] = bu, bv
-        alive = sp_new > 0
+        alive = at > 0
         if any_hit:
             alive = alive & (bp < 0)
         act = act[alive]
@@ -128,51 +154,50 @@ def _kernel_fn(any_hit: bool):
     key = "any" if any_hit else "closest"
     f = _FN.get(key)
     if f is None:
-        f = getattr(build.load("intersect_bvh"), f"bvh_{key}")
-        # (o, d, tmax, n, node_min, node_max, child0, child1, prim_idx,
-        #  n_prim_idx, p0, e1, e2, out_t, out_prim, out_u, out_v, counts,
-        #  stream)
-        f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 5
-                      + [ctypes.c_int] + [ctypes.c_void_p] * 9)
+        lib = build.load("intersect_bvh")
+        lib.bvh_record_words.argtypes, lib.bvh_record_words.restype = [ctypes.c_int], ctypes.c_int
+        if (lib.bvh_record_words(0), lib.bvh_record_words(1)) != (NODE_WORDS, TRI_WORDS):
+            raise RuntimeError("intersect_bvh: the kernel reads another packed layout")
+        f = getattr(lib, f"bvh_{key}")
+        # (o, d, tmax, n, packed_nodes, packed_tris, n_tris, out_t,
+        #  out_prim, out_u, out_v, counts, stream)
+        f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                      + [ctypes.c_int] + [ctypes.c_void_p] * 6)
         f.restype = ctypes.c_int
         _FN[key] = f
     return f
 
 
-def bvh_cuda(bvh: BVH, p0, e1, e2, o, d, tmax, any_hit: bool = False):
+def bvh_cuda(bvh: BVH, o, d, tmax, any_hit: bool = False):
     """Launch the CUDA kernel; the contract of ``bvh_plain``."""
-    tables = (bvh.node_min, bvh.node_max, bvh.child0, bvh.child1, bvh.prim_idx, p0, e1, e2)
+    tables = (bvh.packed_nodes, _packed_tris(bvh))
     if not all(x.is_cuda for x in (*tables, o, d, tmax)):
         raise ValueError("intersect_bvh: all tensors must be on the card")
     n = o.shape[0]
     if o.shape != (n, 3) or d.shape != (n, 3) or tmax.shape != (n,):
         raise ValueError("intersect_bvh: o, d must be (N, 3) and tmax (N,)")
-    if any(x.dtype != torch.float32 for x in (bvh.node_min, bvh.node_max, p0, e1, e2, o, d, tmax)):
-        raise TypeError("intersect_bvh: expected float32 rays, boxes and triangles")
-    if any(x.dtype != torch.int32 for x in (bvh.child0, bvh.child1, bvh.prim_idx)):
-        raise TypeError("intersect_bvh: expected int32 children and prim_idx")
+    if any(x.dtype != torch.float32 for x in (*tables, o, d, tmax)):
+        raise TypeError("intersect_bvh: expected float32 rays and packed tables")
     if bvh.max_depth + 2 > STACK_SIZE:
         raise ValueError(f"intersect_bvh: BVH depth {bvh.max_depth} exceeds the stack")
     # the kernel reads these while it runs: keep every buffer referenced
-    tables = tuple(x.contiguous() for x in tables)
+    nodes, tris = (x.contiguous() for x in tables)
     o, d, tmax = o.contiguous(), d.contiguous(), tmax.contiguous()
     dev = o.device
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
     u, v = torch.empty_like(t), torch.empty_like(t)
     counts = torch.empty((2, n), dtype=torch.int32, device=dev)
-    args = (build.ptr(o), build.ptr(d), build.ptr(tmax), n,
-            *(build.ptr(x) for x in tables[:5]), tables[4].shape[0],
-            *(build.ptr(x) for x in tables[5:]),
-            build.ptr(t), build.ptr(prim), build.ptr(u), build.ptr(v), build.ptr(counts),
-            build.stream_ptr(dev))
+    args = (build.ptr(o), build.ptr(d), build.ptr(tmax), n, build.ptr(nodes), build.ptr(tris),
+            tris.shape[0], build.ptr(t), build.ptr(prim), build.ptr(u), build.ptr(v),
+            build.ptr(counts), build.stream_ptr(dev))
     build.check(_kernel_fn(any_hit)(*args), "intersect_bvh")
     build.LAUNCHES["intersect_bvh"] += 1
     return t, prim, u, v, counts
 
 
-def bvh_query(bvh: BVH, p0, e1, e2, o, d, tmax, any_hit: bool = False):
+def bvh_query(bvh: BVH, o, d, tmax, any_hit: bool = False):
     """The kernel (CUDA) or its plain version (CPU): (t, prim, u, v,
     counts)."""
     fn = bvh_cuda if o.is_cuda else bvh_plain
-    return fn(bvh, p0, e1, e2, o, d, tmax, any_hit)
+    return fn(bvh, o, d, tmax, any_hit)

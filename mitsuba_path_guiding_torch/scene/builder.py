@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from mitsuba_path_guiding_torch.accel.blocks import build_blocklist
-from mitsuba_path_guiding_torch.accel.bvh import build_bvh, to_device
+from mitsuba_path_guiding_torch.accel.bvh import build_bvh, pack_bvh, to_device
 from mitsuba_path_guiding_torch.accel.pairs import build_pair_table
 from mitsuba_path_guiding_torch.core.device import resolve_device
 from mitsuba_path_guiding_torch.core.spectrum import LUM_WEIGHTS_NP
@@ -233,7 +233,8 @@ def build_scene(desc: dict, device=None) -> SceneData:
     if T >= TWOLEVEL_MIN_TRIS:
         blocks = to_device(build_blocklist(h["p0"], h["e1"], h["e2"], bvh), dev)
         pairs = to_device(build_pair_table(h["p0"], h["e1"], h["e2"], bvh), dev)
-    bvh = to_device(bvh, dev)
+    bvh = pack_bvh(to_device(bvh, dev), *(torch.as_tensor(h[k], device=dev)
+                                          for k in ("p0", "e1", "e2")))
 
     # packed shading rows (see the Geometry.shade_packed layout)
     gn = np.cross(h["e1"], h["e2"])

@@ -154,7 +154,10 @@ class BVH(NamedTuple):
     child1[i] = -prim_count; ``prim_idx`` permutes into the Geometry
     arrays.  Every compiled scene carries one; ``accel/traverse.py``
     ``intersect_bvh`` walks it, and the block and pair tables are cut
-    from it."""
+    from it.  A compiled scene's BVH also carries the packed layout the
+    CUDA walk reads (``accel/bvh.py`` ``pack_bvh``, the layout in
+    ``csrc/device_math.cuh``); the reference has no such fields
+    (``PORT_ONLY``)."""
 
     node_min: torch.Tensor  # (Nn, 3)
     node_max: torch.Tensor  # (Nn, 3)
@@ -162,6 +165,10 @@ class BVH(NamedTuple):
     child1: torch.Tensor    # (Nn,) int32
     prim_idx: torch.Tensor  # (T,) int32
     max_depth: int          # host int
+    packed_nodes: Optional[torch.Tensor] = None  # (inner nodes + 1, 16) f32
+    packed_tris: Optional[torch.Tensor] = None   # (T, 12) f32, leaf order
+
+    PORT_ONLY = ("packed_nodes", "packed_tris")
 
 
 class BlockList(NamedTuple):

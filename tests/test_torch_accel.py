@@ -25,8 +25,12 @@ def _soup(seed, t, spread=4.0, size=0.3):
 
 
 def _equal(port, ref, what):
-    """Every field of a port table (numpy or tensor) equals the JAX one."""
+    """Every field of a port table (numpy or tensor) equals the JAX one;
+    the port's own layouts (``PORT_ONLY``, the BVH's packed walk) have no
+    JAX counterpart."""
     for f in port._fields:
+        if f in getattr(port, "PORT_ONLY", ()):
+            continue
         a, b = getattr(port, f), getattr(ref, f)
         if isinstance(a, int):
             assert a == b, f"{what}.{f}"

@@ -23,7 +23,7 @@ from mitsuba_path_guiding_tpu.integrators.path import trace as j_trace
 from mitsuba_path_guiding_tpu.models.sensor import generate_rays as j_generate_rays
 from mitsuba_path_guiding_tpu.scene.builder import build_scene as j_build_scene
 from mitsuba_path_guiding_tpu.scene.scenes import door_room as j_door_room
-from torch_port_parity import frac_close, t
+from torch_port_parity import frac_close, reference_walk_pops, t
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -106,13 +106,31 @@ def test_bvh_work_counts(scenes):
     reference), and hits nothing."""
     _, scene = scenes
     o, d, tmax = (torch.from_numpy(x) for x in _random(scene, 1000, 8))
-    g = scene.geo
-    _, prim, _, _, closest = bvh_plain(scene.bvh, g.p0, g.e1, g.e2, o, d, tmax)
-    *_, anyhit = bvh_plain(scene.bvh, g.p0, g.e1, g.e2, o, d, tmax, any_hit=True)
+    _, prim, _, _, closest = bvh_plain(scene.bvh, o, d, tmax)
+    *_, anyhit = bvh_plain(scene.bvh, o, d, tmax, any_hit=True)
     assert (anyhit <= closest).all() and (closest[1] <= 4 * closest[0]).all()
     assert (closest[0] >= 1).all() and closest[0].float().mean() > 10
     assert (anyhit.sum(dim=1) < closest.sum(dim=1)).all()
     assert (prim[tmax < 0] == -1).all()
+
+
+@pytest.mark.parametrize("rays", ["camera", "random"])
+def test_box_tests_equal_the_reference_walks_pops(scenes, rays):
+    """On a closest-hit walk every pushed node is popped, so the box tests
+    of the walk that tests each box at its parent (1 for the root, 2 an
+    inner node) equal the nodes the reference's walk pops."""
+    jscene, scene = scenes
+    if rays == "camera":
+        o, d, _ = _camera(jscene, 32, 32)
+        tmax = np.full((o.shape[0],), 3.0e38, np.float32)
+    else:
+        o, d, tmax = _random(scene, 1000, 9)
+    g = scene.geo
+    rays = (t(o), t(d), t(tmax))
+    *_, counts = bvh_plain(scene.bvh, *rays)
+    pops = reference_walk_pops(scene.bvh, g.p0, g.e1, g.e2, *rays)
+    assert pops.float().mean() > 10
+    assert torch.equal(counts[0], pops)
 
 
 def _trace_inputs(jscene):

@@ -1,8 +1,9 @@
 """The per-lane arithmetic of the CUDA kernels (csrc/device_math.cuh),
 compiled for the host with g++ behind csrc/host_shim.cpp, against the plain
 PyTorch versions: threefry-13, the bits-to-unit map, the Pluecker test with
-its packed-key winner, the exact Moeller-Trumbore re-evaluation and the
-dense Moeller-Trumbore closest hit.  Skips where g++ is missing."""
+its packed-key winner, the exact Moeller-Trumbore re-evaluation, the
+dense Moeller-Trumbore closest hit and the BVH kernel's walk over the
+packed tree.  Skips where g++ is missing."""
 import ctypes
 import os
 import shutil
@@ -13,10 +14,12 @@ import pytest
 import torch
 
 from mitsuba_path_guiding_torch.core import rng as trng
+from mitsuba_path_guiding_torch.models.sensor import generate_rays
 from mitsuba_path_guiding_torch.ops import fused_path as tfused
+from mitsuba_path_guiding_torch.ops.intersect_bvh import bvh_plain
 from mitsuba_path_guiding_torch.ops.intersect_tiled import closest_plain
 from mitsuba_path_guiding_torch.scene.builder import build_scene
-from mitsuba_path_guiding_torch.scene.scenes import cornell_box
+from mitsuba_path_guiding_torch.scene.scenes import cornell_box, door_room
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "mitsuba_path_guiding_torch", "csrc")
@@ -213,3 +216,63 @@ def test_mt_two_stages(lib, rays):
     np.testing.assert_array_equal(u[valid.numpy()], bu.numpy()[valid.numpy()])
     np.testing.assert_array_equal(v[valid.numpy()], bv.numpy()[valid.numpy()])
     assert valid.numpy().mean() > 0.5
+
+
+@pytest.fixture(scope="module")
+def bvh_scenes():
+    """door_room(20000) (17510 triangles) and the Cornell box, each with
+    camera rays of a 64x32 image and random rays from points of the
+    scene's box (a third each with an unbounded, a short and a -1 tmax;
+    16 parallel to a slab), and the plain walk's results, computed once."""
+    out = {}
+    for name, desc in (("door_room", door_room(20000)), ("cornell", cornell_box())):
+        scene = build_scene(desc, device="cpu")
+        w, h = 64, 32
+        pix = torch.arange(w * h)
+        keys = trng.ray_keys(trng.base_key(3), pix, torch.zeros_like(pix))
+        o_c, d_c, _ = generate_rays(scene.sensor, w, h, pix,
+                                    trng.event_uniform(keys, trng.TAG_CAMERA, 2))
+        rs = np.random.default_rng(11)
+        lo, hi = scene.aabb_min.numpy(), scene.aabb_max.numpy()
+        o_r = (lo + (hi - lo) * rs.random((w * h, 3))).astype(np.float32)
+        d_r = rs.normal(size=(w * h, 3)).astype(np.float32)
+        d_r[:16, 1] = 0.0
+        d_r /= np.linalg.norm(d_r, axis=-1, keepdims=True)
+        sel = rs.integers(0, 3, w * h)
+        t_r = np.where(sel == 0, 3.0e38, np.where(sel == 1, 4.0 * rs.random(w * h), -1.0))
+        sets = {"camera": (o_c.numpy().astype(np.float32), d_c.numpy().astype(np.float32),
+                           np.full(w * h, 3.0e38, np.float32)),
+                "random": (o_r, d_r, t_r.astype(np.float32))}
+        plain = {}
+        for label, (o, d, tmax) in sets.items():
+            for any_hit in (False, True):
+                plain[label, any_hit] = bvh_plain(scene.bvh, torch.from_numpy(o),
+                                                  torch.from_numpy(d), torch.from_numpy(tmax),
+                                                  any_hit)
+        out[name] = (scene, sets, plain)
+    return out
+
+
+@pytest.mark.parametrize("name", ["door_room", "cornell"])
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("label", ["camera", "random"])
+def test_bvh_walk_matches_plain(lib, bvh_scenes, name, any_hit, label):
+    """The kernel's walk (pg_bvh_walk over the packed tree) gives bvh_plain's
+    t, prim, u, v and both work counts bit for bit."""
+    scene, sets, plain = bvh_scenes[name]
+    nodes = scene.bvh.packed_nodes.numpy()
+    tris = scene.bvh.packed_tris.numpy()
+    o, d, tmax = sets[label]
+    n = o.shape[0]
+    t, u, v = (np.zeros(n, np.float32) for _ in range(3))
+    prim = np.zeros(n, np.int32)
+    counts = np.zeros((2, n), np.int32)
+    lib.host_bvh_walk(_p(nodes), _p(tris), ctypes.c_int(tris.shape[0]), _p(o), _p(d), _p(tmax),
+                      ctypes.c_int(n), ctypes.c_int(int(any_hit)), _p(t), _p(prim), _p(u), _p(v),
+                      _p(counts))
+    wt, wp, wu, wv, wc = (x.numpy() for x in plain[label, any_hit])
+    assert (wp >= 0).mean() > (0.3 if label == "camera" else 0.1)
+    np.testing.assert_array_equal(prim, wp)
+    for a, b in ((t, wt), (u, wu), (v, wv)):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+    np.testing.assert_array_equal(counts, wc)

@@ -56,6 +56,23 @@ def test_gather_rows_t_bit_equal(card, r, dtype):
     assert torch.equal(got, gather_rows_t_plain(table, idx))
 
 
+@pytest.mark.parametrize("rows,cols,n,offset", [
+    (244838, 32, 131071, 0),   # door_room's shading table, a ragged tile, unaligned rows
+    (1000, 7, 4099, 0),        # another width: the general path
+    (700, 45, 3000, 0),        # a width above one 32-column pass
+    (600, 32, 5000, 1),        # a table that is not 16-byte aligned: the general path
+])
+def test_gather_rows_t_shapes(card, rows, cols, n, offset):
+    g = torch.Generator(device="cuda").manual_seed(n)
+    table = torch.rand((rows * cols + offset,), generator=g, device="cuda")[offset:]
+    table = table.view(rows, cols)
+    for dtype in (torch.int32, torch.int64):
+        idx = torch.randint(-3, rows + 3, (n,), generator=g, device="cuda").to(dtype)
+        got = gather_rows_t(table, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, gather_rows_t_plain(table, idx))
+
+
 def test_gather_rows_t_rejects_what_it_does_not_take(card):
     with pytest.raises(TypeError):
         gather_rows_t(torch.zeros((4, 4), dtype=torch.float64, device="cuda"),
@@ -281,17 +298,38 @@ def test_twolevel_matches_plain(door):
     assert torch.equal(got, want) and torch.equal(gw, ww)
 
 
+@pytest.mark.parametrize("scene", ["door_room", "cornell"])
 @pytest.mark.parametrize("any_hit", [False, True])
-def test_bvh_matches_plain(door, any_hit):
+def test_bvh_matches_plain(card, door, scene, any_hit):
+    """The kernel over the packed tree against bvh_plain over the unpacked
+    nodes (both read the packed triangles): t, prim, u, v and both work
+    counts equal, on door_room and on the Cornell box's small tree."""
     from mitsuba_path_guiding_torch.ops.intersect_bvh import bvh_cuda, bvh_plain
 
-    g = door.geo
-    o, d, tmax, _ = _rays(door, 20_000, 7)
+    sc = door if scene == "door_room" else card
+    o, d, tmax, _ = _rays(sc, 20_000, 7)
     before = build.LAUNCHES["intersect_bvh"]
-    got = bvh_cuda(door.bvh, g.p0, g.e1, g.e2, o, d, tmax, any_hit)
-    want = bvh_plain(door.bvh, g.p0, g.e1, g.e2, o, d, tmax, any_hit)
+    got = bvh_cuda(sc.bvh, o, d, tmax, any_hit)
+    want = bvh_plain(sc.bvh, o, d, tmax, any_hit)
     torch.cuda.synchronize()
     assert build.LAUNCHES["intersect_bvh"] == before + 1
     assert (want[1] >= 0).sum() > 100
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def test_bvh_box_tests_equal_the_reference_walks_pops(door):
+    """On one closest-hit call the kernel's box tests equal the nodes the
+    reference's walk (both children pushed, each box tested at its pop)
+    pops."""
+    from torch_port_parity import reference_walk_pops
+
+    from mitsuba_path_guiding_torch.ops.intersect_bvh import bvh_cuda
+
+    g = door.geo
+    o, d, tmax, _ = _rays(door, 20_000, 8)
+    counts = bvh_cuda(door.bvh, o, d, tmax)[4]
+    pops = reference_walk_pops(door.bvh, g.p0, g.e1, g.e2, o, d, tmax)
+    torch.cuda.synchronize()
+    assert pops.float().mean() > 10
+    assert torch.equal(counts[0], pops)

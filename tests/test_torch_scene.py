@@ -19,12 +19,15 @@ from torch_port_parity import to_numpy_tree
 
 
 def _compare(port, ref, path):
-    """Every field the port fills equals the reference's, recursively."""
+    """Every field the port fills equals the reference's, recursively; the
+    port's own layouts (``PORT_ONLY``, the BVH's packed walk) have no
+    reference counterpart."""
     if port is None:
         return
     if hasattr(port, "_fields"):
         for f in port._fields:
-            _compare(getattr(port, f), getattr(ref, f), f"{path}.{f}")
+            if f not in getattr(port, "PORT_ONLY", ()):
+                _compare(getattr(port, f), getattr(ref, f), f"{path}.{f}")
         return
     if isinstance(port, (bool, int, float)):
         assert port == ref, path

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""The MT pair-tile kernel or the fused path kernel against another
-version of its source, in one process on one NVIDIA card.
+"""One of the port's redesigned kernels against another version of its
+source, in one process on one NVIDIA card.
 
   python3 tools/kernel_ab.py --kernel pairs_mt OLD/csrc/intersect_pairs.cu
   python3 tools/kernel_ab.py --kernel trace_fused OLD/csrc/fused_path.cu
+  python3 tools/kernel_ab.py --kernel gather_rows_t OLD/csrc/gather_rows.cu
+  python3 tools/kernel_ab.py --kernel intersect_bvh OLD/csrc/intersect_bvh.cu
 
 OLD is another version of the source (with its ``device_math.cuh``
 beside it), for example a ``git archive`` of an earlier commit unpacked
 into a directory that .gitignore lists.  It is built with the port's nvcc
 flags and bound in place of the current kernel's C entry points for the
-"old" turns; both versions run through the same wrapper.
+"old" turns.
 
   - pairs_mt, on door_room() (244838 triangles, 512x512): the sorted pairs
     of chip_smoke's timed camera wave (the second 131072-ray wave) and of
@@ -23,9 +25,28 @@ flags and bound in place of the current kernel's C entry points for the
     guided and unguided: rows 0:16 torch.equal on every lane, then medians
     of 7, old, new, new, old; then the frozen-cache render's 16 waves, old,
     new, new, old, in seconds, Mrays/s and the kernel's summed time.
+  - gather_rows_t, at chip_smoke's two shapes: Cornell's 36x32 shading
+    table with 65536 random int32 indices, and door_room's 244838x32
+    shading table with the hits of chip_smoke's BVH camera wave and of
+    its first bounce: outputs torch.equal, then medians of 7, old, new,
+    new, old, with the L2 warm and again evicted before each call (the
+    door_room table is 31 MB, within the 50 MB L2), beside
+    torch.index_select(...).T.contiguous().
+  - intersect_bvh, on door_room(): chip_smoke's BVH camera wave and its
+    first bounce, closest hit and any-hit: t, prim, u, v and the triangle
+    tests equal, and on closest hit the new box tests equal to the old
+    count (the parent's kernel counts nodes popped), then medians of 7,
+    old, new, new, old, with the L2 warm and again evicted before each
+    call (the packed tree is 16.4 MB); then the unguided BVH render of chip_smoke (40
+    launches), old, new, new, old, with the kernel's time summed over its
+    launches twice: CUDA events around each launch in the render (the
+    host's enqueue included) and each launch replayed alone (cuda_ms).  OLD
+    may read the flat tree (node_min, node_max, child0, child1, prim_idx,
+    p0, e1, e2, as before the packed layout) or the packed one (it exports
+    ``bvh_record_words``); both versions run through the same call.
 
-The new fused kernel keeps its ray counter in a __device__ variable of its
-own library and zeroes it in its C entry point, so both versions take the
+The fused kernel keeps its ray counter in a __device__ variable of its own
+library and zeroes it in its C entry point, so both versions take the
 same arguments.  Each result is one JSON line; the card's name and power
 limit come first.
 """
@@ -58,13 +79,14 @@ def bind_old(build, source, name, entries):
     return old
 
 
-def in_turns(cs, fn, versions, fns):
+def in_turns(cs, fn, versions, fns, cold=False):
     """fn() timed in turns old, new, new, old with fns (the wrapper's
-    entry-point table) holding each version's entry points in turn."""
+    entry-point table) holding each version's entry points in turn; with
+    ``cold``, the L2 evicted before each call (chip_smoke.cuda_ms)."""
     times = {"old": [], "new": []}
     for v in ("old", "new", "new", "old"):
         fns.update(versions[v])
-        times[v].append(cs.cuda_ms(fn))
+        times[v].append(cs.cuda_ms(fn, cold=cold))
     fns.update(versions["new"])
     return times
 
@@ -161,9 +183,162 @@ def ab_trace_fused(cs, build, source, card):
     fp._FN.update(versions["new"])
 
 
+def ab_gather_rows_t(cs, build, source):
+    import torch
+
+    from mitsuba_path_guiding_torch.ops import gather as ga
+    from mitsuba_path_guiding_torch.ops.intersect_bvh import bvh_cuda
+    from mitsuba_path_guiding_torch.scene.builder import build_scene
+    from mitsuba_path_guiding_torch.scene.scenes import cornell_box, door_room
+
+    new = {f"gather_rows_t_{k}": ga._kernel_fn(dt) for k, dt in (("i32", torch.int32),
+                                                                  ("i64", torch.int64))}
+    old = bind_old(build, source, "gather_rows", new)
+    # the wrapper's table holds the entry points under "i32" and "i64"
+    versions = {v: {k[-3:]: f for k, f in fns.items()} for v, fns in (("new", new), ("old", old))}
+    cornell = build_scene(cornell_box(), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    table = cornell.geo.shade_packed
+    calls = {"cornell": (table, torch.randint(0, table.shape[0], (cs.W * cs.H,), generator=g,
+                                              device="cuda", dtype=torch.int32))}
+    door = build_scene(door_room(), device="cuda")
+    for label, (oo, dd, tt) in bvh_waves(cs, door).items():
+        prim = bvh_cuda(door.bvh, oo, dd, tt)[1]
+        calls[f"door_room_{label}"] = (door.geo.shade_packed, prim.clamp_min(0))
+    for label, (tab, idx) in calls.items():
+        def call():
+            return ga.gather_rows_t_cuda(tab, idx)
+        outs = both(versions, ga._FN, call)
+        torch.cuda.synchronize()
+        cs.check(torch.equal(outs["old"], outs["new"]), f"{label}: old and new gathers differ")
+        times = in_turns(cs, call, versions, ga._FN)
+        cold = in_turns(cs, call, versions, ga._FN, cold=True)
+        rec = cs.gather_call(tab, idx)
+        cs.emit({"call": label, "shape": rec["shape"], "distinct_rows": rec["distinct_rows"],
+                 "equal": True, "old_ms": times["old"], "new_ms": times["new"],
+                 "old_ms_l2_cold": cold["old"], "new_ms_l2_cold": cold["new"],
+                 "library_ms": rec["library_ms"], "bound_ms": rec["bound_ms"],
+                 "speedup": statistics.mean(times["old"]) / statistics.mean(times["new"]),
+                 "speedup_l2_cold": statistics.mean(cold["old"]) / statistics.mean(cold["new"])})
+
+
+def bvh_waves(cs, door):
+    """chip_smoke's BVH timing waves: the second 131072-ray camera wave of
+    door_room at 512x512 (seed 11) and its first bounce (seed 6)."""
+    import torch
+
+    o, d, _ = cs.camera_rays(door, 1, 11, w=cs.DOOR_W, h=cs.DOOR_H)
+    o, d = o[cs.DOOR_WAVE:2 * cs.DOOR_WAVE], d[cs.DOOR_WAVE:2 * cs.DOOR_WAVE]
+    tmax = torch.full((cs.DOOR_WAVE,), 3.0e37, device=o.device)
+    return {"camera": (o, d, tmax), "bounce": cs.first_bounce(door, o, d, tmax, 6)}
+
+
+def bvh_entry(build, fns, flat, geo):
+    """A call with ``bvh_cuda``'s contract through one version's entry
+    points ({any_hit: function}), which read the flat tree (and geo's
+    triangles) or the packed one."""
+    import torch
+
+    def call(bvh, o, d, tmax, any_hit=False):
+        n, dev = o.shape[0], o.device
+        t = torch.empty((n,), dtype=torch.float32, device=dev)
+        prim = torch.empty((n,), dtype=torch.int32, device=dev)
+        u, v = torch.empty_like(t), torch.empty_like(t)
+        counts = torch.empty((2, n), dtype=torch.int32, device=dev)
+        o, d, tmax = o.contiguous(), d.contiguous(), tmax.contiguous()
+        if flat:
+            tree = (bvh.node_min, bvh.node_max, bvh.child0, bvh.child1, bvh.prim_idx)
+            args = (*tree, bvh.prim_idx.shape[0], geo.p0, geo.e1, geo.e2)
+        else:
+            args = (bvh.packed_nodes, bvh.packed_tris, bvh.packed_tris.shape[0])
+        args = (o, d, tmax, n, *args, t, prim, u, v, counts)
+        ptrs = [x if isinstance(x, int) else build.ptr(x) for x in args]
+        build.check(fns[any_hit](*ptrs, build.stream_ptr(dev)), "intersect_bvh")
+        return t, prim, u, v, counts
+    return call
+
+
+def ab_intersect_bvh(cs, build, source, card):
+    import torch
+
+    from mitsuba_path_guiding_torch.ops import intersect_bvh as ib
+    from mitsuba_path_guiding_torch.scene.builder import build_scene
+    from mitsuba_path_guiding_torch.scene.scenes import door_room
+
+    new = {f"bvh_{k}": ib._kernel_fn(k == "any") for k in ("closest", "any")}
+    target = os.path.join(build.BUILD_DIR, "libintersect_bvh_old.so")
+    old = bind_old(build, source, "intersect_bvh", new)
+    flat = not hasattr(ctypes.CDLL(target), "bvh_record_words")
+    if flat:
+        # (o, d, tmax, n, node_min, node_max, child0, child1, prim_idx,
+        #  n_prim_idx, p0, e1, e2, out t, prim, u, v, counts, stream)
+        for f in old.values():
+            f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+                          + [ctypes.c_int] + [ctypes.c_void_p] * 9)
+    door = build_scene(door_room(), device="cuda")
+    calls = {v: bvh_entry(build, {False: fns["bvh_closest"], True: fns["bvh_any"]}, f, door.geo)
+             for v, fns, f in (("new", new, False), ("old", old, flat))}
+    for label, (oo, dd, tt) in bvh_waves(cs, door).items():
+        for any_hit in (False, True):
+            args = (door.bvh, oo, dd, tt, any_hit)
+            outs = {v: calls[v](*args) for v in ("old", "new")}
+            torch.cuda.synchronize()
+            same = all(torch.equal(cs._bits(a), cs._bits(b))
+                       for a, b in zip(outs["old"][:4], outs["new"][:4]))
+            cs.check(same, f"{label} any_hit={any_hit}: old and new t, prim, u, v differ")
+            cw_old, cw_new = outs["old"][4], outs["new"][4]
+            cs.check(torch.equal(cw_old[1], cw_new[1]), f"{label}: triangle tests differ")
+            if not any_hit:
+                cs.check(torch.equal(cw_old[0], cw_new[0]),
+                         f"{label}: box tests differ from the old count")
+            times = {"old": [], "new": []}
+            cold = {"old": [], "new": []}
+            for v in ("old", "new", "new", "old"):
+                times[v].append(cs.cuda_ms(lambda: calls[v](*args)))
+            for v in ("old", "new", "new", "old"):
+                cold[v].append(cs.cuda_ms(lambda: calls[v](*args), cold=True))
+            boxes, tests = int(cw_new[0].sum()), int(cw_new[1].sum())
+            # a warp runs to its longest walk
+            per_ray = cw_new[0][:oo.shape[0] // 32 * 32].reshape(-1, 32)
+            b_ms, _ = cs.bound(cs.DOOR_WAVE * (7 + 4 + 2) * 4,
+                               boxes * cs.BOX_OPS + tests * cs.BVH_MT_OPS)
+            cs.emit({"call": label, "any_hit": any_hit, "rays": oo.shape[0], "equal": True,
+                     "old_count0": int(cw_old[0].sum()), "box_tests": boxes,
+                     "triangle_tests": tests, "bound_ms": b_ms,
+                     "box_tests_ray_mean": boxes / oo.shape[0],
+                     "box_tests_ray_max": int(per_ray.max()),
+                     "box_tests_warp_max_mean": float(per_ray.max(dim=1).values.float().mean()),
+                     "old_ms": times["old"], "new_ms": times["new"],
+                     "old_ms_l2_cold": cold["old"], "new_ms_l2_cold": cold["new"],
+                     "speedup": statistics.mean(times["old"]) / statistics.mean(times["new"]),
+                     "speedup_l2_cold": statistics.mean(cold["old"])
+                     / statistics.mean(cold["new"])})
+    real = ib.bvh_cuda
+    try:
+        for v in ("old", "new", "new", "old"):
+            launched = []
+
+            def capture(*a, call=calls[v], **kw):
+                launched.append((a, kw))
+                return call(*a, **kw)
+            ib.bvh_cuda = capture
+            rec, t = cs.kernel_time(lambda: cs.phase_door_bvh_render(door, card), ib, "bvh_cuda")
+            # the events around each launch in the render also hold the
+            # host's enqueue of it; each launch again, timed alone on the
+            # card (cuda_ms), gives the card's time
+            device = sum(cs.cuda_ms(lambda: calls[v](*a, **kw), reps=3, warmup=1)
+                         for a, kw in launched)
+            cs.emit({"render": "bvh", "version": v, "seconds": rec["seconds"],
+                     "mrays_per_s": rec["mrays_per_s"], "mean": rec["mean"], **t,
+                     "device_ms_sum": device})
+    finally:
+        ib.bvh_cuda = real
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", required=True, choices=("pairs_mt", "trace_fused"))
+    ap.add_argument("--kernel", required=True,
+                    choices=("pairs_mt", "trace_fused", "gather_rows_t", "intersect_bvh"))
     ap.add_argument("old_source")
     args = ap.parse_args(argv)
     import torch
@@ -182,8 +357,12 @@ def main(argv=None):
     build.build_all()
     if args.kernel == "pairs_mt":
         ab_pairs_mt(cs, build, args.old_source)
-    else:
+    elif args.kernel == "trace_fused":
         ab_trace_fused(cs, build, args.old_source, card)
+    elif args.kernel == "gather_rows_t":
+        ab_gather_rows_t(cs, build, args.old_source)
+    else:
+        ab_intersect_bvh(cs, build, args.old_source, card)
     return 0
 
 
