@@ -15,9 +15,12 @@ Phases:
   1. card name and power limit (nvidia-smi), kernel build and ptxas report
      (registers, stack frames, spills of every kernel);
   2. gather_rows_t (R in {36, 512}, C=32, N=524288, indices outside [0, R)
-     included; bit-equal) and intersect_tiled (524288 Cornell camera rays
-     and 524288 random rays, closest and any-hit, mixed and negative tmax;
-     prim equal on >= 99.99% of lanes, t/u/v within 1e-5 relative);
+     included; bit-equal) and intersect_tiled against tiled_plain, closest
+     and any-hit, mixed and negative tmax (t, prim, u, v, valid and the
+     any-hit flags bit-equal on every lane): 524288 Cornell camera rays and
+     524288 random rays; veach_mis (3850 triangles) on 65536 camera rays
+     and 65535 random rays (not a multiple of the kernel's 32-ray CTA), and
+     the random rays against its first 1, 127, 128 and 129 triangles;
   3. the main path: ProgressiveRenderer on cornell_box() at 256x256,
      depth 5, 4 spp x 4 progressions, a 16^3 grid of 8 lobes, guiding on;
      the image must be finite, non-black, within 3% of the JAX reference
@@ -78,10 +81,15 @@ Phases:
      line with bounds from this run's inputs (for the blocklist, on its
      three calls of 5, with launch geometry, the tests run and the tests
      needed; for the MT tiles, the tests their kernel runs beside the tests
-     needed; for gather_rows_t, Cornell's 36x32 shading table with 65536
-     random indices and door_room's 244838x32 shading table with the hit
-     indices of the BVH's timed camera wave and of its first bounce, each
-     bit-equal to the plain version, beside torch.index_select, its bytes
+     needed; for the Pluecker tiles, closest and any-hit, with the L2 warm
+     and evicted before each call; for intersect_tiled, closest and
+     any-hit on the 65536 camera rays of Cornell and of veach_mis, the
+     any-hit bound counting the tests up to each ray's first occluder, and
+     its ptxas report; for gather_rows_t, Cornell's 36x32 shading table
+     with 65536 random indices and door_room's 244838x32 shading table
+     with the hit indices of the BVH's timed camera wave and of its first
+     bounce, each bit-equal to the plain version, beside
+     torch.index_select, its bytes
      bound counting each distinct row once, and its launches split by
      table size; for the BVH, boxes and triangles tested and its ptxas
      report; the gather and the BVH also timed with the L2 evicted before
@@ -332,12 +340,38 @@ def ptxas_report(name):
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
 
 
-def phase_kernel_checks(scene):
+def tiled_check(geo, o, d, tmax, n_tri, label):
+    """intersect_tiled against tiled_plain over the first n_tri triangles
+    of geo, closest hit and any-hit: every output bit equal on every lane,
+    or a failure that names the lanes that differ."""
     import torch
 
-    from mitsuba_path_guiding_torch.accel.traverse import intersect_brute, occluded_brute
+    from mitsuba_path_guiding_torch.ops.intersect_tiled import (
+        intersect_tiled,
+        pack_triangles,
+        tiled_plain,
+    )
+
+    pack = pack_triangles(geo.p0[:n_tri], geo.e1[:n_tri], geo.e2[:n_tri])
+    got = intersect_tiled(pack, o, d, tmax, n_tri)
+    occ = intersect_tiled(pack, o, d, tmax, n_tri, any_hit=True)
+    want = tiled_plain(pack, o, d, tmax, n_tri)
+    occ_want = tiled_plain(pack, o, d, tmax, n_tri, any_hit=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("t", "prim", "u", "v", "valid", "any-hit"), (*got, occ),
+                          (*want, occ_want)):
+        differ = _bits(a) != _bits(b)
+        check(not bool(differ.any()),
+              f"intersect_tiled {label}: {name} differs on {int(differ.sum())} lanes, first "
+              f"{torch.nonzero(differ).flatten()[:4].tolist()}")
+    return {"rays": o.shape[0], "triangles": n_tri, "bit_equal": True,
+            "hit_share": float(got[4].float().mean()), "dead_lanes": int((tmax < 0).sum())}
+
+
+def phase_kernel_checks(scene, veach):
+    import torch
+
     from mitsuba_path_guiding_torch.ops.gather import gather_rows_t, gather_rows_t_plain
-    from mitsuba_path_guiding_torch.ops.intersect_tiled import intersect_tiled, pack_triangles
 
     dev = scene.geo.p0.device
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -353,41 +387,22 @@ def phase_kernel_checks(scene):
             check(torch.equal(got, want), f"gather_rows_t R={r} {dtype} not bit-equal")
     res["gather_rows_t"] = {"check": "bit-equal", "max_abs_err": 0.0}
 
-    geo = scene.geo
-    pack = pack_triangles(geo.p0, geo.e1, geo.e2)
-    o_cam, d_cam, _ = camera_rays(scene, 8, 0)
-    lo, hi = scene.aabb_min, scene.aabb_max
-    o_rnd = lo + (hi - lo) * torch.rand((n, 3), generator=gen, device=dev)
-    d_rnd = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen, device=dev), dim=-1)
-    worst_frac, worst_rel, worst_abs = 1.0, 0.0, 0.0
-    for label, o, d in (("camera", o_cam, d_cam), ("random", o_rnd, d_rnd)):
-        sel = torch.randint(0, 3, (n,), generator=gen, device=dev)
+    sets = [("cornell_camera", scene, *camera_rays(scene, 8, 0)[:2]),
+             ("cornell_random", scene, *random_rays(scene, n, gen, mixed_tmax=False)[:2]),
+             ("veach_mis_camera", veach, *camera_rays(veach, 1, 0)[:2]),
+             ("veach_mis_random", veach, *random_rays(veach, W * H - 1, gen, mixed_tmax=False)[:2])]
+    for label, sc, o, d in sets:
+        m = o.shape[0]
+        sel = torch.randint(0, 3, (m,), generator=gen, device=dev)
         tmax = torch.where(sel == 0, 3.0e37, torch.where(
-            sel == 1, 4.0 * torch.rand((n,), generator=gen, device=dev), -1.0))
-        t, prim, u, v, valid = intersect_tiled(pack, o, d, tmax, geo.p0.shape[0])
-        ref = intersect_brute(geo, o, d, tmax)
-        occ = intersect_tiled(pack, o, d, tmax, geo.p0.shape[0], any_hit=True)
-        occ_ref = occluded_brute(geo, o, d, tmax)
-        torch.cuda.synchronize()
-        same = prim == ref.prim
-        frac = float(same.float().mean())
-        both = same & valid
-        rel = err = 0.0
-        for a, b in ((t, ref.t), (u, ref.u), (v, ref.v)):
-            diff = torch.abs(a[both] - b[both])
-            rel = max(rel, float((diff / torch.clamp_min(torch.abs(b[both]), 1e-6)).max()))
-            err = max(err, float(diff.max()))
-        occ_frac = float((occ == occ_ref).float().mean())
-        check(frac >= 0.9999, f"intersect_tiled {label}: prim equal on {frac}")
-        check(rel <= 1e-5, f"intersect_tiled {label}: t/u/v rel err {rel}")
-        check(occ_frac >= 0.9999, f"intersect_tiled any-hit {label}: agree on {occ_frac}")
-        res[f"intersect_tiled_{label}"] = {"prim_equal": frac, "max_rel_err": rel,
-                                           "max_abs_err": err, "any_hit_equal": occ_frac}
-        worst_frac = min(worst_frac, frac, occ_frac)
-        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+            sel == 1, 4.0 * torch.rand((m,), generator=gen, device=dev), -1.0))
+        n_tris = (sc.geo.p0.shape[0],) + ((1, 127, 128, 129) if label == "veach_mis_random" else ())
+        for n_tri in n_tris:
+            res[f"intersect_tiled_{label}_{n_tri}"] = tiled_check(sc.geo, o, d, tmax, n_tri,
+                                                                  f"{label} {n_tri}")
     res["intersect_tiled"] = {
-        "check": f"prim and any-hit equal on >= {worst_frac} of lanes, t/u/v rel err {worst_rel}",
-        "max_abs_err": worst_abs}
+        "check": "t, prim, u, v, valid and the any-hit flags bit-equal to tiled_plain on every "
+                 "lane", "max_abs_err": 0.0}
     emit({"phase": "kernel_checks", **{k: v for k, v in res.items()
                                        if k not in ("gather_rows_t", "intersect_tiled")},
           "gather_rows_t": "bit-equal"})
@@ -545,17 +560,45 @@ def phase_fused_check(scene, tables, grid):
             "max_abs_err": worst, "frac_close": min(v["frac_close"] for v in out.values())}
 
 
-def phase_timings(scene, tables, grid, checks, launches, card):
+def tiled_any_tests(pack, o, d, tmax, n_tri):
+    """The triangle tests an any-hit walk in ascending id needs on these
+    rays: up to and including a ray's first occluder, all n_tri for an
+    unoccluded ray, none for a dead one (tmax <= EPS_T)."""
     import torch
 
-    from mitsuba_path_guiding_torch.accel.traverse import intersect_brute
+    from mitsuba_path_guiding_torch.ops.intersect_tiled import (
+        EPS_T,
+        INF,
+        PLAIN_PAIRS,
+        mt_components,
+    )
+
+    p0, e1, e2 = (pack[r:r + 3, :n_tri].T for r in (0, 3, 6))
+    step = max(1, PLAIN_PAIRS // n_tri)
+    total = 0
+    for a in range(0, o.shape[0], step):
+        tm = tmax[a:a + step]
+        t, _, _, hit = mt_components(p0, e1, e2, o[a:a + step], d[a:a + step])
+        hit = hit & (t < torch.clamp_max(tm, INF)[None, :])
+        first = torch.where(hit.any(dim=0), hit.to(torch.int32).argmax(dim=0) + 1, n_tri)
+        total += int(torch.where(tm > EPS_T, first, 0).sum())
+    return total
+
+
+def phase_timings(scene, veach, tables, grid, checks, launches, card):
+    import torch
+
     from mitsuba_path_guiding_torch.ops.fused_path import (
         _pack_guide,
         trace_fused_cuda,
         trace_fused_plain,
     )
     from mitsuba_path_guiding_torch.ops.gather import SMALL_ROWS
-    from mitsuba_path_guiding_torch.ops.intersect_tiled import intersect_tiled_cuda, pack_triangles
+    from mitsuba_path_guiding_torch.ops.intersect_tiled import (
+        intersect_tiled_cuda,
+        pack_triangles,
+        tiled_plain,
+    )
 
     dev = scene.geo.p0.device
     n_pix = W * H
@@ -581,14 +624,28 @@ def phase_timings(scene, tables, grid, checks, launches, card):
         "shape": cornell["shape"], "calls": {"cornell": cornell},
         "ptxas": ptxas_report("gather_rows"), "check": "bit-equal on every checked and timed call"})
 
-    # intersect_tiled: one closest-hit wave of 65536 camera rays
-    o, d, _ = camera_rays(scene, 1, 2000)
-    tmax = torch.full((n_pix,), 3.0e37, device=dev)
-    pack = pack_triangles(geo.p0, geo.e1, geo.e2)
-    n_tri = geo.p0.shape[0]
-    ms = cuda_ms(lambda: intersect_tiled_cuda(pack, o, d, tmax, n_tri))
-    plain = cuda_ms(lambda: intersect_brute(geo, o, d, tmax))
-    b_ms, b_by = bound(pack.numel() * 4 + n_pix * 44, n_pix * n_tri * MT_OPS)
+    # intersect_tiled: a wave of 65536 camera rays, closest hit and any-hit,
+    # through Cornell's 36 triangles and veach_mis's 3850.  A closest hit
+    # needs every test of a live ray; an any-hit walk in ascending id the
+    # tests up to the first occluder (tiled_any_tests).
+    tiled_calls = {}
+    for label, sc in (("cornell", scene), ("veach_mis", veach)):
+        o, d, _ = camera_rays(sc, 1, 2000)
+        m = o.shape[0]
+        tmax = torch.full((m,), 3.0e37, device=dev)
+        pack = pack_triangles(sc.geo.p0, sc.geo.e1, sc.geo.e2)
+        nt = sc.geo.p0.shape[0]
+        for any_hit in (False, True):
+            tests = tiled_any_tests(pack, o, d, tmax, nt) if any_hit else m * nt
+            b_ms, b_by = bound(pack.numel() * 4 + m * (28 + (1 if any_hit else 16)),
+                               tests * MT_OPS)
+            tiled_calls[f"{label}_{'any' if any_hit else 'closest'}"] = {
+                "ms": cuda_ms(lambda: intersect_tiled_cuda(pack, o, d, tmax, nt, any_hit)),
+                "plain_ms": cuda_ms(lambda: tiled_plain(pack, o, d, tmax, nt, any_hit),
+                                    reps=3, warmup=1),
+                "bound_ms": b_ms, "bound_by": b_by, "triangle_tests": tests,
+                "shape": f"{m} camera rays x {nt} triangles"}
+    main_call = tiled_calls["cornell_closest"]
     entries.append({
         "name": "intersect_tiled", "route": "cuda",
         "source": "mitsuba_path_guiding_torch/csrc/intersect_tiled.cu",
@@ -596,10 +653,12 @@ def phase_timings(scene, tables, grid, checks, launches, card):
         "launches": sum(launches["intersect_tiled"].values()),
         "launches_by_route": launches["intersect_tiled"],
         "max_abs_err": checks["intersect_tiled"]["max_abs_err"],
-        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": f"{n_pix} rays x {n_tri} triangles, closest hit",
+        **{k: main_call[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "shape": main_call["shape"] + ", closest hit",
+        "calls": tiled_calls, "ptxas": ptxas_report("intersect_tiled"),
         "check": checks["intersect_tiled"]["check"]})
 
+    n_tri = geo.p0.shape[0]
     # trace_fused: one guided frozen-cache wave, 256x256 x 8 spp.  Its
     # output rows 14 and 15 count the work this run's data needed: the
     # bounce loops each lane entered and the triangles its shadow rays
@@ -1061,7 +1120,8 @@ def phase_door_timings(scene, checks, launches, bl_calls, bl_rows, bl_render, mt
     pair render's.  The MT entry also counts the tests its kernel runs
     (``mt_tile_work``) and their operations over the FP32 rate
     (``tests_run_floor_ms``), which splits its gap to the bound into tests
-    run and time per test."""
+    run and time per test.  The Pluecker entry also times the any-hit call
+    and both calls with the L2 evicted first (``calls``, ``ms_l2_cold``)."""
     import torch
 
     from mitsuba_path_guiding_torch.ops.intersect_blocklist import (
@@ -1119,6 +1179,21 @@ def phase_door_timings(scene, checks, launches, bl_calls, bl_rows, bl_render, mt
     mt["work"]["tests_run"] = work["tests_run"]
     mt["tests_run_floor_ms"] = work["tests_run"] * MT_OPS / FP32_OPS_PER_S * 1e3
     mt["render_kernel_time"] = mt_render
+    # the Pluecker tiles closest and any-hit, warm and with the L2 evicted
+    # before each call (tri_cols is 78 MB, above the 50 MB L2)
+    plk = entries[1]
+    plk["calls"] = {}
+    for any_hit in (False, True):
+        ops = tests * (PLK_ANY_OPS if any_hit else PLK_CLOSEST_OPS) + hit_pairs * PLK_M_OPS
+        b_ms, b_by = bound(io_bytes + blocks_used * 26 * TILE * 4, ops)
+
+        def call():
+            return plk_tiles(pt.tri_cols, pt.tri_rows, tile_block, pdata, any_hit)
+        plk["calls"][f"camera_{'any' if any_hit else 'closest'}"] = {
+            "ms": cuda_ms(call), "ms_l2_cold": cuda_ms(call, cold=True), "bound_ms": b_ms,
+            "bound_by": b_by, "fp32_ops": ops}
+    plk["ms_l2_cold"] = plk["calls"]["camera_closest"]["ms_l2_cold"]
+    plk["ptxas"] = ptxas_report("intersect_pairs")
 
     # the blocklist on three calls of the main paths: the two fallbacks
     # and a sorted bounce wave
@@ -1547,13 +1622,14 @@ def main(argv=None):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mitsuba_path_guiding_torch.ops import fused_path
     from mitsuba_path_guiding_torch.scene.builder import build_scene
-    from mitsuba_path_guiding_torch.scene.scenes import cornell_box
+    from mitsuba_path_guiding_torch.scene.scenes import cornell_box, veach_mis
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = phase_build()
     scene = build_scene(cornell_box(), device="cuda")
-    checks = phase_kernel_checks(scene)
+    veach = build_scene(veach_mis(), device="cuda")
+    checks = phase_kernel_checks(scene, veach)
 
     no_pairs = {"intersect_pairs_mt": 0, "intersect_pairs_plk": 0, "intersect_blocklist": 0,
                 "intersect_twolevel": 0, "intersect_bvh": 0}
@@ -1628,7 +1704,7 @@ def main(argv=None):
               "door_room_bvh": c_bvh}
     launches = {k: {r: c[k] for r, c in routes.items()} for k in c_prog}
 
-    entries = phase_timings(scene, tables, grid, checks, launches, card)
+    entries = phase_timings(scene, veach, tables, grid, checks, launches, card)
     entries += phase_door_timings(door, checks, launches, bl_calls, bl_rows, bl_render,
                                   mt_render)
     new_entries, gather_calls = phase_new_timings(interior, door_tl, door, launches, card)

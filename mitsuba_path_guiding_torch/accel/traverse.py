@@ -1,10 +1,10 @@
 """Ray-scene intersection front end (port of the reference's
 accel/traverse.py).
 
-``intersect_brute`` / ``occluded_brute`` are the dense all-triangle oracle
-and the plain versions of the ``intersect_tiled`` kernel; ``intersect_pallas``
-/ ``occluded_pallas`` go through that kernel's wrapper (the CUDA kernel on
-the card).  ``intersect_bvh`` / ``occluded`` walk the scene's BVH
+``intersect_brute`` / ``occluded_brute`` are the dense all-triangle oracle;
+``intersect_pallas`` / ``occluded_pallas`` go through the ``intersect_tiled``
+kernel's wrapper (the CUDA kernel on the card, its plain version
+``tiled_plain``, the same tests, on the CPU).  ``intersect_bvh`` / ``occluded`` walk the scene's BVH
 (``ops/intersect_bvh.py``, the ``intersect_bvh`` kernel on the card).
 Scenes of 16384 triangles or more carry block tables: with pair tables
 they go through ``intersect_pairs_full`` / ``occluded_pairs_full``, the

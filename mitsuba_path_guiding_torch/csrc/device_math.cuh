@@ -255,6 +255,53 @@ PG_HD bool pg_mt_vt(float e1x, float e1y, float e1z, float e2x, float e2y, float
 }
 
 // ---------------------------------------------------------------------------
+// The order of every closest-hit merge: the lesser t, and among equal t the
+// lesser triangle id.  On distinct ids it is a total order, so partial
+// winners merged in any grouping give the winner of one pass over the
+// triangles in ascending id that replaces its best only with a strictly
+// nearer hit (the Pallas kernels' per-tile minimum and strict merge).
+// ---------------------------------------------------------------------------
+template <typename I>
+PG_HD bool pg_nearer(float t, I id, float bt, I bid) {
+  return t < bt || (t == bt && id < bid);
+}
+
+// ---------------------------------------------------------------------------
+// Shared-memory records, built by one thread per triangle and read back as
+// float4 words.
+//   pg_tiled_record: triangle j of intersect_tiled's (12, tpad) pack
+//     (ops/intersect_tiled.py pack_triangles): p0, e1, e2 and three zeros
+//     (12 words).
+//   pg_plk_record: triangle i of one Pluecker pair block, from its tri_cols
+//     (16, 5 * 128) and tri_rows (10, 128): the 25 coefficients in
+//     pg_plucker_hit's order (ops/intersect_pairs.py plk_coeffs), the id
+//     (row 9 of tri_rows, -1 for padding) and two zeros (28 words).
+// PG_TILED_LANES is the lanes of intersect_tiled.cu that share one ray.
+// ---------------------------------------------------------------------------
+#define PG_TILED_LANES 4
+#define PG_PAIR_LEAF 128
+
+PG_HD void pg_tiled_record(const float* pack, int tpad, int j, float* r) {
+#pragma unroll
+  for (int c = 0; c < 9; ++c) r[c] = pack[(int64_t)c * tpad + j];
+  r[9] = r[10] = r[11] = 0.0f;
+}
+
+PG_HD void pg_plk_record(const float* cols, const float* rows, int i, float* r) {
+  const int w = 5 * PG_PAIR_LEAF;  // a row of tri_cols: five groups of 128 columns
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int f = 0; f < 6; ++f) r[6 * g + f] = cols[f * w + g * PG_PAIR_LEAF + i];
+#pragma unroll
+  for (int f = 0; f < 4; ++f) r[18 + f] = cols[(6 + f) * w + 3 * PG_PAIR_LEAF + i];
+#pragma unroll
+  for (int f = 0; f < 3; ++f) r[22 + f] = cols[f * w + 4 * PG_PAIR_LEAF + i];
+  r[25] = rows[9 * PG_PAIR_LEAF + i];
+  r[26] = r[27] = 0.0f;
+}
+
+// ---------------------------------------------------------------------------
 // The BVH walk of csrc/intersect_bvh.cu for one ray (traverse.py
 // intersect_bvh, with each box tested once, at its parent), over the packed
 // layout of accel/bvh.py pack_bvh:

@@ -4,6 +4,8 @@
 // Each entry point applies one of the kernels' per-lane functions to
 // arrays, so its bits can be held against the plain PyTorch versions.
 
+#include <vector>
+
 #include "device_math.cuh"
 
 extern "C" {
@@ -161,6 +163,135 @@ int host_mt_split_closest(const float* tri, int n_tri, const float* o, const flo
     v_out[i] = bv;
   }
   return wrong;
+}
+
+// intersect_tiled.cu's split for n rays over the first n_tri triangles of
+// its (12, tpad) pack: records from pg_tiled_record, PG_TILED_LANES lanes a
+// ray, lane g testing triangles g, g + G, ... of each 128-triangle tile in
+// two stages (pg_mt_vt only where pg_mt_u passed) with strictly-nearer
+// replacement, then the kernel's butterfly (xor 1, 2, ...) by pg_nearer;
+// as in the kernel, lane 0 gives t, lane 1 prim, lane 2 u and lane 3 v.
+// any_hit != 0: hit[i] = 1 where some lane hit (a lane stops at its first).
+void host_tiled_lanes(const float* pack, int tpad, int n_tri, const float* o, const float* d,
+                      const float* tmax, int n, int any_hit, float* t_out, int* prim_out,
+                      float* u_out, float* v_out, uint8_t* hit) {
+  const int G = PG_TILED_LANES;
+  std::vector<float> rec(12 * (size_t)n_tri);
+  for (int j = 0; j < n_tri; ++j) pg_tiled_record(pack, tpad, j, &rec[12 * (size_t)j]);
+  for (int i = 0; i < n; ++i) {
+    const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
+    const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
+    const float start = tmax[i] > 3.0e38f ? 3.0e38f : tmax[i];
+    float bt[G], bu[G], bv[G];
+    int bp[G];
+    for (int g = 0; g < G; ++g) {
+      bt[g] = start;
+      bp[g] = -1;
+      bu[g] = bv[g] = 0.0f;
+      if (!(start > PG_EPS_T)) continue;
+      for (int base = 0; base < n_tri && !(any_hit && bp[g] >= 0); base += 128) {
+        const int cnt = n_tri - base < 128 ? n_tri - base : 128;
+        for (int k = g; k < cnt; k += G) {
+          const float* r = &rec[12 * (size_t)(base + k)];
+          float tv[3], inv, u, t, v;
+          if (!pg_mt_u(r[0], r[1], r[2], r[3], r[4], r[5], r[6], r[7], r[8], ox, oy, oz, dx, dy,
+                       dz, tv, &inv, &u))
+            continue;
+          if (pg_mt_vt(r[3], r[4], r[5], r[6], r[7], r[8], dx, dy, dz, tv, inv, u, &t, &v) &&
+              t < bt[g]) {
+            bt[g] = t;
+            bp[g] = base + k;
+            bu[g] = u;
+            bv[g] = v;
+            if (any_hit) break;
+          }
+        }
+      }
+    }
+    if (any_hit) {
+      bool h = false;
+      for (int g = 0; g < G; ++g) h = h || bp[g] >= 0;
+      hit[i] = h ? 1 : 0;
+      continue;
+    }
+    for (int off = 1; off < G; off <<= 1) {
+      float t2[G], u2[G], v2[G];
+      int p2[G];
+      for (int g = 0; g < G; ++g) {
+        const int x = g ^ off;
+        const bool take = pg_nearer(bt[x], bp[x], bt[g], bp[g]);
+        t2[g] = take ? bt[x] : bt[g];
+        p2[g] = take ? bp[x] : bp[g];
+        u2[g] = take ? bu[x] : bu[g];
+        v2[g] = take ? bv[x] : bv[g];
+      }
+      for (int g = 0; g < G; ++g) {
+        bt[g] = t2[g];
+        bp[g] = p2[g];
+        bu[g] = u2[g];
+        bv[g] = v2[g];
+      }
+    }
+    t_out[i] = bp[0] >= 0 ? bt[0] : 3.0e38f;
+    prim_out[i] = bp[1 % G];
+    u_out[i] = bu[2 % G];
+    v_out[i] = bv[3 % G];
+  }
+}
+
+// intersect_pairs.cu's Pluecker tiles (pair_kernel<true, .>) over n_tiles
+// tiles of 128 pairs: an inert tile or a pair with tmax <= EPS_T gives
+// (3e38, -1) at once; a live pair is tested by 4 warps' shares (warp w:
+// records w, w + 4, ... from pg_plk_record, below one past the block's last
+// real triangle), each in two stages (pg_plucker_depth only where
+// pg_plucker_inside passed), the shares merged in warp order by pg_nearer.
+// out (2, 128 n_tiles): t and the id, or +-1 with any_hit.
+void host_plk_tiles(const float* cols, const float* rows, int n_blocks, const int* tile_block,
+                    int n_tiles, const float* pd, int any_hit, float* out) {
+  const int64_t P = (int64_t)n_tiles * 128;
+  const float inf = 3.0e38f, no_id = 2.0e9f;
+  float rec[128][28];
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int blk = tile_block[tile];
+    int last = 0;
+    if (blk >= 0) {
+      const int64_t b = blk < n_blocks - 1 ? blk : n_blocks - 1;
+      for (int i = 0; i < 128; ++i) {
+        pg_plk_record(cols + b * 16 * 640, rows + b * 10 * 128, i, rec[i]);
+        if (rec[i][25] >= 0.0f) last = i + 1;
+      }
+    }
+    for (int j = 0; j < 128; ++j) {
+      const int64_t p = (int64_t)tile * 128 + j;
+      float bt = inf, bid = no_id;
+      if (blk >= 0 && pd[6 * P + p] > PG_EPS_T) {
+        const float oo[3] = {pd[p], pd[P + p], pd[2 * P + p]};
+        const float dd[3] = {pd[3 * P + p], pd[4 * P + p], pd[5 * P + p]};
+        const float m[3] = {oo[1] * dd[2] - oo[2] * dd[1], oo[2] * dd[0] - oo[0] * dd[2],
+                            oo[0] * dd[1] - oo[1] * dd[0]};
+        for (int w = 0; w < 4; ++w) {
+          float wt = inf, wid = no_id;
+          for (int k = w; k < last; k += 4) {
+            const float* c = rec[k];
+            float t;
+            if (pg_plucker_inside(c, dd, m, any_hit != 0) &&
+                pg_plucker_depth(c, oo, dd, pd[6 * P + p], &t) && c[25] >= 0.0f &&
+                pg_nearer(t, c[25], wt, wid)) {
+              wt = t;
+              wid = c[25];
+            }
+          }
+          if (pg_nearer(wt, wid, bt, bid)) {
+            bt = wt;
+            bid = wid;
+          }
+        }
+      }
+      const bool h = bt < inf;
+      out[p] = bt;
+      out[P + p] = any_hit ? (h ? 1.0f : -1.0f) : (h ? bid : -1.0f);
+    }
+  }
 }
 
 // the blocklist kernel's merge keys of (t, block, id), and their unpacking

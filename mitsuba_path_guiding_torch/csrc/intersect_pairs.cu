@@ -16,8 +16,8 @@
 // counts the tests the data needs: pairs that can hit (tmax > EPS_T) times
 // the real triangles of their block.
 //
-// MT design (pair_mt_kernel): one CTA of 4 warps per tile, and the issue
-// slots go to the tests the data needs.
+// MT design (pair_kernel<false, .>): one CTA of 4 warps per tile, and the
+// issue slots go to the tests the data needs.
 //   * A dead or dummy pair (tmax <= EPS_T) can find no hit: it writes
 //     (INF, -1) at once, and the live pairs are compacted to the front of
 //     the tile (one ballot per 32 pairs).  Lane l of every warp owns live
@@ -27,8 +27,8 @@
 //   * Padding triangles (id -1) sit at a block's tail: the loop stops after
 //     the last real one (a max over the staged ids).
 //   * Each triangle is staged as one 48-byte record (p0, e1, e2, id, two
-//     floats of padding) and read as 3 LDS.128 broadcasts, which feed the
-//     tests of all of a lane's pairs.
+//     floats of padding; 3 STS.128, conflict-free) and read as 3 LDS.128
+//     broadcasts, which feed the tests of all of a lane's pairs.
 //   * Warp w tests triangles w, w + 4, ...: a quarter of the tile's tests,
 //     so tiles of unequal cost spread evenly over the card; the four
 //     partial winners of each pair merge in shared memory.
@@ -40,12 +40,22 @@
 // compacting change no bit; any-hit keeps the least t too and writes +-1
 // in row 1.
 //
-// Pluecker design (pair_plk_kernel): one CTA of 128 threads per tile,
-// thread j owns pair j; the 25 coefficients + id of each triangle (from
-// tri_cols) are staged once in shared memory and read as broadcasts.  The
-// test runs in FP32 on the CUDA cores, summing in the plain version's order
-// (device_math.cuh pg_plucker_hit), not on the tensor cores, whose TF32 or
-// bf16 inputs would drop hits.
+// Pluecker design (pair_kernel<true, .>): the same CTA, compaction, triangle
+// split and merge as the MT kernel (one kernel template, pair_kernel), with
+// the Pluecker test in place of MT.
+//   * Each triangle's 25 coefficients (from tri_cols) and its id are staged
+//     once as a 112-byte record (device_math.cuh pg_plk_record, 7 float4
+//     written as STS.128, conflict-free) and read as 7 LDS.128 broadcasts.
+//   * The test runs in two stages: pg_plucker_inside, the three edge sides,
+//     and behind a warp vote pg_plucker_depth, the plane distance with its
+//     IEEE division; a pair whose ray passes outside the triangle cannot
+//     hit.  The closest-hit inside test keeps its PLK_EPS slack, any-hit
+//     the exact one.
+// The tests run in FP32 on the CUDA cores, summing in the plain version's
+// order (pg_plucker_inside, pg_plucker_depth), not on the tensor cores,
+// whose TF32 or bf16 inputs would drop hits.  Measured on the card
+// (PERF.md section 6): without the vote 1.36x slower; at most 64 registers
+// (__launch_bounds__(128, 8)) 8% slower.
 //
 // An inert tile (tile_block < 0: dummies or the sort's tail) writes
 // (INF, -1) and returns before touching the table.
@@ -60,15 +70,16 @@
 #include "device_math.cuh"
 
 #define PAIR_TILE 128
-#define LEAF 128
+#define LEAF PG_PAIR_LEAF
 #define PLK_COLS (5 * LEAF)
 #define INF_T 3.0e38f
 #define NO_ID 2.0e9f
-#define MT_WARPS (PAIR_TILE / 32)  // warps of an MT tile's CTA, each with a share of the triangles
-#define MT_SLOTS (PAIR_TILE / 32)  // 32-pair slots of a tile: live pairs a lane owns at most
+#define FULL 0xffffffffu
+#define WARPS (PAIR_TILE / 32)  // warps of a tile's CTA, each with a share of the triangles
+#define SLOTS (PAIR_TILE / 32)  // 32-pair slots of a tile: live pairs a lane owns at most
 
 __device__ __forceinline__ void pg_take(bool hit, float t, float tid, float* bt, float* bid) {
-  if (hit && (t < *bt || (t == *bt && tid < *bid))) {
+  if (hit && pg_nearer(t, tid, *bt, *bid)) {
     *bt = t;
     *bid = tid;
   }
@@ -83,7 +94,7 @@ __device__ __forceinline__ void pg_pair_out(float* out, int64_t P, int64_t p, fl
 
 // one warp's share of a tile: the live pairs of slots 0..S-1 (lane l,
 // slot s: live pair 32 s + l) against the staged triangles k = warp,
-// warp + MT_WARPS, ... below n_tri; the best (t, id) of each slot and lane
+// warp + WARPS, ... below n_tri; the best (t, id) of each slot and lane
 // goes to best[warp][s][lane]
 template <int S>
 __device__ __forceinline__ void mt_slots(const float4* __restrict__ rec, int n_tri,
@@ -108,7 +119,7 @@ __device__ __forceinline__ void mt_slots(const float4* __restrict__ rec, int n_t
     bt[s] = INF_T;
     bid[s] = NO_ID;
   }
-  for (int k = warp; k < n_tri; k += MT_WARPS) {
+  for (int k = warp; k < n_tri; k += WARPS) {
     const float4 a = rec[3 * k], b = rec[3 * k + 1], c = rec[3 * k + 2];
     // a: p0 e1x, b: e1y e1z e2x e2y, c: e2z id - -
     float tv[S][3], inv[S], u[S];
@@ -119,7 +130,7 @@ __device__ __forceinline__ void mt_slots(const float4* __restrict__ rec, int n_t
                        dy[s], dz[s], tv[s], &inv[s], &u[s]) && has[s];
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      if (__any_sync(0xffffffffu, may[s])) {
+      if (__any_sync(FULL, may[s])) {
         float t, v;
         const bool hit = pg_mt_vt(a.w, b.x, b.y, b.z, b.w, c.x, dx[s], dy[s], dz[s], tv[s],
                                   inv[s], u[s], &t, &v);
@@ -128,18 +139,85 @@ __device__ __forceinline__ void mt_slots(const float4* __restrict__ rec, int n_t
     }
   }
 #pragma unroll
-  for (int s = 0; s < S; ++s) best[(warp * MT_SLOTS + s) * 32 + lane] = make_float2(bt[s], bid[s]);
+  for (int s = 0; s < S; ++s) best[(warp * SLOTS + s) * 32 + lane] = make_float2(bt[s], bid[s]);
 }
 
-template <bool ANY_HIT>
+// one warp's share of a Pluecker tile, as mt_slots: live pair 32 s + lane
+// of slot s against the staged records k = warp, warp + WARPS, ...
+template <int S, bool ANY_HIT>
+__device__ __forceinline__ void plk_slots(const float4* __restrict__ rec, int n_tri,
+                                          const int* live, int n_live,
+                                          const float* __restrict__ pd, int64_t P, int64_t base,
+                                          float2* best) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float o[S][3], d[S][3], m[S][3], tmax[S], bt[S], bid[S];
+  bool has[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int j = 32 * s + lane;
+    has[s] = j < n_live;
+    const int64_t p = base + (has[s] ? live[j] : 0);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      o[s][a] = pd[a * P + p];
+      d[s][a] = pd[(3 + a) * P + p];
+    }
+    tmax[s] = pd[6 * P + p];
+    m[s][0] = o[s][1] * d[s][2] - o[s][2] * d[s][1];
+    m[s][1] = o[s][2] * d[s][0] - o[s][0] * d[s][2];
+    m[s][2] = o[s][0] * d[s][1] - o[s][1] * d[s][0];
+    bt[s] = INF_T;
+    bid[s] = NO_ID;
+  }
+  for (int k = warp; k < n_tri; k += WARPS) {
+    float c[28];  // coefficients 0:25, the id at 25
+#pragma unroll
+    for (int q = 0; q < 7; ++q) {
+      const float4 w = rec[7 * k + q];
+      c[4 * q] = w.x;
+      c[4 * q + 1] = w.y;
+      c[4 * q + 2] = w.z;
+      c[4 * q + 3] = w.w;
+    }
+    bool in[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) in[s] = pg_plucker_inside(c, d[s], m[s], ANY_HIT) && has[s];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (__any_sync(FULL, in[s])) {
+        float t;
+        const bool hit = pg_plucker_depth(c, o[s], d[s], tmax[s], &t);
+        pg_take(in[s] && hit && c[25] >= 0.0f, t, c[25], &bt[s], &bid[s]);
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) best[(warp * SLOTS + s) * 32 + lane] = make_float2(bt[s], bid[s]);
+}
+
+template <bool PLK, bool ANY_HIT, int S>
+__device__ __forceinline__ void run_slots(const float4* rec, int n_tri, const int* live,
+                                          int n_live, const float* pd, int64_t P, int64_t base,
+                                          float2* best) {
+  if constexpr (PLK) {
+    plk_slots<S, ANY_HIT>(rec, n_tri, live, n_live, pd, P, base, best);
+  } else {
+    mt_slots<S>(rec, n_tri, live, n_live, pd, P, base, best);
+  }
+}
+
+// One CTA of 4 warps per tile, for both tests: PLK selects the table
+// (tri_cols and tri_rows, or tri_rows alone), the record and the slot loop.
+template <bool PLK, bool ANY_HIT>
 __global__ void __launch_bounds__(PAIR_TILE)
-pair_mt_kernel(const float* __restrict__ tri_rows, int n_blocks,
-               const int* __restrict__ tile_block, const float* __restrict__ pd,
-               float* __restrict__ out, int64_t P) {
-  __shared__ float4 rec[3 * LEAF];      // per triangle: p0 e1 e2 id, 2 floats of padding
+pair_kernel(const float* __restrict__ table, const float* __restrict__ tri_rows, int n_blocks,
+            const int* __restrict__ tile_block, const float* __restrict__ pd,
+            float* __restrict__ out, int64_t P) {
+  constexpr int R = PLK ? 7 : 3;        // float4 words of a triangle's record
+  __shared__ float4 rec[R * LEAF];      // MT: p0 e1 e2 id, 2 floats of padding; PLK: pg_plk_record
   __shared__ int live[PAIR_TILE];       // the tile's live pairs, in order
-  __shared__ float2 best[MT_WARPS * MT_SLOTS * 32];  // each warp's best (t, id) per pair
-  __shared__ int s_live[MT_WARPS], s_last[MT_WARPS];
+  __shared__ float2 best[WARPS * SLOTS * 32];  // each warp's best (t, id) per pair
+  __shared__ int s_live[WARPS], s_last[WARPS];
   const int i = threadIdx.x, lane = i & 31, warp = i >> 5;
   const int64_t base = (int64_t)blockIdx.x * PAIR_TILE;
   const int blk = tile_block[blockIdx.x];
@@ -149,13 +227,21 @@ pair_mt_kernel(const float* __restrict__ tri_rows, int n_blocks,
   }
   // thread i: pair i's liveness and triangle i's record
   const bool is_live = pd[6 * P + base + i] > PG_EPS_T;
-  const unsigned m = __ballot_sync(0xffffffffu, is_live);
-  const float* src = tri_rows + (int64_t)min(blk, n_blocks - 1) * 10 * LEAF + i;
-  float* r = reinterpret_cast<float*>(rec) + 12 * i;
+  const unsigned m = __ballot_sync(FULL, is_live);
+  const int64_t b = min(blk, n_blocks - 1);
+  float r[4 * R];
+  if constexpr (PLK) {
+    pg_plk_record(table + b * 16 * PLK_COLS, tri_rows + b * 10 * LEAF, i, r);
+  } else {
 #pragma unroll
-  for (int c = 0; c < 10; ++c) r[c] = src[c * LEAF];
+    for (int c = 0; c < 10; ++c) r[c] = tri_rows[(b * 10 + c) * LEAF + i];
+    r[10] = r[11] = 0.0f;
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) rec[R * i + q] = make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2],
+                                                           r[4 * q + 3]);
   // one past the last real triangle (padding sits at a block's tail)
-  const int last = __reduce_max_sync(0xffffffffu, src[9 * LEAF] >= 0.0f ? i + 1 : 0);
+  const int last = __reduce_max_sync(FULL, r[PLK ? 25 : 9] >= 0.0f ? i + 1 : 0);
   if (lane == 0) {
     s_live[warp] = __popc(m);
     s_last[warp] = last;
@@ -163,7 +249,7 @@ pair_mt_kernel(const float* __restrict__ tri_rows, int n_blocks,
   __syncthreads();
   int n_live = 0, before = 0, n_tri = 0;
 #pragma unroll
-  for (int w = 0; w < MT_WARPS; ++w) {
+  for (int w = 0; w < WARPS; ++w) {
     before += w < warp ? s_live[w] : 0;
     n_live += s_live[w];
     n_tri = max(n_tri, s_last[w]);
@@ -177,10 +263,10 @@ pair_mt_kernel(const float* __restrict__ tri_rows, int n_blocks,
   if (n_live == 0) return;  // uniform over the CTA
   __syncthreads();
   switch ((n_live + 31) / 32) {
-    case 1: mt_slots<1>(rec, n_tri, live, n_live, pd, P, base, best); break;
-    case 2: mt_slots<2>(rec, n_tri, live, n_live, pd, P, base, best); break;
-    case 3: mt_slots<3>(rec, n_tri, live, n_live, pd, P, base, best); break;
-    default: mt_slots<4>(rec, n_tri, live, n_live, pd, P, base, best); break;
+    case 1: run_slots<PLK, ANY_HIT, 1>(rec, n_tri, live, n_live, pd, P, base, best); break;
+    case 2: run_slots<PLK, ANY_HIT, 2>(rec, n_tri, live, n_live, pd, P, base, best); break;
+    case 3: run_slots<PLK, ANY_HIT, 3>(rec, n_tri, live, n_live, pd, P, base, best); break;
+    default: run_slots<PLK, ANY_HIT, 4>(rec, n_tri, live, n_live, pd, P, base, best); break;
   }
   __syncthreads();
   // thread i merges live pair i over the warps' shares (an order-free
@@ -188,52 +274,12 @@ pair_mt_kernel(const float* __restrict__ tri_rows, int n_blocks,
   if (i < n_live) {
     float bt = INF_T, bid = NO_ID;
 #pragma unroll
-    for (int w = 0; w < MT_WARPS; ++w) {
-      const float2 c = best[(w * MT_SLOTS + (i >> 5)) * 32 + (i & 31)];
+    for (int w = 0; w < WARPS; ++w) {
+      const float2 c = best[(w * SLOTS + (i >> 5)) * 32 + (i & 31)];
       pg_take(true, c.x, c.y, &bt, &bid);
     }
     pg_pair_out<ANY_HIT>(out, P, base + live[i], bt, bid);
   }
-}
-
-template <bool ANY_HIT>
-__global__ void __launch_bounds__(PAIR_TILE)
-pair_plk_kernel(const float* __restrict__ tri_cols, const float* __restrict__ tri_rows,
-                int n_blocks, const int* __restrict__ tile_block,
-                const float* __restrict__ pd, float* __restrict__ out, int64_t P) {
-  // per triangle: 25 coefficients in pg_plucker_hit's order, then its id
-  __shared__ float c[LEAF][26];
-  const int j = threadIdx.x;
-  const int64_t p = (int64_t)blockIdx.x * PAIR_TILE + j;
-  const int blk = tile_block[blockIdx.x];
-  if (blk < 0) {
-    pg_pair_out<ANY_HIT>(out, P, p, INF_T, NO_ID);
-    return;
-  }
-  const int64_t b = min(blk, n_blocks - 1);
-  const float* cols = tri_cols + b * 16 * PLK_COLS;  // (16, 5*128): row f, group g, tri j
-#pragma unroll
-  for (int g = 0; g < 3; ++g)
-#pragma unroll
-    for (int f = 0; f < 6; ++f) c[j][6 * g + f] = cols[f * PLK_COLS + g * LEAF + j];
-#pragma unroll
-  for (int f = 0; f < 4; ++f) c[j][18 + f] = cols[(6 + f) * PLK_COLS + 3 * LEAF + j];
-#pragma unroll
-  for (int f = 0; f < 3; ++f) c[j][22 + f] = cols[f * PLK_COLS + 4 * LEAF + j];
-  c[j][25] = tri_rows[(b * 10 + 9) * LEAF + j];
-  __syncthreads();
-  const float o[3] = {pd[p], pd[P + p], pd[2 * P + p]};
-  const float d[3] = {pd[3 * P + p], pd[4 * P + p], pd[5 * P + p]};
-  const float tmax = pd[6 * P + p];
-  const float m[3] = {o[1] * d[2] - o[2] * d[1], o[2] * d[0] - o[0] * d[2],
-                      o[0] * d[1] - o[1] * d[0]};
-  float bt = INF_T, bid = NO_ID;
-  for (int k = 0; k < LEAF; ++k) {
-    float t;
-    const bool hit = pg_plucker_hit(&c[k][0], o, d, m, tmax, ANY_HIT, &t);
-    pg_take(hit && c[k][25] >= 0.0f, t, c[k][25], &bt, &bid);
-  }
-  pg_pair_out<ANY_HIT>(out, P, p, bt, bid);
 }
 
 // C entry points: (table, tri_rows, n_blocks, tile_block, n_tiles, pdata
@@ -246,15 +292,9 @@ static int pair_launch(const void* table, const void* tri_rows, int n_blocks,
                        void* stream) {
   if (n_tiles > 0) {
     const int64_t P = (int64_t)n_tiles * PAIR_TILE;
-    if (PLK) {
-      pair_plk_kernel<ANY_HIT><<<n_tiles, PAIR_TILE, 0, (cudaStream_t)stream>>>(
-          (const float*)table, (const float*)tri_rows, n_blocks, (const int*)tile_block,
-          (const float*)pdata, (float*)out, P);
-    } else {
-      pair_mt_kernel<ANY_HIT><<<n_tiles, PAIR_TILE, 0, (cudaStream_t)stream>>>(
-          (const float*)table, n_blocks, (const int*)tile_block, (const float*)pdata,
-          (float*)out, P);
-    }
+    pair_kernel<PLK, ANY_HIT><<<n_tiles, PAIR_TILE, 0, (cudaStream_t)stream>>>(
+        (const float*)table, (const float*)tri_rows, n_blocks, (const int*)tile_block,
+        (const float*)pdata, (float*)out, P);
   }
   return (int)cudaGetLastError();
 }

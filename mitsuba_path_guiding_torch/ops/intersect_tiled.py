@@ -2,11 +2,12 @@
 
 Port of ``mitsuba_path_guiding_tpu/ops/intersect_pallas.py``
 ``intersect_tiled``.  On a CUDA tensor the wrapper launches
-``csrc/intersect_tiled.cu`` (one thread per ray, triangle tiles of 128 in
-shared memory; see the note there), closest-hit or any-hit.  On a CPU
-tensor it takes the plain version: the (T, N) Moeller-Trumbore of
-``accel/traverse.py`` ``intersect_brute`` / ``occluded_brute``, which is the
-same arithmetic in the same order.
+``csrc/intersect_tiled.cu`` (four lanes a ray, each with a quarter of the
+triangles, staged 128 at a time in shared memory; see the note there),
+closest-hit or any-hit.  On a CPU tensor it takes the plain version,
+``tiled_plain``: the (T, N) Moeller-Trumbore of ``accel/traverse.py``
+``intersect_brute`` / ``occluded_brute``, the same arithmetic in the same
+order, with the Pallas kernel's contract on a miss (u = v = 0).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from mitsuba_path_guiding_torch.ops import build
 TRI_TILE = 128
 INF = 3.0e38
 EPS_T = 1e-4
+PLAIN_PAIRS = 1 << 22  # (triangle, ray) tests per step of tiled_plain (bounds memory)
 
 _FN: dict = {}
 
@@ -87,6 +89,41 @@ def any_plain(p0, e1, e2, o, d, tmax):
     return torch.any(hit & (t < tmax[None, :]), dim=0)
 
 
+def tiled_plain(pack, o, d, tmax, n_tri: int, any_hit: bool = False):
+    """Plain version of the tiled kernel, over the first ``n_tri``
+    triangles of ``pack``, in steps of PLAIN_PAIRS tests.  A hit lies below
+    min(tmax, INF), the Pallas kernel's running best before its first
+    tile.  Closest hit: (t, prim, u, v, valid), ties to the lowest id, u
+    and v read from the winning triangle (not summed, so a -0.0 keeps its
+    sign) and 0 on a miss, as the Pallas and the CUDA kernel return them
+    (``closest_plain``, the twin of JAX's ``intersect_brute``, returns
+    triangle 0's there).  With ``any_hit``: the (N,) occlusion mask."""
+    p0 = pack[0:3, :n_tri].T
+    e1 = pack[3:6, :n_tri].T
+    e2 = pack[6:9, :n_tri].T
+    n = o.shape[0]
+    step = max(1, PLAIN_PAIRS // n_tri)
+    iota = torch.arange(n_tri, dtype=torch.int32, device=o.device)[:, None]
+    parts = []
+    for a in range(0, max(n, 1), step):
+        t, u, v, hit = mt_components(p0, e1, e2, o[a:a + step], d[a:a + step])
+        hit = hit & (t < torch.clamp_max(tmax[a:a + step], INF)[None, :])
+        if any_hit:
+            parts.append(torch.any(hit, dim=0))
+            continue
+        t = torch.where(hit, t, INF)
+        bt = torch.min(t, dim=0).values
+        valid = bt < INF
+        prim = torch.min(torch.where(t == bt[None, :], iota, n_tri), dim=0).values
+        win = prim.clamp_max(n_tri - 1).long()[None, :]
+        bu = torch.where(valid, torch.gather(u, 0, win)[0], 0.0)
+        bv = torch.where(valid, torch.gather(v, 0, win)[0], 0.0)
+        parts.append((bt, torch.where(valid, prim, -1).to(torch.int32), bu, bv, valid))
+    if any_hit:
+        return torch.cat(parts)
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
 def _kernel_fn(any_hit: bool):
     key = "any" if any_hit else "closest"
     f = _FN.get(key)
@@ -143,9 +180,4 @@ def intersect_tiled(pack, o, d, tmax, n_tri: int, any_hit: bool = False):
     ``n_tri`` triangles of ``pack``."""
     if pack.is_cuda:
         return intersect_tiled_cuda(pack, o, d, tmax, n_tri, any_hit)
-    p0 = pack[0:3, :n_tri].T
-    e1 = pack[3:6, :n_tri].T
-    e2 = pack[6:9, :n_tri].T
-    if any_hit:
-        return any_plain(p0, e1, e2, o, d, tmax)
-    return closest_plain(p0, e1, e2, o, d, tmax)
+    return tiled_plain(pack, o, d, tmax, n_tri, any_hit)

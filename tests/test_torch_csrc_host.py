@@ -2,8 +2,10 @@
 compiled for the host with g++ behind csrc/host_shim.cpp, against the plain
 PyTorch versions: threefry-13, the bits-to-unit map, the Pluecker test with
 its packed-key winner, the exact Moeller-Trumbore re-evaluation, the
-dense Moeller-Trumbore closest hit and the BVH kernel's walk over the
-packed tree.  Skips where g++ is missing."""
+dense Moeller-Trumbore closest hit, the BVH kernel's walk over the
+packed tree, and the splits of the tiled and the Pluecker pair-tile
+kernels (their records, lanes or warps, two-stage tests and merge order).
+Skips where g++ is missing."""
 import ctypes
 import os
 import shutil
@@ -16,10 +18,15 @@ import torch
 from mitsuba_path_guiding_torch.core import rng as trng
 from mitsuba_path_guiding_torch.models.sensor import generate_rays
 from mitsuba_path_guiding_torch.ops import fused_path as tfused
+from mitsuba_path_guiding_torch.ops import intersect_pairs as tpairs
 from mitsuba_path_guiding_torch.ops.intersect_bvh import bvh_plain
-from mitsuba_path_guiding_torch.ops.intersect_tiled import closest_plain
+from mitsuba_path_guiding_torch.ops.intersect_tiled import (
+    closest_plain,
+    intersect_tiled,
+    pack_triangles,
+)
 from mitsuba_path_guiding_torch.scene.builder import build_scene
-from mitsuba_path_guiding_torch.scene.scenes import cornell_box, door_room
+from mitsuba_path_guiding_torch.scene.scenes import cornell_box, door_room, veach_mis
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "mitsuba_path_guiding_torch", "csrc")
@@ -276,3 +283,89 @@ def test_bvh_walk_matches_plain(lib, bvh_scenes, name, any_hit, label):
     for a, b in ((t, wt), (u, wu), (v, wv)):
         np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
     np.testing.assert_array_equal(counts, wc)
+
+
+@pytest.fixture(scope="module")
+def tiled_sets():
+    """The Cornell box and veach_mis (3850 triangles), each with camera
+    rays of a 48x32 image and as many random rays from points of the
+    scene's box (a third each with an unbounded, a short and a -1 tmax)."""
+    out = {}
+    for name, desc in (("cornell", cornell_box()), ("veach_mis", veach_mis())):
+        scene = build_scene(desc, device="cpu")
+        w, h = 48, 32
+        pix = torch.arange(w * h)
+        keys = trng.ray_keys(trng.base_key(5), pix, torch.zeros_like(pix))
+        o_c, d_c, _ = generate_rays(scene.sensor, w, h, pix,
+                                    trng.event_uniform(keys, trng.TAG_CAMERA, 2))
+        rs = np.random.default_rng(12)
+        lo, hi = scene.aabb_min.numpy(), scene.aabb_max.numpy()
+        o_r = (lo + (hi - lo) * rs.random((w * h, 3))).astype(np.float32)
+        d_r = rs.normal(size=(w * h, 3)).astype(np.float32)
+        d_r /= np.linalg.norm(d_r, axis=-1, keepdims=True)
+        sel = rs.integers(0, 3, w * h)
+        t_r = np.where(sel == 0, 3.0e37, np.where(sel == 1, 4.0 * rs.random(w * h), -1.0))
+        o = np.concatenate([o_c.numpy(), o_r]).astype(np.float32)
+        d = np.concatenate([d_c.numpy(), d_r]).astype(np.float32)
+        tmax = np.concatenate([np.full(w * h, 3.0e38), t_r]).astype(np.float32)
+        out[name] = (scene, o, d, tmax)
+    return out
+
+
+@pytest.mark.parametrize("name,n_tri", [("cornell", 36), ("veach_mis", 1), ("veach_mis", 127),
+                                        ("veach_mis", 128), ("veach_mis", 129),
+                                        ("veach_mis", 3850)])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_tiled_lanes_match_plain(lib, tiled_sets, name, n_tri, any_hit):
+    """intersect_tiled.cu's split (records, four lanes a ray, two-stage
+    tests, the butterfly merge by pg_nearer) gives intersect_tiled's plain
+    version's t, prim, u, v bits on every lane (u = v = 0 on a miss), and
+    its occlusion."""
+    scene, o, d, tmax = tiled_sets[name]
+    g = scene.geo
+    pack = pack_triangles(g.p0[:n_tri], g.e1[:n_tri], g.e2[:n_tri]).numpy()
+    n = o.shape[0]
+    t, u, v = (np.zeros(n, np.float32) for _ in range(3))
+    prim = np.zeros(n, np.int32)
+    hit = np.zeros(n, np.uint8)
+    lib.host_tiled_lanes(_p(pack), ctypes.c_int(pack.shape[1]), ctypes.c_int(n_tri), _p(o),
+                         _p(d), _p(tmax), ctypes.c_int(n), ctypes.c_int(int(any_hit)), _p(t),
+                         _p(prim), _p(u), _p(v), _p(hit))
+    want = intersect_tiled(torch.from_numpy(pack), torch.from_numpy(o), torch.from_numpy(d),
+                           torch.from_numpy(tmax), n_tri, any_hit)
+    if any_hit:
+        np.testing.assert_array_equal(hit.astype(bool), want.numpy())
+        return
+    wt, wp, wu, wv, valid = (x.numpy() for x in want)
+    np.testing.assert_array_equal(prim, wp)
+    for a, b in ((t, wt), (u, wu), (v, wv)):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+    assert (u[~valid] == 0).all() and (v[~valid] == 0).all()
+    if n_tri in (36, 3850):
+        assert 0.2 < valid.mean() < 0.9
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("label", ["camera", "random"])
+def test_plk_tiles_match_plain(lib, bvh_scenes, any_hit, label):
+    """intersect_pairs.cu's Pluecker tiles (records from tri_cols, four
+    warps' shares, two-stage tests, the merge by pg_nearer) give
+    plk_tiles_plain's bits on every pair of door_room(20000)'s sorted pairs,
+    with every fifth pair killed (tmax 0, -1 or EPS_T) so that slots are
+    partly dead."""
+    scene, sets, _ = bvh_scenes["door_room"]
+    o, d, tmax = (torch.from_numpy(x) for x in sets[label])
+    ids, _ = tpairs.build_pair_lists(scene.pairs, o, d, tmax)
+    skeys, spays, _ = tpairs.sorted_pairs(scene.pairs, ids, o.shape[0], 5)
+    pdata, tile_block = tpairs.pair_tiles(skeys, spays, o, d, tmax)
+    k = torch.arange(pdata.shape[1])
+    pdata[6] = torch.where(k % 5 == 0, torch.tensor([0.0, -1.0, 1e-4])[k % 3], pdata[6])
+    cols, rows = scene.pairs.tri_cols, scene.pairs.tri_rows
+    want = tpairs.plk_tiles_plain(cols, rows, tile_block, pdata, any_hit).numpy()
+    got = np.zeros_like(want)
+    pd, tb = pdata.contiguous().numpy(), tile_block.numpy()
+    lib.host_plk_tiles(_p(cols.contiguous().numpy()), _p(rows.contiguous().numpy()),
+                       ctypes.c_int(cols.shape[0]), _p(tb), ctypes.c_int(tb.shape[0]), _p(pd),
+                       ctypes.c_int(int(any_hit)), _p(got))
+    assert (tb < 0).any() and (want[0] < tpairs.INF).sum() > 100
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))

@@ -17,9 +17,13 @@ from mitsuba_path_guiding_torch.ops.fused_path import (
     trace_fused_plain,
 )
 from mitsuba_path_guiding_torch.ops.gather import gather_rows_t, gather_rows_t_plain
-from mitsuba_path_guiding_torch.ops.intersect_tiled import intersect_tiled, pack_triangles
+from mitsuba_path_guiding_torch.ops.intersect_tiled import (
+    intersect_tiled,
+    pack_triangles,
+    tiled_plain,
+)
 from mitsuba_path_guiding_torch.scene.builder import build_scene
-from mitsuba_path_guiding_torch.scene.scenes import cornell_box
+from mitsuba_path_guiding_torch.scene.scenes import cornell_box, veach_mis
 
 pytestmark = pytest.mark.cuda
 
@@ -82,22 +86,40 @@ def test_gather_rows_t_rejects_what_it_does_not_take(card):
                       torch.zeros((2, 8), dtype=torch.int32, device="cuda"))
 
 
-def test_intersect_tiled_matches_plain(card):
-    scene = card
-    geo = scene.geo
-    pack = pack_triangles(geo.p0, geo.e1, geo.e2)
-    o, d, tmax, _ = _rays(scene, 200_000, 1)
-    t, prim, u, v, valid = intersect_tiled(pack, o, d, tmax, geo.p0.shape[0])
-    ref = intersect_brute(geo, o, d, tmax)
-    occ = intersect_tiled(pack, o, d, tmax, geo.p0.shape[0], any_hit=True)
-    torch.cuda.synchronize()
-    same = prim == ref.prim
-    assert same.float().mean() >= 0.9999
-    both = same & valid
-    for a, b in ((t, ref.t), (u, ref.u), (v, ref.v)):
-        assert torch.allclose(a[both], b[both], rtol=1e-5, atol=1e-6)
-    assert (occ == occluded_brute(geo, o, d, tmax)).float().mean() >= 0.9999
-    assert not valid[tmax < 0].any() and not occ[tmax < 0].any()
+@pytest.fixture(scope="module")
+def veach(card):
+    return build_scene(veach_mis(), device="cuda")
+
+
+def test_intersect_tiled_matches_plain(card, veach):
+    """The kernel against tiled_plain, bit for bit on every lane: t, prim,
+    u, v and valid of closest hit, and the any-hit flags.  The Cornell box
+    (36 triangles) and the first 1, 127, 128, 129 and all 3850 triangles
+    of veach_mis (one tile, a full tile, one over, 31 tiles), each on
+    100003 random rays (not a multiple of the CTA's 32 rays) from points
+    of the scene's box, a third of them dead (tmax -1)."""
+    for scene, n_tri in ((card, 36), (veach, 1), (veach, 127), (veach, 128), (veach, 129),
+                         (veach, 3850)):
+        geo = scene.geo
+        pack = pack_triangles(geo.p0[:n_tri], geo.e1[:n_tri], geo.e2[:n_tri])
+        o, d, tmax, _ = _rays(scene, 100_003, 1)
+        before = build.LAUNCHES["intersect_tiled"]
+        got = intersect_tiled(pack, o, d, tmax, n_tri)
+        occ = intersect_tiled(pack, o, d, tmax, n_tri, any_hit=True)
+        want = tiled_plain(pack, o, d, tmax, n_tri)
+        occ_want = tiled_plain(pack, o, d, tmax, n_tri, any_hit=True)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["intersect_tiled"] == before + 2
+        for name, a, b in zip(("t", "prim", "u", "v", "valid"), got, want):
+            same = a.view(torch.int32) == b.view(torch.int32) if a.is_floating_point() else a == b
+            lanes = torch.nonzero(~same).flatten()[:8].tolist()
+            assert bool(same.all()), f"{n_tri} triangles: {name} differs on lanes {lanes}"
+        assert torch.equal(occ, occ_want), f"{n_tri} triangles: any-hit flags differ"
+        valid = got[4]
+        assert not valid[tmax < 0].any() and not occ[tmax < 0].any()
+        assert bool((got[2][~valid] == 0).all() and (got[3][~valid] == 0).all())
+        if n_tri in (36, 3850):
+            assert valid.float().mean() > 0.1 and torch.equal(occ, valid)
 
 
 @pytest.mark.parametrize("guided", [False, True])

@@ -99,6 +99,28 @@ def test_closest_hit_matches_pallas_interpret(cornell_rays, route):
     np.testing.assert_array_equal(hit.valid.numpy(), prim >= 0)
 
 
+def test_tiled_miss_lanes_match_pallas_interpret(cornell_rays):
+    """Every lane, hit or miss: the port's tiled intersector on the CPU
+    gives the Pallas kernel's valid, and on a miss its t = INF, prim = -1
+    and u = v = 0 (closest_plain, JAX's intersect_brute's twin, keeps
+    triangle 0's u and v there).  Hits keep the tolerances of
+    test_closest_hit_matches_pallas_interpret."""
+    jscene, scene, o, d, tmax = cornell_rays
+    t_j, prim_j, u_j, v_j, valid_j = _jax_tiled(jscene, o, d, tmax)
+    hit = intersect_pallas(scene.geo, torch.from_numpy(o), torch.from_numpy(d),
+                           torch.from_numpy(tmax))
+    t, prim, u, v, valid = (x.numpy() for x in hit)
+    np.testing.assert_array_equal(valid, valid_j)
+    miss = ~valid
+    assert miss.sum() > 1000
+    for got, want in ((t, t_j), (prim, prim_j), (u, u_j), (v, v_j)):
+        np.testing.assert_array_equal(got[miss], want[miss])
+    assert (u[miss] == 0).all() and (v[miss] == 0).all()
+    both = (prim == prim_j) & valid
+    np.testing.assert_allclose(u[both], u_j[both], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(v[both], v_j[both], rtol=1e-5, atol=1e-6)
+
+
 def test_closest_hit_matches_jax_brute(cornell_rays):
     jscene, scene, o, d, tmax = cornell_rays
     ref = jtraverse.intersect_brute(jscene.geo, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax))

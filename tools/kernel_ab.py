@@ -3,6 +3,8 @@
 source, in one process on one NVIDIA card.
 
   python3 tools/kernel_ab.py --kernel pairs_mt OLD/csrc/intersect_pairs.cu
+  python3 tools/kernel_ab.py --kernel pairs_plk OLD/csrc/intersect_pairs.cu
+  python3 tools/kernel_ab.py --kernel intersect_tiled OLD/csrc/intersect_tiled.cu
   python3 tools/kernel_ab.py --kernel trace_fused OLD/csrc/fused_path.cu
   python3 tools/kernel_ab.py --kernel gather_rows_t OLD/csrc/gather_rows.cu
   python3 tools/kernel_ab.py --kernel intersect_bvh OLD/csrc/intersect_bvh.cu
@@ -13,13 +15,22 @@ into a directory that .gitignore lists.  It is built with the port's nvcc
 flags and bound in place of the current kernel's C entry points for the
 "old" turns.
 
-  - pairs_mt, on door_room() (244838 triangles, 512x512): the sorted pairs
-    of chip_smoke's timed camera wave (the second 131072-ray wave) and of
-    a first bounce of that wave, closest hit and any-hit: the two
-    versions' outputs torch.equal, then CUDA-event medians of 7 in turns
-    old, new, new, old; then the guided door_room render through the pair
-    route (160 MT launches), old, new, new, old, with the MT kernel's time
-    summed over its launches (CUDA events around every launch).
+  - pairs_mt and pairs_plk, on door_room() (244838 triangles, 512x512):
+    the sorted pairs of chip_smoke's timed camera wave (the second
+    131072-ray wave) and of a first bounce of that wave, closest hit and
+    any-hit, through the MT or the Pluecker tiles: the two versions'
+    outputs torch.equal, then CUDA-event medians of 7 in turns old, new,
+    new, old, with the L2 warm and again evicted before each call
+    (tri_cols is 78 MB); then the guided door_room render through the pair
+    route with that engine (160 tile launches), old, new, new, old, with
+    the tile kernel's time summed over its launches (CUDA events around
+    every launch).
+  - intersect_tiled, on cornell_box() (36 triangles) and veach_mis() (3850):
+    chip_smoke's timed wave of 65536 camera rays, closest hit and any-hit:
+    t, prim, u, v, valid and the any-hit flags equal, then medians of 7,
+    old, new, new, old, and the kernel's own card time from torch.profiler
+    in the same turns (``profiled_ms``: cuda_ms's times of a kernel this
+    short hold about 4 us of start event and launch).
   - trace_fused, on cornell_box() with the grid of chip_smoke's guided
     progressive render: the 524288-lane frozen wave of chip_smoke's timings,
     guided and unguided: rows 0:16 torch.equal on every lane, then medians
@@ -40,10 +51,7 @@ flags and bound in place of the current kernel's C entry points for the
     call (the packed tree is 16.4 MB); then the unguided BVH render of chip_smoke (40
     launches), old, new, new, old, with the kernel's time summed over its
     launches twice: CUDA events around each launch in the render (the
-    host's enqueue included) and each launch replayed alone (cuda_ms).  OLD
-    may read the flat tree (node_min, node_max, child0, child1, prim_idx,
-    p0, e1, e2, as before the packed layout) or the packed one (it exports
-    ``bvh_record_words``); both versions run through the same call.
+    host's enqueue included) and each launch replayed alone (cuda_ms).
 
 The fused kernel keeps its ray counter in a __device__ variable of its own
 library and zeroes it in its C entry point, so both versions take the
@@ -68,6 +76,8 @@ def bind_old(build, source, name, entries):
     target = os.path.join(build.BUILD_DIR, f"lib{name}_old.so")
     proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", target, source],
                           capture_output=True, text=True)
+    with open(target[:-3] + ".log", "w") as f:  # the ptxas report, as build.py keeps it
+        f.write(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(target)
@@ -91,6 +101,23 @@ def in_turns(cs, fn, versions, fns, cold=False):
     return times
 
 
+def profiled_ms(fn, kernel, reps=20):
+    """The card time of the kernels named ``kernel`` per call of fn, from
+    torch.profiler (CUPTI): the kernel alone, without the start event and
+    launch that cuda_ms's times hold (about 4 us on an H100)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
+    return us / reps / 1e3
+
+
 def both(versions, fns, fn):
     """fn()'s result under each version: {"old": ..., "new": ...}."""
     out = {}
@@ -101,16 +128,19 @@ def both(versions, fns, fn):
     return out
 
 
-def ab_pairs_mt(cs, build, source):
+def ab_pairs(cs, build, source, engine):
     import torch
 
+    from mitsuba_path_guiding_torch.integrators import path
     from mitsuba_path_guiding_torch.ops import intersect_pairs as ip
     from mitsuba_path_guiding_torch.scene.builder import build_scene
     from mitsuba_path_guiding_torch.scene.scenes import door_room
 
-    new = {f"pair_mt_{k}": ip._kernel_fn("mt", k == "any") for k in ("closest", "any")}
+    new = {f"pair_{engine}_{k}": ip._kernel_fn(engine, k == "any") for k in ("closest", "any")}
     versions = {"new": new, "old": bind_old(build, source, "intersect_pairs", new)}
+    kern = ip.mt_tiles if engine == "mt" else ip.plk_tiles
     door = build_scene(door_room(), device="cuda")
+    tabs = (door.pairs.tri_rows,) if engine == "mt" else (door.pairs.tri_cols, door.pairs.tri_rows)
     o, d, _ = cs.camera_rays(door, 1, 9, w=cs.DOOR_W, h=cs.DOOR_H)
     o, d = o[cs.DOOR_WAVE:2 * cs.DOOR_WAVE], d[cs.DOOR_WAVE:2 * cs.DOOR_WAVE]
     tmax = torch.full((cs.DOOR_WAVE,), 3.0e37, device=o.device)
@@ -120,24 +150,77 @@ def ab_pairs_mt(cs, build, source):
         work = cs.mt_tile_work(door.pairs, pdata, tile_block)
         for any_hit in (False, True):
             def call():
-                return ip.mt_tiles(door.pairs.tri_rows, tile_block, pdata, any_hit)
+                return kern(*tabs, tile_block, pdata, any_hit)
             outs = both(versions, ip._FN, call)
             torch.cuda.synchronize()
             cs.check(torch.equal(outs["old"].view(torch.int32), outs["new"].view(torch.int32)),
-                     f"{label} any_hit={any_hit}: old and new MT kernels differ")
+                     f"{label} any_hit={any_hit}: old and new {engine} kernels differ")
             times = in_turns(cs, call, versions, ip._FN)
-            cs.emit({"call": label, "any_hit": any_hit, "pairs": pdata.shape[1],
-                     "live_tiles": int((tile_block >= 0).sum()), **work,
-                     "tests_run_before": int((tile_block >= 0).sum()) * ip.TILE * ip.LEAF,
+            cold = in_turns(cs, call, versions, ip._FN, cold=True)
+            cs.emit({"call": label, "engine": engine, "any_hit": any_hit,
+                     "pairs": pdata.shape[1], "live_tiles": int((tile_block >= 0).sum()), **work,
                      "equal": True, "old_ms": times["old"], "new_ms": times["new"],
-                     "speedup": statistics.mean(times["old"]) / statistics.mean(times["new"])})
-    for v in ("old", "new", "new", "old"):
-        ip._FN.update(versions[v])
-        rec, t = cs.mt_kernel_time(
-            lambda: cs.phase_door_progressive(door, cs.DOOR_SPP, "door_room_progressive"))
-        cs.emit({"render": "pair", "version": v, "seconds": rec["seconds"],
-                 "mrays_per_s": rec["mrays_per_s"], "mean": rec["mean"], **t})
-    ip._FN.update(versions["new"])
+                     "old_ms_l2_cold": cold["old"], "new_ms_l2_cold": cold["new"],
+                     "speedup": statistics.mean(times["old"]) / statistics.mean(times["new"]),
+                     "speedup_l2_cold": statistics.mean(cold["old"])
+                     / statistics.mean(cold["new"])})
+    engine_before = path.PAIR_ENGINE
+    path.PAIR_ENGINE = engine
+    try:
+        for v in ("old", "new", "new", "old"):
+            ip._FN.update(versions[v])
+            rec, t = cs.kernel_time(
+                lambda: cs.phase_door_progressive(door, cs.DOOR_SPP, "door_room_progressive"),
+                ip, f"{engine}_tiles")
+            cs.emit({"render": "pair", "engine": engine, "version": v,
+                     "seconds": rec["seconds"], "mrays_per_s": rec["mrays_per_s"],
+                     "mean": rec["mean"], **t})
+    finally:
+        path.PAIR_ENGINE = engine_before
+        ip._FN.update(versions["new"])
+
+
+def ab_intersect_tiled(cs, build, source):
+    import torch
+
+    from mitsuba_path_guiding_torch.ops import intersect_tiled as it
+    from mitsuba_path_guiding_torch.scene.builder import build_scene
+    from mitsuba_path_guiding_torch.scene.scenes import cornell_box, veach_mis
+
+    new = {f"intersect_tiled_{k}": it._kernel_fn(k == "any") for k in ("closest", "any")}
+    old = bind_old(build, source, "intersect_tiled", new)
+    # the wrapper's table holds the entry points under "closest" and "any"
+    versions = {v: {k.rsplit("_", 1)[1]: f for k, f in fns.items()}
+                for v, fns in (("new", new), ("old", old))}
+    for label, desc in (("cornell", cornell_box()), ("veach_mis", veach_mis())):
+        scene = build_scene(desc, device="cuda")
+        g = scene.geo
+        pack = it.pack_triangles(g.p0, g.e1, g.e2)
+        n_tri = g.p0.shape[0]
+        o, d, _ = cs.camera_rays(scene, 1, 2000)
+        tmax = torch.full((o.shape[0],), 3.0e37, device=o.device)
+        for any_hit in (False, True):
+            def call():
+                return it.intersect_tiled_cuda(pack, o, d, tmax, n_tri, any_hit)
+            outs = both(versions, it._FN, call)
+            torch.cuda.synchronize()
+            pairs = zip(outs["old"], outs["new"]) if not any_hit else [(outs["old"], outs["new"])]
+            cs.check(all(torch.equal(cs._bits(a), cs._bits(b)) for a, b in pairs),
+                     f"{label} any_hit={any_hit}: old and new tiled kernels differ")
+            times = in_turns(cs, call, versions, it._FN)
+            kernel = {"old": [], "new": []}
+            for v in ("old", "new", "new", "old"):
+                it._FN.update(versions[v])
+                kernel[v].append(profiled_ms(call, "intersect_tiled_kernel"))
+            it._FN.update(versions["new"])
+            hits = outs["new"] if any_hit else outs["new"][4]
+            cs.emit({"call": label, "any_hit": any_hit, "rays": o.shape[0], "triangles": n_tri,
+                     "hit_share": float(hits.float().mean()), "equal": True,
+                     "old_ms": times["old"], "new_ms": times["new"],
+                     "old_kernel_ms": kernel["old"], "new_kernel_ms": kernel["new"],
+                     "speedup": statistics.mean(times["old"]) / statistics.mean(times["new"]),
+                     "kernel_speedup": statistics.mean(kernel["old"])
+                     / statistics.mean(kernel["new"])})
 
 
 def ab_trace_fused(cs, build, source, card):
@@ -233,10 +316,9 @@ def bvh_waves(cs, door):
     return {"camera": (o, d, tmax), "bounce": cs.first_bounce(door, o, d, tmax, 6)}
 
 
-def bvh_entry(build, fns, flat, geo):
+def bvh_entry(build, fns):
     """A call with ``bvh_cuda``'s contract through one version's entry
-    points ({any_hit: function}), which read the flat tree (and geo's
-    triangles) or the packed one."""
+    points ({any_hit: function})."""
     import torch
 
     def call(bvh, o, d, tmax, any_hit=False):
@@ -246,12 +328,8 @@ def bvh_entry(build, fns, flat, geo):
         u, v = torch.empty_like(t), torch.empty_like(t)
         counts = torch.empty((2, n), dtype=torch.int32, device=dev)
         o, d, tmax = o.contiguous(), d.contiguous(), tmax.contiguous()
-        if flat:
-            tree = (bvh.node_min, bvh.node_max, bvh.child0, bvh.child1, bvh.prim_idx)
-            args = (*tree, bvh.prim_idx.shape[0], geo.p0, geo.e1, geo.e2)
-        else:
-            args = (bvh.packed_nodes, bvh.packed_tris, bvh.packed_tris.shape[0])
-        args = (o, d, tmax, n, *args, t, prim, u, v, counts)
+        args = (o, d, tmax, n, bvh.packed_nodes, bvh.packed_tris, bvh.packed_tris.shape[0],
+                t, prim, u, v, counts)
         ptrs = [x if isinstance(x, int) else build.ptr(x) for x in args]
         build.check(fns[any_hit](*ptrs, build.stream_ptr(dev)), "intersect_bvh")
         return t, prim, u, v, counts
@@ -266,18 +344,10 @@ def ab_intersect_bvh(cs, build, source, card):
     from mitsuba_path_guiding_torch.scene.scenes import door_room
 
     new = {f"bvh_{k}": ib._kernel_fn(k == "any") for k in ("closest", "any")}
-    target = os.path.join(build.BUILD_DIR, "libintersect_bvh_old.so")
     old = bind_old(build, source, "intersect_bvh", new)
-    flat = not hasattr(ctypes.CDLL(target), "bvh_record_words")
-    if flat:
-        # (o, d, tmax, n, node_min, node_max, child0, child1, prim_idx,
-        #  n_prim_idx, p0, e1, e2, out t, prim, u, v, counts, stream)
-        for f in old.values():
-            f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 5
-                          + [ctypes.c_int] + [ctypes.c_void_p] * 9)
     door = build_scene(door_room(), device="cuda")
-    calls = {v: bvh_entry(build, {False: fns["bvh_closest"], True: fns["bvh_any"]}, f, door.geo)
-             for v, fns, f in (("new", new, False), ("old", old, flat))}
+    calls = {v: bvh_entry(build, {False: fns["bvh_closest"], True: fns["bvh_any"]})
+             for v, fns in (("new", new), ("old", old))}
     for label, (oo, dd, tt) in bvh_waves(cs, door).items():
         for any_hit in (False, True):
             args = (door.bvh, oo, dd, tt, any_hit)
@@ -338,7 +408,8 @@ def ab_intersect_bvh(cs, build, source, card):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", required=True,
-                    choices=("pairs_mt", "trace_fused", "gather_rows_t", "intersect_bvh"))
+                    choices=("pairs_mt", "pairs_plk", "intersect_tiled", "trace_fused",
+                             "gather_rows_t", "intersect_bvh"))
     ap.add_argument("old_source")
     args = ap.parse_args(argv)
     import torch
@@ -355,8 +426,10 @@ def main(argv=None):
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all()
-    if args.kernel == "pairs_mt":
-        ab_pairs_mt(cs, build, args.old_source)
+    if args.kernel in ("pairs_mt", "pairs_plk"):
+        ab_pairs(cs, build, args.old_source, args.kernel[len("pairs_"):])
+    elif args.kernel == "intersect_tiled":
+        ab_intersect_tiled(cs, build, args.old_source)
     elif args.kernel == "trace_fused":
         ab_trace_fused(cs, build, args.old_source, card)
     elif args.kernel == "gather_rows_t":
