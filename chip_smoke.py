@@ -1337,7 +1337,8 @@ def twolevel_bound(inputs, work):
     """Operations: 23 per (ray, block) gate of every superblock a tile
     walks, 46 per needed triangle test.  Bytes: rays in, results out, the
     mask and order, the boxes and rows of the superblocks some tile walks
-    (an upper estimate of the rows read)."""
+    (an upper estimate of the rows read).  The work also holds the
+    tests-run floor: those gates and every test run, 46 operations each."""
     from mitsuba_path_guiding_torch.ops.intersect_twolevel import RAY_TILE, SB_BLOCKS, SB_TRIS
 
     ray, _, mask, order = inputs
@@ -1347,9 +1348,11 @@ def twolevel_bound(inputs, work):
     n_bytes = (ray.shape[1] * (7 + 4) * 4 + mask.numel() * 4 + order.numel() * 4
                + live_sb * (SB_BLOCKS * 6 * 4 + 10 * SB_TRIS * 4))
     b_ms, b_by = bound(n_bytes, ops)
+    # the same gates and every test the tile-wide OR runs
+    floor_ms = (walked * RAY_TILE * SB_BLOCKS * GATE_OPS + run * MT_OPS) / FP32_OPS_PER_S * 1e3
     return b_ms, b_by, {"superblocks_walked": walked, "blocks_opened": opened,
                         "tests_run": run, "tests_needed": needed, "fp32_ops": ops,
-                        "bytes": n_bytes}
+                        "bytes": n_bytes, "tests_run_floor_ms": floor_ms}
 
 
 def phase_interior():
@@ -1538,8 +1541,10 @@ def phase_new_timings(interior, door_tl, door, launches, card):
             ("interior_bounce", interior["bt"], interior["inputs"]["bounce"]),
             ("door_room_camera", door_tl["bt"], door_tl["inputs"])):
         b_ms, b_by, w = twolevel_bound(inputs, work)
-        calls[name] = {"ms": cuda_ms(lambda: twolevel_cuda(bt, *inputs)), "bound_ms": b_ms,
-                       "bound_by": b_by, "rays": inputs[0].shape[1], "work": w}
+        calls[name] = {"ms": cuda_ms(lambda: twolevel_cuda(bt, *inputs)),
+                       "ms_l2_cold": cuda_ms(lambda: twolevel_cuda(bt, *inputs), cold=True),
+                       "bound_ms": b_ms, "bound_by": b_by, "rays": inputs[0].shape[1],
+                       "work": w}
     main_call = calls["interior_camera"]
     bt, (inputs, _) = interior["bt"], interior["inputs"]["camera"]
     main_call["plain_ms"] = cuda_ms(lambda: twolevel_plain(bt, *inputs), reps=1, warmup=0)
@@ -1565,6 +1570,7 @@ def phase_new_timings(interior, door_tl, door, launches, card):
         "shape": f"interior camera wave: {INTERIOR_RAYS} sorted rays, "
                  f"{interior['bt'].tri_pack.shape[0]} superblocks",
         "work": main_call["work"], "calls": calls, "routes": routes,
+        "ptxas": ptxas_report("intersect_twolevel"),
         "check": "t, prim, u, v and work counts bit-equal on 16 tiles of each wave"}]
 
     # the BVH on one wave of its route: 131072 camera rays, and a first

@@ -5,8 +5,8 @@
 // -ffp-contract=off) and by nvcc (with -fmad=false) gives the same bits.
 // tests/test_torch_csrc_host.py compiles this header on the CPU behind the
 // small C shim csrc/host_shim.cpp and checks it against the plain PyTorch
-// versions in ops/fused_path.py, ops/intersect_tiled.py and
-// ops/intersect_bvh.py.
+// versions in ops/fused_path.py, ops/intersect_tiled.py, ops/intersect_bvh.py
+// and ops/intersect_twolevel.py.
 #pragma once
 
 #include <math.h>
@@ -223,22 +223,69 @@ PG_HD bool pg_mt_test(float p0x, float p0y, float p0z, float e1x, float e1y,
 // 0 <= u <= 1 (a hit has v >= 0 and fl(u + v) <= 1, and fl(u + v) >= u,
 // so it has u <= 1).  pg_mt_vt then gives v and t and pg_mt_test's whole
 // hit condition.  A kernel may skip pg_mt_vt wherever pg_mt_u failed.
+// pg_mt_u is pg_mt_num, the division-free part (det, tvec and u's
+// numerator), then pg_mt_u_of, the division and the range test.
 // ---------------------------------------------------------------------------
-PG_HD bool pg_mt_u(float p0x, float p0y, float p0z, float e1x, float e1y, float e1z,
-                   float e2x, float e2y, float e2z, float ox, float oy, float oz, float dx,
-                   float dy, float dz, float* tv, float* inv_out, float* u_out) {
+PG_HD void pg_mt_num(float p0x, float p0y, float p0z, float e1x, float e1y, float e1z,
+                     float e2x, float e2y, float e2z, float ox, float oy, float oz, float dx,
+                     float dy, float dz, float* tv, float* det, float* num) {
   const float pvx = dy * e2z - dz * e2y;
   const float pvy = dz * e2x - dx * e2z;
   const float pvz = dx * e2y - dy * e2x;
-  const float det = (e1x * pvx + e1y * pvy) + e1z * pvz;
-  const float inv_det = fabsf(det) < 1e-12f ? 0.0f : 1.0f / (det == 0.0f ? 1.0f : det);
+  *det = (e1x * pvx + e1y * pvy) + e1z * pvz;
   tv[0] = ox - p0x;
   tv[1] = oy - p0y;
   tv[2] = oz - p0z;
-  const float u = ((tv[0] * pvx + tv[1] * pvy) + tv[2] * pvz) * inv_det;
+  *num = (tv[0] * pvx + tv[1] * pvy) + tv[2] * pvz;
+}
+
+PG_HD bool pg_mt_u_of(float num, float det, float* inv_out, float* u_out) {
+  const float inv_det = fabsf(det) < 1e-12f ? 0.0f : 1.0f / (det == 0.0f ? 1.0f : det);
+  const float u = num * inv_det;
   *inv_out = inv_det;
   *u_out = u;
   return (inv_det != 0.0f) && (u >= 0.0f) && (u <= 1.0f);
+}
+
+PG_HD bool pg_mt_u(float p0x, float p0y, float p0z, float e1x, float e1y, float e1z,
+                   float e2x, float e2y, float e2z, float ox, float oy, float oz, float dx,
+                   float dy, float dz, float* tv, float* inv_out, float* u_out) {
+  float det, num;
+  pg_mt_num(p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z, ox, oy, oz, dx, dy, dz, tv, &det, &num);
+  return pg_mt_u_of(num, det, inv_out, u_out);
+}
+
+// ---------------------------------------------------------------------------
+// A division-free reject in front of pg_mt_u_of: true only where
+// pg_mt_u_of(num, det) is false, so a kernel may skip the division and
+// everything after it wherever it holds.  It holds where A: fl(num det) < 0
+// and |num| 2^64 >= |det| (the product by 2^64 is exact or +inf), or B:
+// |num| > fl(|det| (1 + 2^-10)) (false where that overflows).  Proof, for
+// every float num, det:
+//   * |det| < 1e-12, det = +-inf or det NaN: inv_det is 0, +-0 or NaN, so
+//     pg_mt_u_of is false whatever this returns.
+//   * Else det is finite with |det| >= 1e-12, and inv_det = fl(1/det) has
+//     det's sign and |inv_det| >= (1/|det|)(1 - 2^-22) (1/|det| >= 2^-128,
+//     so even a subnormal inv_det is within 2^-149 of it).  A NaN num makes
+//     A and B false; num = +-0 makes them false too.
+//   * A: num and det are nonzero with opposite signs, and |num inv_det| >=
+//     2^-64 (1 - 2^-22), far above the 2^-150 below which the product
+//     would round to -0; so u = fl(num inv_det) < 0 (or -inf), and u >= 0
+//     fails.
+//   * B with opposite signs: |num| > |det| makes A hold too (above).  B
+//     with equal signs: |num| / |det| > (1 + 2^-10)(1 - 2^-24), so the
+//     exact product exceeds (1 + 2^-10)(1 - 2^-24)(1 - 2^-22) > 1 + 2^-11,
+//     a float, and u = fl(num inv_det) >= 1 + 2^-11 > 1 (rounding is
+//     monotone), so u <= 1 fails.  (Opposite signs whose product rounds to
+//     -0 need |num det| < 2^-149, which with B gives |det| < 2^-74 < 1e-12,
+//     the first case.)
+// tests/test_torch_csrc_host.py checks it on 10^6 ray-triangle pairs and
+// on the edge cases (|det| at 1e-12, num +-0, u exactly 0 and 1,
+// underflowing products, infinities and NaN).
+// ---------------------------------------------------------------------------
+PG_HD bool pg_mt_surely_out(float num, float det) {
+  const float an = fabsf(num), ad = fabsf(det);
+  return (num * det < 0.0f && an * 18446744073709551616.0f >= ad) || an > ad * 1.0009765625f;
 }
 
 PG_HD bool pg_mt_vt(float e1x, float e1y, float e1z, float e2x, float e2y, float e2z,
@@ -301,6 +348,150 @@ PG_HD void pg_plk_record(const float* cols, const float* rows, int i, float* r) 
   r[26] = r[27] = 0.0f;
 }
 
+// 16-byte words of the records that kernels read from shared or global memory
+#ifdef __CUDACC__
+typedef float4 pg_f4;
+#else
+struct pg_f4 {
+  float x, y, z, w;
+};
+#endif
+
+// ---------------------------------------------------------------------------
+// The tile walk of csrc/intersect_twolevel.cu, per ray (ops/intersect_twolevel.py
+// twolevel_plain; the reference is mitsuba_path_guiding_tpu/ops/
+// intersect_twolevel.py _kernel).
+//   box: a superblock's 64 block boxes, each as 8 floats (2 x 16 bytes):
+//     lo x, y, z, hi x, y, z and two unused words (pg_tl_box_word).
+//   pg_tl_gate: the reference's gate of one ray and block, the box's slab
+//     entry tn (clamped at 0) and exit tf, open when tf >= tn and
+//     tn <= cur, the ray's best t so far.
+//   pg_tl_candidates: the 64 gates of one superblock at one cur, as a bit
+//     mask.  tn and tf do not depend on cur, and cur never grows along the
+//     walk (a block's winner replaces it only when strictly nearer), so a
+//     gate that passes at the current cur passed at the cur the ray had
+//     when the walk entered the superblock: the mask taken there holds
+//     every block whose gate can still pass (a NaN tn fails both).
+//   Records: a block's triangle j as 12 words (3 x 16 bytes), p0, e1, e2,
+//     the original id (-1 for padding) and two unused words; word r < 10
+//     is row r of the superblock's pack (S, 16, 8192) at column 128 k + j
+//     (pg_tl_record_word).
+//   The test of one record runs in three stages, each only where some lane
+//     of the warp passed the one before: pg_tl_num and pg_mt_surely_out
+//     (division-free), pg_mt_u_of, then pg_tl_take (pg_mt_vt and the block
+//     winner's update in pg_nearer order: least t, then least id, over
+//     ascending records).  Together they are pg_mt_test's hit, since
+//     pg_mt_vt's condition implies pg_mt_u's.  A winner keeps t, id and its
+//     record; pg_tl_uv gives its u and v again from the record by the same
+//     operations, so with the same bits, and adds 0, which turns -0 into +0
+//     as the reference's one-hot sums do.
+//   pg_tl_merge: across blocks only a strictly nearer t replaces the best,
+//     which keeps the winner's place in the pack, s 8192 + 128 k + q.
+// ---------------------------------------------------------------------------
+#define PG_TL_BLOCKS 64
+#define PG_TL_TRIS 128
+#define PG_TL_SB_TRIS (PG_TL_BLOCKS * PG_TL_TRIS)
+#define PG_TL_WORDS 10  // words of a record taken from the pack
+
+struct pg_tl_win {
+  float t, id;
+  int q;
+};
+
+// 1 / d with |d| < 1e-12 replaced by +1e-12 (the sign is lost)
+PG_HD float pg_tl_inv(float d) { return 1.0f / (fabsf(d) < 1e-12f ? 1e-12f : d); }
+
+// word e < 384 of a superblock's box staging: its place in the boxes and,
+// for blk_lo (lo) or blk_hi, in that (3, bpad) table
+PG_HD void pg_tl_box_word(int e, int s, int bpad, int* dst, bool* lo, int64_t* src) {
+  const int r = e / PG_TL_BLOCKS, k = e % PG_TL_BLOCKS;
+  *dst = 8 * k + r;
+  *lo = r < 3;
+  *src = (int64_t)(r % 3) * bpad + (int64_t)s * PG_TL_BLOCKS + k;
+}
+
+PG_HD bool pg_tl_gate(const pg_f4* box, int k, const float* o, const float* inv, float cur) {
+  const pg_f4 a = box[2 * k], b = box[2 * k + 1];  // lo x y z, hi x | hi y z - -
+  const float tx0 = (a.x - o[0]) * inv[0], tx1 = (a.w - o[0]) * inv[0];
+  const float ty0 = (a.y - o[1]) * inv[1], ty1 = (b.x - o[1]) * inv[1];
+  const float tz0 = (a.z - o[2]) * inv[2], tz1 = (b.y - o[2]) * inv[2];
+  const float tn = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fmaxf(fminf(tz0, tz1), 0.0f));
+  const float tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+  return tf >= tn && tn <= cur;
+}
+
+PG_HD uint64_t pg_tl_candidates(const pg_f4* box, const float* o, const float* inv, float cur) {
+  uint32_t lo = 0, hi = 0;
+#pragma unroll 1
+  for (int k = 0; k < 32; ++k) {
+    lo |= (uint32_t)pg_tl_gate(box, k, o, inv, cur) << k;
+    hi |= (uint32_t)pg_tl_gate(box, 32 + k, o, inv, cur) << k;
+  }
+  return ((uint64_t)hi << 32) | lo;
+}
+
+// word e < 1280 of block k's staging: its place in the records and in the
+// superblock's pack
+PG_HD void pg_tl_record_word(int e, int k, int* dst, int* src) {
+  const int r = e / PG_TL_TRIS, j = e % PG_TL_TRIS;
+  *dst = 12 * j + r;
+  *src = r * PG_TL_SB_TRIS + k * PG_TL_TRIS + j;
+}
+
+// pg_mt_num of one record (a: p0 e1x, b: e1y e1z e2x e2y, c: e2z id - -)
+PG_HD void pg_tl_num(pg_f4 a, pg_f4 b, pg_f4 c, const float* o, const float* d, float* tv,
+                     float* det, float* num) {
+  pg_mt_num(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, o[0], o[1], o[2], d[0], d[1], d[2], tv,
+            det, num);
+}
+
+PG_HD void pg_tl_take(pg_f4 a, pg_f4 b, pg_f4 c, int q, bool may, const float* d,
+                      const float* tv, float inv_det, float u, pg_tl_win* w) {
+  float t, v;
+  const bool hit = pg_mt_vt(a.w, b.x, b.y, b.z, b.w, c.x, d[0], d[1], d[2], tv, inv_det, u, &t,
+                            &v);
+  if (may && hit && c.y >= 0.0f && pg_nearer(t, c.y, w->t, w->id)) {
+    w->t = t;
+    w->id = c.y;
+    w->q = q;
+  }
+}
+
+PG_HD void pg_tl_uv(pg_f4 a, pg_f4 b, pg_f4 c, const float* o, const float* d, float* u,
+                    float* v) {
+  float tv[3], det, num, inv_det, t;
+  pg_tl_num(a, b, c, o, d, tv, &det, &num);
+  pg_mt_u_of(num, det, &inv_det, u);
+  pg_mt_vt(a.w, b.x, b.y, b.z, b.w, c.x, d[0], d[1], d[2], tv, inv_det, *u, &t, v);
+  *u = *u + 0.0f;
+  *v = *v + 0.0f;
+}
+
+// the record of the triangle at column `col` of a superblock's pack
+// (S, 16, 8192), from device or host memory
+PG_HD void pg_tl_pack_record(const float* pack, int col, pg_f4* a, pg_f4* b, pg_f4* c) {
+  const float* p = pack + col;
+  const int S = PG_TL_SB_TRIS;
+  a->x = p[0];
+  a->y = p[S];
+  a->z = p[2 * S];
+  a->w = p[3 * S];
+  b->x = p[4 * S];
+  b->y = p[5 * S];
+  b->z = p[6 * S];
+  b->w = p[7 * S];
+  c->x = p[8 * S];
+  c->y = p[9 * S];
+  c->z = c->w = 0.0f;
+}
+
+PG_HD void pg_tl_merge(const pg_tl_win* w, int base, float* best_t, int* best_pos) {
+  if (w->t < *best_t) {
+    *best_t = w->t;
+    *best_pos = base + w->q;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The BVH walk of csrc/intersect_bvh.cu for one ray (traverse.py
 // intersect_bvh, with each box tested once, at its parent), over the packed
@@ -315,14 +506,6 @@ PG_HD void pg_plk_record(const float* cols, const float* rows, int i, float* r) 
 //     the original triangle id (int bits, word 9).
 // Integers travel as float bits.
 // ---------------------------------------------------------------------------
-#ifdef __CUDACC__
-typedef float4 pg_f4;
-#else
-struct pg_f4 {
-  float x, y, z, w;
-};
-#endif
-
 PG_HD pg_f4 pg_ld4(const pg_f4* p) {
 #ifdef __CUDA_ARCH__
   return __ldg(p);

@@ -294,6 +294,180 @@ void host_plk_tiles(const float* cols, const float* rows, int n_blocks, const in
   }
 }
 
+// intersect_twolevel.cu's walk of tile `tile`, with the kernel's arguments
+// (mask (nt, S), order (S,), blk_lo / blk_hi (3, bpad), ray (6, npad),
+// tmax (npad,), tri_pack (S, 16, 8192)): per walked superblock the
+// candidates (pg_tl_candidates at each ray's best t on entry, ORed over
+// the tile), then per candidate in ascending order the exact gates
+// (pg_tl_gate at the current best t), ORed; an opened block's records
+// (pg_tl_record_word), its real triangles and the last of them, and per
+// warp of 32 rays (unless every ray's best t is at most EPS_T) the
+// records up to the last real one, each in three stages, the next one
+// only where a lane passed the last (the kernel's warp votes): pg_tl_num
+// and pg_mt_surely_out, pg_mt_u_of, pg_tl_take; then pg_tl_merge, and at
+// the end pg_tl_uv of each ray's winner from the pack.  Writes the tile's
+// columns of out (4, npad) and its row of work (nt, 4); stats[0] += the
+// candidates, stats[1] += the candidates that did not open, stats[2] +=
+// the warps' tests (one a warp and record), stats[3] += those where a lane
+// escaped pg_mt_surely_out, stats[4] += those where a lane passed
+// pg_mt_u_of.
+void host_twolevel_tile(const int* mask, const int* order, int n_sb, const float* blk_lo,
+                        const float* blk_hi, int bpad, const float* ray, const float* tmax,
+                        int npad, const float* tri_pack, int tile, float* out, int64_t* work,
+                        int64_t* stats) {
+  const int R = 512, B = PG_TL_BLOCKS, T = PG_TL_TRIS;
+  std::vector<float> o(3 * R), d(3 * R), inv(3 * R), boxw(8 * B, 0.0f), words(12 * T, 0.0f);
+  const pg_f4* box = (const pg_f4*)boxw.data();
+  std::vector<float> best_t(R);
+  std::vector<int> best_pos(R, -1);
+  std::vector<uint8_t> gate(R);
+  for (int i = 0; i < R; ++i) {
+    const int64_t n = (int64_t)tile * R + i;
+    for (int a = 0; a < 3; ++a) {
+      o[3 * i + a] = ray[a * (int64_t)npad + n];
+      d[3 * i + a] = ray[(3 + a) * (int64_t)npad + n];
+      inv[3 * i + a] = pg_tl_inv(d[3 * i + a]);
+    }
+    best_t[i] = fminf(tmax[n], 3.0e38f);
+  }
+  int64_t walked = 0, opened = 0, needed = 0;
+  for (int si = 0; si < n_sb; ++si) {
+    const int s = order[si];
+    if (mask[(int64_t)tile * n_sb + s] == 0) continue;
+    ++walked;
+    for (int e = 0; e < 6 * B; ++e) {
+      int dst;
+      bool lo;
+      int64_t src;
+      pg_tl_box_word(e, s, bpad, &dst, &lo, &src);
+      boxw[dst] = (lo ? blk_lo : blk_hi)[src];
+    }
+    uint64_t cand = 0;
+    for (int i = 0; i < R; ++i) cand |= pg_tl_candidates(box, &o[3 * i], &inv[3 * i], best_t[i]);
+    const float* pack = tri_pack + (int64_t)s * 16 * PG_TL_SB_TRIS;
+    for (int k = 0; k < B; ++k) {
+      if (!((cand >> k) & 1)) continue;
+      ++stats[0];
+      bool open = false;
+      for (int i = 0; i < R; ++i) {
+        gate[i] = pg_tl_gate(box, k, &o[3 * i], &inv[3 * i], best_t[i]);
+        open = open || gate[i];
+      }
+      if (!open) {
+        ++stats[1];
+        continue;
+      }
+      ++opened;
+      for (int e = 0; e < PG_TL_WORDS * T; ++e) {
+        int dst, src;
+        pg_tl_record_word(e, k, &dst, &src);
+        words[dst] = pack[src];
+      }
+      const pg_f4* rec = (const pg_f4*)words.data();
+      int tris = 0, last = 0;
+      for (int j = 0; j < T; ++j) {
+        if (words[12 * j + 9] >= 0.0f) {
+          ++tris;
+          last = j + 1;
+        }
+      }
+      for (int i = 0; i < R; ++i) {
+        if (gate[i] && best_t[i] > PG_EPS_T) needed += tris;
+      }
+      for (int w = 0; w < R / 32; ++w) {
+        bool live = false;
+        for (int l = 0; l < 32; ++l) live = live || best_t[32 * w + l] > PG_EPS_T;
+        if (!live) continue;
+        pg_tl_win win[32];
+        for (int l = 0; l < 32; ++l) win[l] = {3.0e38f, 2.0e9f, 0};
+        for (int q = 0; q < last; ++q) {
+          const pg_f4 a = rec[3 * q], b = rec[3 * q + 1], c = rec[3 * q + 2];
+          float tv[32][3], det[32], num[32], inv_det[32], u[32];
+          bool may[32], in = false, any = false;
+          for (int l = 0; l < 32; ++l) {
+            const int i = 32 * w + l;
+            pg_tl_num(a, b, c, &o[3 * i], &d[3 * i], tv[l], &det[l], &num[l]);
+            in = in || !pg_mt_surely_out(num[l], det[l]);
+          }
+          ++stats[2];
+          if (!in) continue;
+          ++stats[3];
+          for (int l = 0; l < 32; ++l) {
+            may[l] = pg_mt_u_of(num[l], det[l], &inv_det[l], &u[l]);
+            any = any || may[l];
+          }
+          if (!any) continue;
+          ++stats[4];
+          for (int l = 0; l < 32; ++l) {
+            pg_tl_take(a, b, c, q, may[l], &d[3 * (32 * w + l)], tv[l], inv_det[l], u[l],
+                       &win[l]);
+          }
+        }
+        for (int l = 0; l < 32; ++l) {
+          const int i = 32 * w + l;
+          pg_tl_merge(&win[l], s * PG_TL_SB_TRIS + k * T, &best_t[i], &best_pos[i]);
+        }
+      }
+    }
+  }
+  for (int i = 0; i < R; ++i) {
+    const int64_t n = (int64_t)tile * R + i;
+    float prim = -1.0f, u = 0.0f, v = 0.0f;
+    if (best_pos[i] >= 0) {
+      pg_f4 a, b, c;
+      pg_tl_pack_record(tri_pack + (int64_t)(best_pos[i] / PG_TL_SB_TRIS) * 16 * PG_TL_SB_TRIS,
+                        best_pos[i] % PG_TL_SB_TRIS, &a, &b, &c);
+      pg_tl_uv(a, b, c, &o[3 * i], &d[3 * i], &u, &v);
+      prim = c.y;
+    }
+    out[n] = best_t[i];
+    out[npad + n] = prim;
+    out[2 * (int64_t)npad + n] = u;
+    out[3 * (int64_t)npad + n] = v;
+  }
+  work[4 * tile] = walked;
+  work[4 * tile + 1] = opened;
+  work[4 * tile + 2] = opened * R * T;
+  work[4 * tile + 3] = needed;
+}
+
+// pg_mt_surely_out against pg_mt_u_of on n (num, det) pairs: reject[i],
+// may[i]; and, where tri != nullptr, on every pair of n_tri triangles (9
+// floats) and n rays through pg_mt_num: counts[0] += pairs, counts[1] +=
+// rejected, counts[2] += pg_mt_u accepts, counts[3] += rejected pairs that
+// pg_mt_u accepts (must stay 0), counts[4] += pairs where pg_mt_num then
+// pg_mt_u_of differs from pg_mt_u in a bit of u, 1/det or tvec (must stay 0)
+void host_mt_surely_out(const float* num, const float* det, int n, uint8_t* reject,
+                        uint8_t* may, const float* tri, int n_tri, const float* o,
+                        const float* d, int n_rays, int64_t* counts) {
+  for (int i = 0; i < n; ++i) {
+    float inv, u;
+    reject[i] = pg_mt_surely_out(num[i], det[i]) ? 1 : 0;
+    may[i] = pg_mt_u_of(num[i], det[i], &inv, &u) ? 1 : 0;
+  }
+  if (tri == nullptr) return;
+  for (int i = 0; i < n_rays; ++i) {
+    const float* oi = o + 3 * i;
+    const float* di = d + 3 * i;
+    for (int j = 0; j < n_tri; ++j) {
+      const float* c = tri + 9 * j;
+      float tv[3], dt, nm, inv, u, tv2[3], inv2, u2;
+      pg_mt_num(c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], oi[0], oi[1], oi[2], di[0],
+                di[1], di[2], tv, &dt, &nm);
+      const bool out = pg_mt_surely_out(nm, dt);
+      const bool m = pg_mt_u_of(nm, dt, &inv, &u);
+      const bool m2 = pg_mt_u(c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], oi[0], oi[1],
+                              oi[2], di[0], di[1], di[2], tv2, &inv2, &u2);
+      ++counts[0];
+      counts[1] += out;
+      counts[2] += m2;
+      counts[3] += out && m2;
+      counts[4] += m != m2 || pg_f2u(u) != pg_f2u(u2) || pg_f2u(inv) != pg_f2u(inv2) ||
+                   memcmp(tv, tv2, sizeof(tv)) != 0;
+    }
+  }
+}
+
 // the blocklist kernel's merge keys of (t, block, id), and their unpacking
 void host_block_key(const float* t, const uint32_t* block, const uint32_t* tid, int n,
                     uint64_t* key, float* t_out, uint32_t* block_out, uint32_t* tid_out) {

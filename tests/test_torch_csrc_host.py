@@ -3,9 +3,11 @@ compiled for the host with g++ behind csrc/host_shim.cpp, against the plain
 PyTorch versions: threefry-13, the bits-to-unit map, the Pluecker test with
 its packed-key winner, the exact Moeller-Trumbore re-evaluation, the
 dense Moeller-Trumbore closest hit, the BVH kernel's walk over the
-packed tree, and the splits of the tiled and the Pluecker pair-tile
-kernels (their records, lanes or warps, two-stage tests and merge order).
-Skips where g++ is missing."""
+packed tree, the splits of the tiled and the Pluecker pair-tile
+kernels (their records, lanes or warps, two-stage tests and merge order),
+and the two-level kernel's tile walk (candidates, exact gates, records,
+two-stage tests behind a warp's vote, merges).  Skips where g++ is
+missing."""
 import ctypes
 import os
 import shutil
@@ -19,6 +21,7 @@ from mitsuba_path_guiding_torch.core import rng as trng
 from mitsuba_path_guiding_torch.models.sensor import generate_rays
 from mitsuba_path_guiding_torch.ops import fused_path as tfused
 from mitsuba_path_guiding_torch.ops import intersect_pairs as tpairs
+from mitsuba_path_guiding_torch.ops import intersect_twolevel as ttl
 from mitsuba_path_guiding_torch.ops.intersect_bvh import bvh_plain
 from mitsuba_path_guiding_torch.ops.intersect_tiled import (
     closest_plain,
@@ -369,3 +372,137 @@ def test_plk_tiles_match_plain(lib, bvh_scenes, any_hit, label):
                        ctypes.c_int(int(any_hit)), _p(got))
     assert (tb < 0).any() and (want[0] < tpairs.INF).sum() > 100
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def _tl_soup(seed, tris, n, tmax, spread=4.0, size=0.3):
+    """Triangles and rays as tests/test_torch_twolevel.py makes them."""
+    rs = np.random.default_rng(seed)
+    p0 = (rs.random((tris, 3)).astype(np.float32) - 0.5) * spread
+    e1 = (rs.random((tris, 3)).astype(np.float32) - 0.5) * size
+    e2 = (rs.random((tris, 3)).astype(np.float32) - 0.5) * size
+    o = (rs.random((n, 3)).astype(np.float32) - 0.5) * 6
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return p0, e1, e2, o, d, np.full((n,), tmax, np.float32)
+
+
+def _tl_wall(seed, n):
+    """A wall of two triangles at x = -1, first in Morton order, and 3000
+    small triangles behind it: rays from x = -5 along +x make every box
+    behind the wall a candidate on entering the superblock, and the wall's
+    hits close them all."""
+    rs = np.random.default_rng(seed)
+    p0 = np.concatenate([[[-1, -3, -3], [-1, 3, 3]], rs.uniform([2, -2, -2], [4, 2, 2], (3000, 3))])
+    e1 = np.concatenate([[[0, 6, 0], [0, -6, 0]], rs.uniform(-0.2, 0.2, (3000, 3))])
+    e2 = np.concatenate([[[0, 0, 6], [0, 0, -6]], rs.uniform(-0.2, 0.2, (3000, 3))])
+    o = np.stack([np.full(n, -5.0), rs.uniform(-1, 1, n), rs.uniform(-1, 1, n)], axis=1)
+    d = np.stack([np.ones(n), rs.uniform(-0.1, 0.1, n), rs.uniform(-0.1, 0.1, n)], axis=1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (*(x.astype(np.float32) for x in (p0, e1, e2, o, d)), np.full((n,), 3.0e38, np.float32))
+
+
+TWOLEVEL_SETS = {
+    # tests/test_torch_twolevel.py CASES: (seed, triangles, rays, tmax)
+    "closest": lambda: _tl_soup(1, 2500, 700, 3.0e38),
+    "tmax": lambda: _tl_soup(2, 1200, 300, 1.5),
+    # three superblocks, a ragged last tile (1000 rays) and a short tmax
+    "ragged": lambda: _tl_soup(7, 20000, 1000, 0.3),
+    # candidates that do not open
+    "wall": lambda: _tl_wall(3, 1024),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TWOLEVEL_SETS))
+def test_twolevel_tile_walk_matches_plain(lib, case):
+    """intersect_twolevel.cu's walk (host_twolevel_tile: the candidate
+    pass, the exact gates, the records, the two-stage tests behind each
+    warp's vote, the merges) gives twolevel_plain's t, prim, u and v bits
+    and its four work counts on every tile."""
+    p0, e1, e2, o, d, tmax = TWOLEVEL_SETS[case]()
+    bt = ttl.build_blocks(p0, e1, e2)
+    ot, dt, tt = (torch.from_numpy(x) for x in (o, d, tmax))
+    ray, tmax_p = ttl._pad_rays(ot, dt, tt)
+    mask, order = ttl.superblock_mask(bt, ot, dt, tt)
+    want, wwork = ttl.twolevel_plain(bt, ray, tmax_p, mask, order)
+    npad = ray.shape[1]
+    nt = npad // ttl.RAY_TILE
+    args = [np.ascontiguousarray(x.numpy()) for x in (mask, order, bt.blk_lo, bt.blk_hi, ray,
+                                                      tmax_p, bt.tri_pack)]
+    out = np.zeros((4, npad), np.float32)
+    work = np.zeros((nt, 4), np.int64)
+    stats = np.zeros(5, np.int64)
+    for tile in range(nt):
+        lib.host_twolevel_tile(_p(args[0]), _p(args[1]), ctypes.c_int(args[1].shape[0]),
+                               _p(args[2]), _p(args[3]), ctypes.c_int(args[2].shape[1]),
+                               _p(args[4]), _p(args[5]), ctypes.c_int(npad), _p(args[6]),
+                               ctypes.c_int(tile), _p(out), _p(work), _p(stats))
+    np.testing.assert_array_equal(out.view(np.int32), want.numpy().view(np.int32))
+    np.testing.assert_array_equal(work, wwork.numpy())
+    assert (want[1] >= 0).sum() >= 9
+    assert stats[0] > stats[1] and stats[2] > stats[3] >= stats[4] > 0
+    if case == "wall":
+        assert stats[1] >= 40      # the boxes behind the wall, in both tiles
+
+
+def _surely_out(lib, num, det, tri=None, o=None, d=None):
+    num, det = np.ascontiguousarray(num, np.float32), np.ascontiguousarray(det, np.float32)
+    reject, may = np.zeros(num.size, np.uint8), np.zeros(num.size, np.uint8)
+    counts = np.zeros(5, np.int64)
+    n_tri, n_rays = (0, 0) if tri is None else (tri.shape[0], o.shape[0])
+    lib.host_mt_surely_out(_p(num), _p(det), ctypes.c_int(num.size), _p(reject), _p(may),
+                           None if tri is None else _p(tri), ctypes.c_int(n_tri),
+                           None if o is None else _p(o), None if d is None else _p(d),
+                           ctypes.c_int(n_rays), _p(counts))
+    return reject.astype(bool), may.astype(bool), counts
+
+
+def test_mt_surely_out_is_conservative(lib):
+    """pg_mt_surely_out, the two-level kernel's division-free reject, holds
+    only where pg_mt_u_of fails: on edge cases of (num, det) (|det| at
+    1e-12, num +-0, u exactly 0 and 1, products that underflow to +-0,
+    subnormals, infinities, NaN), on 10^6 random (num, det) pairs of every
+    magnitude, and on 10^6 ray-triangle pairs through pg_mt_num, which with
+    pg_mt_u_of gives pg_mt_u's bits."""
+    f = np.float32
+    e12 = f(1e-12)
+    dets = np.array([e12, np.nextafter(e12, f(0)), np.nextafter(e12, f(1)), 1.0, 3.0, 0.75,
+                     1e-6, 1e6, 1e30, 3.0e38, 2.0**126, 2.0**-126, 1e-45, 0.0, np.inf, np.nan],
+                    np.float32)
+    dets = np.concatenate([dets, -dets])
+    ratios = np.array([0.0, 1.0, 1 + 2.0**-23, 1 - 2.0**-24, 1 + 2.0**-11, 1 + 2.0**-10,
+                       1 + 2.0**-9, 0.5, 2.0, 2.0**-64, 2.0**-65, 2.0**-140, 1e-60, 1e-40,
+                       1e20, 1e40])
+    ratios = np.concatenate([ratios, -ratios])
+    with np.errstate(all="ignore"):
+        by_ratio = (dets[:, None].astype(np.float64) * ratios[None, :]).astype(np.float32)
+    nums = np.concatenate([by_ratio.ravel(), [0.0, -0.0, 1e-45, -1e-45, 1e-30, -1e-30, 1.0,
+                                              -1.0, 3e38, -3e38, np.inf, -np.inf, np.nan]])
+    num = np.concatenate([by_ratio.ravel(), np.repeat(nums[None, :], dets.size, 0).ravel()])
+    det = np.concatenate([np.repeat(dets, ratios.size),
+                          np.repeat(dets[:, None], nums.size, 1).ravel()])
+    reject, may, _ = _surely_out(lib, num, det)
+    assert not (reject & may).any(), list(zip(num[reject & may][:5], det[reject & may][:5]))
+    # the cases the proof turns on are present, on both sides
+    edge = {"u exactly 0": (num == 0) & (np.abs(det) >= e12) & np.isfinite(det),
+            "u exactly 1": (num == det) & (np.abs(det) >= e12) & np.isfinite(det),
+            "underflow to -0": (num == f(-1e-30)) & (det == f(1e30))}
+    for what, sel in edge.items():
+        assert may[sel].all() and not reject[sel].any(), what
+    assert reject.sum() > 100 and (~reject & ~may).sum() > 100
+
+    rs = np.random.default_rng(21)
+    mag = lambda n: 10.0 ** rs.uniform(-46, 38.5, n) * rs.choice([-1.0, 1.0], n)  # noqa: E731
+    with np.errstate(all="ignore"):
+        num, det = mag(10**6).astype(np.float32), mag(10**6).astype(np.float32)
+        close = rs.random(10**6) < 0.5       # half with u near 1 or -1
+        num[close] = (det[close] * rs.choice([-1.0, 1.0], close.sum())
+                      * (1 + rs.normal(0, 1e-3, close.sum()))).astype(np.float32)
+    reject, may, _ = _surely_out(lib, num, det)
+    assert not (reject & may).any()
+    assert reject.mean() > 0.5 and may.sum() > 10**4
+
+    p0, e1, e2, o, d, _ = _tl_soup(8, 1000, 1000, 3.0e38)
+    tri = np.ascontiguousarray(np.concatenate([p0, e1, e2], axis=1), np.float32)
+    _, _, counts = _surely_out(lib, np.zeros(0), np.zeros(0), tri, o, d)
+    assert counts[0] == 10**6 and counts[3] == 0 and counts[4] == 0
+    assert counts[1] > 0.5 * counts[0] and counts[2] > 1000

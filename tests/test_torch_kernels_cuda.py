@@ -303,21 +303,64 @@ def test_pairs_full_equals_the_oracle(door):
     assert torch.equal(occ, occluded_brute(door.geo, o, d, tmax))
 
 
-def test_twolevel_matches_plain(door):
+def _interior_camera_sorted():
+    """tools/profile_blocklist_torch.py's interior scene (294924
+    triangles, 37 superblocks) and its 524288-ray camera wave, sorted as
+    intersect_blocks_sorted sorts it."""
+    import os
+    import sys
+
     from mitsuba_path_guiding_torch.ops import intersect_twolevel as tl
 
-    bt = tl.build_blocks(door.geo.p0.cpu().numpy(), door.geo.e1.cpu().numpy(),
-                         door.geo.e2.cpu().numpy(), device="cuda")
-    o, d, tmax, _ = _rays(door, 3000, 6)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                    "tools"))
+    import profile_blocklist_torch as pb
+
+    p0, e1, e2 = pb.make_interior(300_000)
+    bt = tl.build_blocks(p0, e1, e2, device="cuda")
+    o, d = (torch.from_numpy(x).cuda() for x in pb.camera_rays(524_288, seed=0))
+    perm = torch.argsort(tl._ray_sort_keys(bt, o, d), stable=True)
+    return bt, o[perm], d[perm]
+
+
+@pytest.mark.parametrize("case", ["door_room", "ragged", "interior", "interior_ordered"])
+def test_twolevel_matches_plain(door, case):
+    """The kernel against twolevel_plain on the same mask and order: t,
+    prim, u, v and the four work counts bit-equal.  door_room(20000) with
+    3000 random rays; 1000 random rays with tmax 1.5 (a ragged last tile);
+    4096 sorted rays of the interior camera wave; and 600 tiles of them
+    with tmax 0.5 on every other tile, so uneven walks over more than two
+    waves of CTAs, where the kernel takes the tiles longest walk first."""
+    from mitsuba_path_guiding_torch.ops import intersect_twolevel as tl
+
+    if case.startswith("interior"):
+        bt, o, d = _interior_camera_sorted()
+        n = 4096 if case == "interior" else 600 * tl.RAY_TILE
+        start = o.shape[0] // 2 if case == "interior" else 0
+        o, d = o[start:start + n], d[start:start + n]
+        tmax = torch.full((n,), 3.0e38, device="cuda")
+        if case == "interior_ordered":
+            tmax[torch.arange(n, device="cuda") // tl.RAY_TILE % 2 == 1] = 0.5
+    else:
+        bt = tl.build_blocks(door.geo.p0.cpu().numpy(), door.geo.e1.cpu().numpy(),
+                             door.geo.e2.cpu().numpy(), device="cuda")
+        o, d, tmax, _ = _rays(door, 3000 if case == "door_room" else 1000, 6)
+        if case == "ragged":
+            tmax = torch.full_like(tmax, 1.5)
     ray, tmax_p = tl._pad_rays(o, d, tmax)
     mask, order = tl.superblock_mask(bt, o, d, tmax)
+    if case == "interior_ordered":
+        walked = mask.sum(dim=1)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert mask.shape[0] > 4 * sms
+        assert 2 * int(walked.max()) * mask.shape[0] > 3 * int(walked.sum())
     before = build.LAUNCHES["intersect_twolevel"]
     got, gw = tl.twolevel_cuda(bt, ray, tmax_p, mask, order)
     want, ww = tl.twolevel_plain(bt, ray, tmax_p, mask, order)
     torch.cuda.synchronize()
     assert build.LAUNCHES["intersect_twolevel"] == before + 1
     assert (want[1] >= 0).sum() > 100
-    assert torch.equal(got, want) and torch.equal(gw, ww)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)) and torch.equal(gw, ww)
 
 
 @pytest.mark.parametrize("scene", ["door_room", "cornell"])

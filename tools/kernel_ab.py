@@ -8,6 +8,8 @@ source, in one process on one NVIDIA card.
   python3 tools/kernel_ab.py --kernel trace_fused OLD/csrc/fused_path.cu
   python3 tools/kernel_ab.py --kernel gather_rows_t OLD/csrc/gather_rows.cu
   python3 tools/kernel_ab.py --kernel intersect_bvh OLD/csrc/intersect_bvh.cu
+  python3 tools/kernel_ab.py --kernel intersect_twolevel OLD/csrc/intersect_twolevel.cu \
+      [VARIANT/csrc/intersect_twolevel.cu ...]
 
 OLD is another version of the source (with its ``device_math.cuh``
 beside it), for example a ``git archive`` of an earlier commit unpacked
@@ -52,6 +54,17 @@ flags and bound in place of the current kernel's C entry points for the
     launches), old, new, new, old, with the kernel's time summed over its
     launches twice: CUDA events around each launch in the render (the
     host's enqueue included) and each launch replayed alone (cuda_ms).
+  - intersect_twolevel, on chip_smoke's three waves of the two-level
+    kernel: the interior scene's sorted camera and bounce waves (524288
+    rays each, 37 superblocks) and door_room()'s sorted camera wave
+    (262144 rays, 30 superblocks), each with the kernel's inputs as
+    intersect_blocks_sorted gives them: out (t, prim, u, v) and the work
+    counts equal on every lane and tile, then medians of 7 in turns old,
+    new, new, old, with the L2 warm and again evicted before each call
+    (the interior pack is 19.4 MB), beside the bound and the tests-run
+    floor.  Further sources (variants of the kernel, for levers) are
+    checked and timed in the same turns: old, new, the variants, the
+    variants again, new, old.
 
 The fused kernel keeps its ray counter in a __device__ variable of its own
 library and zeroes it in its C entry point, so both versions take the
@@ -405,13 +418,92 @@ def ab_intersect_bvh(cs, build, source, card):
         ib.bvh_cuda = real
 
 
+def ab_intersect_twolevel(cs, build, sources):
+    import torch
+
+    from mitsuba_path_guiding_torch.accel.blocks import build_blocklist
+    from mitsuba_path_guiding_torch.accel.bvh import build_bvh, to_device
+    from mitsuba_path_guiding_torch.ops import intersect_twolevel as tl
+    from mitsuba_path_guiding_torch.ops.intersect_blocklist import intersect_blocklist_sorted
+    from mitsuba_path_guiding_torch.scene.builder import build_scene
+    from mitsuba_path_guiding_torch.scene.scenes import door_room
+
+    new = {"twolevel_closest": tl._kernel_fn()}
+    names = ["old"] + [os.path.relpath(src, ROOT) for src in sources[1:]]
+    # the wrapper's table holds the entry point under "closest"
+    versions = {"new": {"closest": new["twolevel_closest"]}}
+    for k, (name, src) in enumerate(zip(names, sources)):
+        lib = bind_old(build, src, f"intersect_twolevel_v{k}", new)
+        versions[name] = {"closest": lib["twolevel_closest"]}
+    turns = ["old", "new", *names[1:], *names[:0:-1], "new", "old"]
+    tools = cs._interior_tools()
+    p0, e1, e2 = tools.make_interior(cs.INTERIOR_TRIS)
+    bt_i = tl.build_blocks(p0, e1, e2, device="cuda")
+    bl = to_device(build_blocklist(p0, e1, e2, build_bvh(p0, e1, e2)), "cuda")
+    cam, bounce = tools.interior_waves(p0, e1, e2, cs.INTERIOR_RAYS,
+                                       lambda o, d, t: intersect_blocklist_sorted(bl, o, d, t),
+                                       torch.device("cuda"))
+    t_i = torch.full((cs.INTERIOR_RAYS,), 3.0e38, device="cuda")
+    door = build_scene(door_room(), device="cuda")
+    g = door.geo
+    bt_d = tl.build_blocks(*(x.cpu().numpy() for x in (g.p0, g.e1, g.e2)), device="cuda")
+    o, d, _ = cs.camera_rays(door, 1, 0, w=cs.DOOR_W, h=cs.DOOR_H)
+    t_d = torch.full((o.shape[0],), 3.0e37, device="cuda")
+    waves = {"interior_camera": (bt_i, cs.twolevel_inputs(bt_i, *cam, t_i)),
+             "interior_bounce": (bt_i, cs.twolevel_inputs(bt_i, *bounce, t_i)),
+             "door_room_camera": (bt_d, cs.twolevel_inputs(bt_d, o, d, t_d))}
+    for label, (bt, inputs) in waves.items():
+        def call():
+            return tl.twolevel_cuda(bt, *inputs)
+        outs = {}
+        for v in ("new", *names):
+            tl._FN.update(versions[v])
+            outs[v] = call()
+        tl._FN.update(versions["new"])
+        torch.cuda.synchronize()
+        for v in names:
+            same_out = torch.equal(cs._bits(outs[v][0]), cs._bits(outs["new"][0]))
+            same_work = torch.equal(outs[v][1], outs["new"][1])
+            cs.check(same_out and same_work,
+                     f"{label}: {v} and new differ on "
+                     f"{int((cs._bits(outs[v][0]) != cs._bits(outs['new'][0])).any(dim=0).sum())} "
+                     f"rays, work equal {same_work}")
+        times = {v: [] for v in ("new", *names)}
+        cold = {v: [] for v in ("new", *names)}
+        for v in turns:
+            tl._FN.update(versions[v])
+            times[v].append(cs.cuda_ms(call))
+        for v in turns:
+            tl._FN.update(versions[v])
+            cold[v].append(cs.cuda_ms(call, cold=True))
+        tl._FN.update(versions["new"])
+        b_ms, b_by, work = cs.twolevel_bound(inputs, outs["new"][1])
+        per_tile = outs["new"][1][:, 1].double()
+        work["opened_per_tile"] = {"mean": float(per_tile.mean()), "max": float(per_tile.max()),
+                                   "p99": float(torch.quantile(per_tile, 0.99))}
+        cs.emit({"call": label, "rays": inputs[0].shape[1], "tiles": inputs[2].shape[0],
+                 "superblocks": inputs[2].shape[1], "equal": True, **work, "bound_ms": b_ms,
+                 "bound_by": b_by, "hit_share": float((outs["new"][0][1] >= 0).float().mean()),
+                 "ms": times, "ms_l2_cold": cold,
+                 "speedup": statistics.mean(times["old"]) / statistics.mean(times["new"]),
+                 "speedup_l2_cold": statistics.mean(cold["old"]) / statistics.mean(cold["new"])})
+    cs.emit({"ptxas": {name: [ln.strip() for ln in open(
+        os.path.join(build.BUILD_DIR, f"libintersect_twolevel_v{k}_old.log")).read().splitlines()
+        if "registers" in ln or "spill" in ln] for k, name in enumerate(names)},
+        "ptxas_new": cs.ptxas_report("intersect_twolevel")})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", required=True,
                     choices=("pairs_mt", "pairs_plk", "intersect_tiled", "trace_fused",
-                             "gather_rows_t", "intersect_bvh"))
+                             "gather_rows_t", "intersect_bvh", "intersect_twolevel"))
     ap.add_argument("old_source")
+    ap.add_argument("variants", nargs="*",
+                    help="intersect_twolevel only: further versions timed in the same turns")
     args = ap.parse_args(argv)
+    if args.variants and args.kernel != "intersect_twolevel":
+        ap.error("only --kernel intersect_twolevel takes variant sources")
     import torch
 
     if not torch.cuda.is_available():
@@ -434,8 +526,10 @@ def main(argv=None):
         ab_trace_fused(cs, build, args.old_source, card)
     elif args.kernel == "gather_rows_t":
         ab_gather_rows_t(cs, build, args.old_source)
-    else:
+    elif args.kernel == "intersect_bvh":
         ab_intersect_bvh(cs, build, args.old_source, card)
+    else:
+        ab_intersect_twolevel(cs, build, [args.old_source, *args.variants])
     return 0
 
 
