@@ -32,6 +32,14 @@ Phases:
      trace_fused) and the unguided render() at 256x256 x 16 spp (fused
      route); Mrays/s = 2 * sum(n_bounces) / s, and trace_fused's kernel
      time summed over the frozen render's 16 launches;
+  3a. phase 3's render with adaptive refinement (4x the rows, split at
+     ADAPTIVE_THRESHOLD samples): the grid must grow past 16^3 rows and
+     the mean stay within 3% of the reference; n_used after each
+     progression and refine_grid's host seconds;
+  3b. guiding's equal-spp gain on bounce_lamp_room() at 128x128 (bench.py's
+     recipe, the tiled route): relMSE of 8 guided and 8 unguided spp
+     against a 96-spp reference; r_g < 0.75 r_u and the guided mean within
+     5% of the reference's;
   5. door_room() (244838 triangles): the build (pair and blocklist
      tables), then the kernel checks on 262144 camera rays of a 512x512
      wave and 262144 random rays: the MT and Pluecker pair tiles on their
@@ -74,6 +82,12 @@ Phases:
      BVH route: four 131072-ray waves (512x512 x 2 spp, unguided) through
      trace(accel="bvh"), splatted, held to the reference mean with the
      standard error of the two spp;
+  9a. guiding's equal-spp gain on door_room() at 512x512 through the BVH
+     (bench.py's recipe: 4x the rows, min_rough 0.3, refine_grid at 512
+     samples between 4 fitting progressions of 8 waves): relMSE of 4
+     guided and 4 unguided spp against a 40-spp reference; the grid past
+     16^3 rows, gain > 1.10, both means held to the reference as in 6,
+     and the 4-spp windows' Mrays/s;
   10. CUDA-event timings (median of 7, each call enqueued while the card
      spins, so that the events time the card and not the host's enqueue)
      of each kernel, its plain version and, where one exists, the
@@ -109,7 +123,10 @@ door_room camera wave to one two-level launch, the sorted-blocklist
 render to one blocklist launch per query (80) and the BVH render to one
 BVH launch per query (40), each with no launch of the other intersectors;
 the three door_room renders to three gathers a bounce, one of them on the
-244838-row shading table (240 and 80, 120 and 40, 60 and 20).
+244838-row shading table (240 and 80, 120 and 40, 60 and 20); the
+adaptive Cornell render and the bounce-lamp waves to one tiled launch a
+query and three small-table gathers a bounce, and the door_room gain
+waves to one BVH launch a query and the door_room gathers (1200 and 400).
 """
 from __future__ import annotations
 
@@ -207,6 +224,28 @@ ORACLE_RAYS = 8192   # rays of a wave held to the dense oracle
 BVH_MT_OPS = 47      # device_math.cuh pg_bvh_mt: one (ray, triangle) test of the BVH walk
 BOX_OPS = 23         # device_math.cuh pg_bvh_ray_aabb: one (ray, node box) test
 DEVICE = "cuda"      # where the phases below put the scenes they build
+
+# The adaptive Cornell render (phase 3a): splits cells above this many
+# samples; a progression of 256x256 x 4 spp leaves hundreds in each
+# surface cell of the 16^3 grid.
+ADAPTIVE_THRESHOLD = 512.0
+ADAPTIVE_CAPACITY = 4
+# Guiding's equal-spp gain, bench.py's two recipes on the port (phases 3b
+# and 9a); the bars are the JAX package's tests' (tests/test_guiding.py
+# test_guiding_beats_unguided_equal_spp and
+# test_door_room_guiding_gain_equal_spp).  The JAX package measured 1.94
+# and 1.14 (BENCH_r05.json, image quality, not time).
+BOUNCE_W = BOUNCE_H = 128
+BOUNCE_DEPTH = 4
+BOUNCE_WAVES = {"reference": (200, 96), "unguided": (500, 8), "fit": (0, 16), "guided": (500, 8)}
+BOUNCE_RATIO_BAR = 0.75   # r_g < 0.75 r_u
+BOUNCE_MEAN_TOL = 0.05
+DOOR_GAIN_REFERENCE = (0, 40)   # waves 0-39: bench.py's timed windows run on into the reference
+DOOR_GAIN_WINDOW = (100, 4)     # the equal-spp windows, unguided and guided
+DOOR_GAIN_PROGRESSIONS = 4      # of DOOR_FIT_WAVES each, refined after the first three
+DOOR_FIT_WAVES = 8
+DOOR_SPLIT_THRESHOLD = 512.0
+DOOR_GAIN_BAR = 1.10
 NONE_LAUNCHED = {k: 0 for k in ("gather_rows_t", "gather_rows_t_large", "intersect_tiled",
                                 "trace_fused", "intersect_pairs_mt", "intersect_pairs_plk",
                                 "intersect_blocklist", "intersect_twolevel", "intersect_bvh")}
@@ -694,6 +733,242 @@ def phase_timings(scene, veach, tables, grid, checks, launches, card):
     emit({"phase": "timings", "card": card,
           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
     return entries
+
+
+# ---------------------------------------------------------------------------
+# the guiding layer: adaptive refinement and guiding's equal-spp gain
+# ---------------------------------------------------------------------------
+
+def phase_progressive_adaptive(scene):
+    """Phase 3's render with adaptive refinement: n_used after each
+    progression, the host seconds of each refine_grid (the queued work
+    finished first), and the mean held to the reference."""
+    import torch
+
+    from mitsuba_path_guiding_torch.integrators import progressive
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig
+
+    cfg = progressive.ProgressiveConfig(
+        render=RenderConfig(width=W, height=H, spp=0, max_depth=DEPTH), samples_per_progression=4,
+        n_progressions=4, guiding=True, grid_res=16, n_lobes=8, adaptive_refine=True,
+        refine_threshold=ADAPTIVE_THRESHOLD, capacity_factor=ADAPTIVE_CAPACITY)
+    renderer = progressive.ProgressiveRenderer(scene, cfg)
+    n_used, refine_s = [], []
+    real = progressive.refine_grid
+
+    def timed_refine(grid, threshold):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = real(grid, threshold)
+        refine_s.append(time.time() - t0)
+        n_used.append(out.n_used)
+        return out
+
+    progressive.refine_grid = timed_refine
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img = renderer.render()
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+    finally:
+        progressive.refine_grid = real
+    mean = float(img.mean())
+    rel = abs(mean - CORNELL_REFERENCE_MEAN) / CORNELL_REFERENCE_MEAN
+    check(bool(torch.isfinite(img).all()), "adaptive progressive image not finite")
+    check(renderer.grid.n_used > 16**3, f"adaptive progressive: no cell split ({n_used})")
+    check(int(renderer.grid.valid.sum()) > 0, "adaptive progressive grid has no valid cells")
+    check(rel < MEAN_TOL, f"adaptive progressive mean {mean} vs reference {CORNELL_REFERENCE_MEAN}")
+    segs = renderer.stats.get("rays traced") / 2
+    emit({"phase": "progressive_adaptive", "seconds": round(dt, 3), "mean": mean,
+          "reference_mean": CORNELL_REFERENCE_MEAN, "rel_err": rel,
+          "refine_threshold": ADAPTIVE_THRESHOLD, "capacity": renderer.grid.child_base.shape[0],
+          "n_used_per_progression": n_used, "refine_grid_host_s": refine_s,
+          "max_level": int(renderer.grid.level.max()), "mrays_per_s": 2 * segs / dt / 1e6})
+
+
+def equal_spp_waves(scene, width, height, depth, guide, levels, accel="auto", seed=0):
+    """bench.py's wave loop on the port: wave w renders one sample per pixel
+    with the keys of sample index w (bench.py's seed 0) and splats it; with ``fit``
+    each wave makes one fitting step of the grid.  waves(grid, w0, n_w,
+    guided, fit) returns (the image (n_pix, 3) on the host, the grid, the
+    path segments, each wave's image mean)."""
+    import torch
+
+    from mitsuba_path_guiding_torch.core import rng
+    from mitsuba_path_guiding_torch.film.film import splat_box_aligned
+    from mitsuba_path_guiding_torch.guiding.fit import accumulate_stats, update_grid
+    from mitsuba_path_guiding_torch.integrators.path import trace
+    from mitsuba_path_guiding_torch.models.bsdf import types_present
+    from mitsuba_path_guiding_torch.models.emitter import kinds_present
+    from mitsuba_path_guiding_torch.models.sensor import generate_rays
+
+    dev = scene.geo.p0.device
+    n_pix = width * height
+    pix = torch.arange(n_pix, device=dev)
+    key = rng.base_key(seed, device=dev)
+    kw = dict(max_depth=depth, em_kinds=kinds_present(scene.emitters),
+              mat_types=types_present(scene.mats), accel=accel)
+
+    def waves(grid, w0, n_w, guided=False, fit=False):
+        rgbw = torch.zeros((n_pix, 4), device=dev)
+        segs = torch.zeros((), dtype=torch.int64, device=dev)
+        means = []
+        for w in range(w0, w0 + n_w):
+            rk = rng.ray_keys(key, pix, torch.full_like(pix, w))
+            o, d, _ = generate_rays(scene.sensor, width, height, pix,
+                                    rng.event_uniform(rk, rng.TAG_CAMERA, 2))
+            L, aux, rec = trace(scene, o, d, rk, guide=guide if guided else None,
+                                guide_state=grid if guided else None, record_paths=fit, **kw)
+            splat_box_aligned(rgbw, L, n_pix)
+            segs += aux.n_bounces.sum()
+            means.append(L.mean())
+            if fit:
+                grid = update_grid(grid, *accumulate_stats(grid, rec, levels=levels))
+        img = (rgbw[:, 0:3] / torch.clamp_min(rgbw[:, 3:4], 1e-9)).cpu().numpy()
+        return img, grid, int(segs), [float(m) for m in means]
+
+    return waves
+
+
+def relmse(img, ref, trim=False):
+    """bench.py's relMSE against the reference image: eps = (0.1 mean)^2;
+    with ``trim`` the top 0.1% of pixels left out (the bounce-lamp
+    recipe)."""
+    import numpy as np
+
+    e = ((img - ref) ** 2 / (ref**2 + (0.1 * float(ref.mean())) ** 2)).ravel()
+    return float(np.sort(e)[:int(e.size * 0.999)].mean()) if trim else float(e.mean())
+
+
+def phase_gain_bounce_lamp(card):
+    """bench.py's bounce-lamp recipe: bounce_lamp_room() at 128x128, depth
+    4, a 16^3 grid of 8 lobes walked at its active levels (0), the tiled
+    route; a 96-wave unguided reference, 8 unguided waves, 16 guided
+    fitting waves (one fitting step a wave), then 8 guided waves."""
+    from mitsuba_path_guiding_torch.guiding.grid import active_levels, make_grid
+    from mitsuba_path_guiding_torch.guiding.sampler import make_guide_fn
+    from mitsuba_path_guiding_torch.models.bsdf import types_present
+    from mitsuba_path_guiding_torch.scene.builder import build_scene
+    from mitsuba_path_guiding_torch.scene.scenes import bounce_lamp_room
+
+    t0 = time.time()
+    scene = build_scene(bounce_lamp_room(), device=DEVICE)
+    grid0 = make_grid(scene.aabb_min, scene.aabb_max, res=16, n_lobes=8)
+    levels = active_levels(grid0)
+    guide = make_guide_fn(0.5, types_present(scene.mats), levels=levels)
+    waves = equal_spp_waves(scene, BOUNCE_W, BOUNCE_H, BOUNCE_DEPTH, guide, levels)
+    ref = waves(grid0, *BOUNCE_WAVES["reference"])[0]
+    un = waves(grid0, *BOUNCE_WAVES["unguided"])[0]
+    grid = waves(grid0, *BOUNCE_WAVES["fit"], guided=True, fit=True)[1]
+    g8 = waves(grid, *BOUNCE_WAVES["guided"], guided=True)[0]
+    dt = time.time() - t0
+    r_u, r_g = relmse(un, ref, trim=True), relmse(g8, ref, trim=True)
+    rel_mean = abs(float(g8.mean()) - float(ref.mean())) / float(ref.mean())
+    check(r_g < BOUNCE_RATIO_BAR * r_u, f"bounce-lamp: guided relMSE {r_g} vs unguided {r_u}")
+    check(rel_mean < BOUNCE_MEAN_TOL, f"bounce-lamp: guided mean {g8.mean()} vs {ref.mean()}")
+    emit({"phase": "guiding_gain_bounce_lamp", "card": card, "seconds": round(dt, 3),
+          "levels": levels, "relmse_unguided": r_u, "relmse_guided": r_g, "gain": r_u / r_g,
+          "bar": f"r_g < {BOUNCE_RATIO_BAR} r_u", "guided_mean": float(g8.mean()),
+          "reference_mean": float(ref.mean()), "guided_mean_rel_err": rel_mean,
+          "jax_package_gain_bench_r05": 1.94})
+
+
+def door_gain_run(scene, width=DOOR_W, height=DOOR_H, seed=0, reference=DOOR_GAIN_REFERENCE,
+                  window=DOOR_GAIN_WINDOW, progressions=DOOR_GAIN_PROGRESSIONS,
+                  threshold=DOOR_SPLIT_THRESHOLD):
+    """bench.py's door_room recipe through the BVH: depth 5, a 16^3 grid of
+    8 lobes with room for 4x the rows, walked MAX_REFINE_LEVELS deep,
+    min_rough 0.3; an unguided reference over the ``reference`` waves, the
+    unguided ``window``, ``progressions`` fitting progressions of 8 guided
+    waves (one fitting step a wave, refine_grid(grid, threshold) after all
+    but the last), the guided ``window``.  A wave is the whole image; the
+    keys are those of ``seed``."""
+    import torch
+
+    from mitsuba_path_guiding_torch.guiding.fit import refine_grid
+    from mitsuba_path_guiding_torch.guiding.grid import MAX_REFINE_LEVELS, make_grid
+    from mitsuba_path_guiding_torch.guiding.sampler import make_guide_fn
+    from mitsuba_path_guiding_torch.models.bsdf import types_present
+
+    levels = MAX_REFINE_LEVELS
+    guide = make_guide_fn(0.5, types_present(scene.mats), levels=levels, min_rough=0.3)
+    waves = equal_spp_waves(scene, width, height, DEPTH, guide, levels, accel="bvh", seed=seed)
+    grid0 = make_grid(scene.aabb_min, scene.aabb_max, res=16, n_lobes=8, capacity=4 * 16**3)
+    ref = waves(grid0, *reference)[0]
+
+    def timed_window(grid, guided):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img, _, segs, means = waves(grid, *window, guided=guided)
+        dt = time.time() - t0
+        return img, {"seconds": dt, "mrays_per_s": 2 * segs / dt / 1e6, "spp_means": means}
+
+    un, un_t = timed_window(grid0, False)
+    grid, n_used, t_fit = grid0, [], time.time()
+    for prog in range(progressions):
+        grid = waves(grid, prog * DOOR_FIT_WAVES, DOOR_FIT_WAVES, guided=True, fit=True)[1]
+        if prog < progressions - 1:
+            grid = refine_grid(grid, threshold)
+        n_used.append(grid.n_used)
+    torch.cuda.synchronize()
+    t_fit = time.time() - t_fit
+    g4, g_t = timed_window(grid, True)
+    r_u, r_g = relmse(un, ref), relmse(g4, ref)
+    return {"ref": ref, "un": un, "un_t": un_t, "g4": g4, "g_t": g_t, "grid": grid,
+            "n_used": n_used, "fit_seconds": t_fit, "r_u": r_u, "r_g": r_g,
+            "gain": r_u / max(r_g, 1e-9)}
+
+
+def fit_sums_repeat(rows, calls=3):
+    """The fit's per-cell sums (guiding/fit.py cell_sums) called ``calls``
+    times on one (rows, 45) payload whose cell ids crowd the low cells, as
+    a wave's path vertices crowd a few cells: bit-equal each time?"""
+    import torch
+
+    from mitsuba_path_guiding_torch.guiding.fit import cell_sums
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    n_cells = 4 * 16**3
+    cid = (torch.rand((rows,), generator=g, device="cuda") ** 4 * n_cells).long()
+    payload = torch.randn((rows, 45), generator=g, device="cuda")
+    first = cell_sums(n_cells, cid, payload)
+    same = all(torch.equal(first, cell_sums(n_cells, cid, payload)) for _ in range(calls - 1))
+    return {"rows": rows, "calls": calls, "bit_equal": same}
+
+
+def phase_gain_door_room(scene, card):
+    """door_gain_run at bench.py's size, 512x512 (262144 lanes a wave): a
+    40-spp unguided reference, 4 unguided spp, 4 fitting progressions
+    refined at 512 samples, 4 guided spp."""
+    import numpy as np
+
+    t_all = time.time()
+    run = door_gain_run(scene)
+    grid, n_used, r_u, r_g, gain = run["grid"], run["n_used"], run["r_u"], run["r_g"], run["gain"]
+    un, un_t, g4, g_t = run["un"], run["un_t"], run["g4"], run["g_t"]
+    t_fit = run["fit_seconds"]
+    sums_repeat = fit_sums_repeat(DEPTH * DOOR_W * DOOR_H)
+    out = {"phase": "guiding_gain_door_room", "card": card, "seconds": round(time.time() - t_all, 3),
+           "relmse_unguided": r_u, "relmse_guided": r_g, "gain": gain, "bar": DOOR_GAIN_BAR,
+           "n_used_per_progression": n_used, "fit_seconds": t_fit,
+           "unguided_window": un_t, "guided_window": g_t,
+           "jax_package_bench_r05": {"relmse_unguided": 11.99, "relmse_guided": 10.51,
+                                     "gain": 1.14, "route": "pair"}}
+    for name, img, tm in (("unguided", un, un_t), ("guided", g4, g_t)):
+        mean = float(img.mean())
+        se = statistics.stdev(tm["spp_means"]) / len(tm["spp_means"]) ** 0.5
+        tol = max(MEAN_TOL, 4.0 * (DOOR_REFERENCE_SE**2 + se**2) ** 0.5 / DOOR_REFERENCE_MEAN)
+        rel = abs(mean - DOOR_REFERENCE_MEAN) / DOOR_REFERENCE_MEAN
+        out[f"{name}_mean"] = {"mean": mean, "rel_err": rel, "rel_tol": tol, "se_card": se}
+        check(bool(np.isfinite(img).all()), f"door_room {name} image not finite")
+        check(rel < tol, f"door_room gain, {name} mean {mean} vs reference {DOOR_REFERENCE_MEAN}")
+    out["fit_sums_repeat"] = sums_repeat
+    emit(out)
+    check(sums_repeat["bit_equal"], "door_room gain: the fit's cell sums differ between calls")
+    check(grid.n_used > 16**3, f"door_room gain: no cell split ({n_used})")
+    check(gain > DOOR_GAIN_BAR, f"door_room gain {gain} (r_u {r_u}, r_g {r_g}) <= {DOOR_GAIN_BAR}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1654,6 +1929,16 @@ def main(argv=None):
     emit({"phase": "trace_fused_kernel_time", "route": "frozen_render", **fused_t})
     _, c_render = drive("unguided_render", lambda: phase_unguided_render(scene, card),
                         {**only_fused, "trace_fused": RENDER_SPP})
+    # 16 waves (4 spp x 4 progressions of 256x256 pixels), each bounce one
+    # tiled closest-hit and one tiled shadow query and three small-table
+    # gathers
+    _, c_adaptive = drive("progressive_adaptive", lambda: phase_progressive_adaptive(scene),
+                          {**NONE_LAUNCHED, "intersect_tiled": 2 * DEPTH * 16,
+                           "gather_rows_t": 3 * DEPTH * 16})
+    bounce_waves = sum(n for _, n in BOUNCE_WAVES.values())
+    _, c_bounce = drive("guiding_gain_bounce_lamp", lambda: phase_gain_bounce_lamp(card),
+                        {**NONE_LAUNCHED, "intersect_tiled": 2 * BOUNCE_DEPTH * bounce_waves,
+                         "gather_rows_t": 3 * BOUNCE_DEPTH * bounce_waves})
 
     door = phase_door_build()
     bl_calls = blocklist_calls(door)
@@ -1704,7 +1989,14 @@ def main(argv=None):
     _, c_bvh = drive("door_room_bvh", lambda: phase_door_bvh_render(door, card),
                      {**NONE_LAUNCHED, **door_gathers(DOOR_BVH_SPP * waves_per_spp),
                       "intersect_bvh": 2 * DEPTH * DOOR_BVH_SPP * waves_per_spp})
+    door_gain_waves = (DOOR_GAIN_REFERENCE[1] + 2 * DOOR_GAIN_WINDOW[1]
+                       + DOOR_FIT_WAVES * DOOR_GAIN_PROGRESSIONS)
+    _, c_door_gain = drive("guiding_gain_door_room", lambda: phase_gain_door_room(door, card),
+                           {**NONE_LAUNCHED, **door_gathers(door_gain_waves),
+                            "intersect_bvh": 2 * DEPTH * door_gain_waves})
     routes = {"progressive": c_prog, "frozen_render": c_frozen, "unguided_render": c_render,
+              "progressive_adaptive": c_adaptive, "guiding_gain_bounce_lamp": c_bounce,
+              "guiding_gain_door_room": c_door_gain,
               "door_room_progressive": c_door, "door_room_plk": c_plk, **interior["launches"],
               "door_room_twolevel": door_tl["launches"], "door_room_sorted_blocklist": c_sorted,
               "door_room_bvh": c_bvh}

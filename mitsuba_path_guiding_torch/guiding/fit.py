@@ -1,15 +1,17 @@
-"""Weighted-EM fitting of the vMF-mixture guiding cache from path records
-(port of the reference's guiding/fit.py ``accumulate_stats`` and
-``update_grid``; adaptive refinement, ``refine_grid``, is ROADMAP Queue 1
-item 7).
+"""Weighted-EM fitting of the vMF-mixture guiding cache from path records,
+and its adaptive spatial refinement (port of the reference's
+guiding/fit.py ``accumulate_stats``, ``update_grid``, ``fit_from_records``
+and ``refine_grid``).
 
 The statistics are linear in the samples, so they add across waves
-before one parameter update per progression.  The per-cell sums are one
-``index_add_`` of an (M, 5K+5) payload (on the card its atomics add in a
-run-dependent order).
+before one parameter update per progression.  The per-cell sums of an
+(M, 5K+5) payload are added in an order that does not depend on the run
+(``cell_sums``), so a fit, and every guided sample drawn from it, repeats
+bit for bit.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mitsuba_path_guiding_torch.core.vmf import mean_cosine_to_kappa
@@ -27,6 +29,19 @@ ALPHA_R_HI = 0.6
 EMA = 0.7
 WEIGHT_FLOOR = 1e-3
 KAPPA_FIT_MAX = 5e3
+
+
+def cell_sums(n_cells: int, cid, payload):
+    """(n_cells, W) sums of the (M, W) payload rows by cell id, in an order
+    fixed by the data: on the CPU ``index_add_`` adds the rows serially, in
+    row order; on the card its float atomics would add them in whatever
+    order the threads arrive, so the card takes ``index_put_``'s
+    accumulation, which groups the rows by cell with a stable sort and adds
+    each cell's rows in turn."""
+    summed = torch.zeros((n_cells, payload.shape[1]), dtype=payload.dtype, device=payload.device)
+    if payload.is_cuda:
+        return summed.index_put_((cid,), payload, accumulate=True)
+    return summed.index_add_(0, cid, payload)
 
 
 def accumulate_stats(grid: GuidingGrid, rec, levels: int | None = None):
@@ -78,8 +93,7 @@ def accumulate_stats(grid: GuidingGrid, rec, levels: int | None = None):
         ],
         dim=1,
     )
-    summed = torch.zeros((c, payload.shape[1]), dtype=torch.float32, device=li.device)
-    summed.index_add_(0, cid, payload)
+    summed = cell_sums(c, cid, payload)
     s_w = summed[:, 0:k]
     s_dir = torch.stack(
         [summed[:, k: 2 * k], summed[:, 2 * k: 3 * k], summed[:, 3 * k: 4 * k]], dim=-1)
@@ -141,3 +155,60 @@ def update_grid(grid: GuidingGrid, s_w, s_dir, s_count,
         alpha_scale=alpha_scale,
         **extra,
     )
+
+
+def fit_from_records(grid: GuidingGrid, rec) -> GuidingGrid:
+    """One full fitting step: the statistics of ``rec`` and the M-step.
+    The reference's ``psum_axis`` (an all-reduce of the statistics across
+    devices) comes with multi-GPU, ROADMAP Queue 1 item 9."""
+    return update_grid(grid, *accumulate_stats(grid, rec))
+
+
+SPLIT_THRESHOLD = 4096.0  # samples before a cell subdivides
+
+
+def refine_grid(grid: GuidingGrid, threshold: float = SPLIT_THRESHOLD) -> GuidingGrid:
+    """Host-side adaptive refinement between progressions (the SD-tree
+    split of Practical Path Guiding on fixed-capacity flat tables): each
+    leaf in use whose accumulated sample count exceeds ``threshold``, above
+    the deepest level, gets 8 children appended at ``n_used``, seeded with
+    its mixture and 1/8 of its statistics; the highest counts split first
+    while capacity lasts.  The tables go to the host and back to the
+    grid's device; the topology is frozen again afterwards."""
+    child_base = grid.child_base.cpu().numpy().copy()
+    level = grid.level.cpu().numpy().copy()
+    count = grid.s_count.cpu().numpy()
+    n_used = int(grid.n_used)
+    capacity = child_base.shape[0]
+
+    is_leaf = child_base < 0
+    in_use = np.arange(capacity) < n_used
+    want = in_use & is_leaf & (count > threshold) & (level < MAX_REFINE_LEVELS)
+    idx = np.nonzero(want)[0]
+    if idx.size == 0 or n_used >= capacity:
+        return grid
+    # the reference's numpy argsort (unstable quicksort): equal counts are
+    # common, and a capacity cut must keep the same cells
+    idx = idx[np.argsort(-count[idx])]
+    n_fit = min(idx.size, (capacity - n_used) // 8)
+    if n_fit == 0:
+        return grid
+    idx = idx[:n_fit]
+
+    copied = ("mu", "kappa", "log_weight", "valid", "alpha_scale", "origin", "lobe_dist")
+    scaled = ("s_w", "s_dir", "s_count", "s_rho", "s_pos", "s_pos_w")
+    host = {f: getattr(grid, f).cpu().numpy().copy() for f in copied + scaled
+            if getattr(grid, f) is not None}
+    for parent in idx:
+        child_base[parent] = n_used
+        rows = slice(n_used, n_used + 8)
+        child_base[rows] = -1
+        level[rows] = level[parent] + 1
+        for f, a in host.items():
+            a[rows] = a[parent] / 8.0 if f in scaled else a[parent]
+        n_used += 8
+
+    dev = grid.child_base.device
+    return grid._replace(child_base=torch.from_numpy(child_base).to(dev),
+                         level=torch.from_numpy(level).to(dev), n_used=n_used,
+                         **{f: torch.from_numpy(a).to(dev) for f, a in host.items()})

@@ -153,6 +153,11 @@ def active_levels(grid: GuidingGrid) -> int:
     return MAX_REFINE_LEVELS if bool((grid.child_base >= 0).any()) else 0
 
 
+def mixture_weights(grid: GuidingGrid, cid: torch.Tensor) -> torch.Tensor:
+    """(N, K) normalised lobe weights of cells cid."""
+    return torch.softmax(grid.log_weight[cid], dim=-1)
+
+
 def _gather_cells(grid: GuidingGrid, cid: torch.Tensor, with_alpha: bool = False):
     """One packed column gather of per-cell parameters, rounded through
     bf16 as the reference does (sampling and pdf read the same rounded
@@ -198,6 +203,11 @@ def _mixture_pdf(params, d):
     return torch.where(valid, pdf, INV_FOURPI)
 
 
+def guide_pdf(grid: GuidingGrid, cid: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Mixture pdf of world direction d at cells cid (solid-angle measure)."""
+    return _mixture_pdf(_gather_cells(grid, cid), d)
+
+
 def _mixture_sample(params, u_lobe, u2):
     w, mux, muy, muz, kappa, valid = params
     cdf = torch.cumsum(w, dim=0)
@@ -212,6 +222,50 @@ def _mixture_sample(params, u_lobe, u2):
     phi = 2.0 * math.pi * u2[..., 1]
     d_uni = torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
     return torch.where(valid[..., None], d, d_uni)
+
+
+def guide_sample(grid: GuidingGrid, cid: torch.Tensor, u_lobe, u2) -> torch.Tensor:
+    """A world direction drawn from the mixture of each cell."""
+    return _mixture_sample(_gather_cells(grid, cid), u_lobe, u2)
+
+
+def guide_sample_pdf(grid: GuidingGrid, cid: torch.Tensor, u_lobe, u2, d_other):
+    """(sample, pdf(sample), pdf(d_other)) from one parameter gather."""
+    params = _gather_cells(grid, cid)
+    d = _mixture_sample(params, u_lobe, u2)
+    return d, _mixture_pdf(params, d), _mixture_pdf(params, d_other)
+
+
+# cosine-lobe vMF proxy: the mean cosine of cos(theta)/pi over the
+# hemisphere is 2/3, so kappa ~ 2.25 (core/vmf.py mean_cosine_to_kappa)
+KAPPA_COSINE = 2.25
+
+
+def product_params(params, n_world: torch.Tensor, kappa_b: float = KAPPA_COSINE):
+    """The product of the cell mixture with a vMF(n, kappa_b) cosine proxy,
+    again a proper mixture: per lobe the integral factor is
+    N(ka) N(kb) / N(kc) exp(kc - ka - kb), with N the exp-normalised vMF
+    constant.  Sampling and pdf both read these parameters, so the
+    one-sample MIS estimator stays exact.  The reference's order of
+    operations, clamps and floors."""
+    w, mux, muy, muz, kappa, valid = params
+    nx, ny, nz = n_world[..., 0][None], n_world[..., 1][None], n_world[..., 2][None]
+    vx = kappa * mux + kappa_b * nx
+    vy = kappa * muy + kappa_b * ny
+    vz = kappa * muz + kappa_b * nz
+    kc = torch.sqrt(vx * vx + vy * vy + vz * vz)
+    kc_safe = torch.clamp_min(kc, 1e-9)
+    muxc, muyc, muzc = vx / kc_safe, vy / kc_safe, vz / kc_safe
+
+    def _logN(k):
+        kk = torch.clamp(k, 1e-6, 1e4)
+        return torch.log(kk) - math.log(2.0 * math.pi) - torch.log(-torch.expm1(-2.0 * kk))
+
+    log_lambda = _logN(kappa) + _logN(torch.full_like(kappa, kappa_b)) - _logN(kc) + (
+        kc - kappa - kappa_b)
+    w_new = w * torch.exp(torch.clamp(log_lambda, -60.0, 60.0))
+    w_new = w_new / torch.clamp_min(torch.sum(w_new, dim=0, keepdim=True), 1e-30)
+    return (w_new, muxc, muyc, muzc, kc, valid)
 
 
 def parallax_params(grid: GuidingGrid, cid, params, p):

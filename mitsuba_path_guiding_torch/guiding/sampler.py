@@ -20,6 +20,7 @@ from mitsuba_path_guiding_torch.guiding.grid import (
     _mixture_sample,
     cell_index,
     parallax_params,
+    product_params,
 )
 from mitsuba_path_guiding_torch.models import bsdf as bsdf_mod
 from mitsuba_path_guiding_torch.scene.types import BSDFType
@@ -31,29 +32,43 @@ def _is_delta(p_type: torch.Tensor) -> torch.Tensor:
 
 
 @lru_cache(maxsize=64)
-def make_guide_fn(alpha: float = 0.5, mat_types=bsdf_mod.PORTED_TYPES, parallax: bool = False):
+def make_guide_fn(alpha: float = 0.5, mat_types=bsdf_mod.PORTED_TYPES, product: bool = False,
+                  levels: int | None = None, parallax: bool = False, min_rough: float = 0.0):
     """The ``guide`` callback consumed by integrators.path.trace.  Cached,
-    so identical configurations return the same function object.  Product
-    guiding and the rough-material gate of the reference are not ported
-    (ROADMAP Queue 1 item 7).
+    so identical configurations return the same function object.
+
+    ``levels`` is the octree walk depth of ``cell_index`` (None: the
+    deepest, ``MAX_REFINE_LEVELS``; 0 for a grid that was never refined).
+    ``parallax`` re-aims each lobe at its virtual source from the shading
+    point; ``product`` then multiplies the mixture by a cosine lobe about
+    the shading normal.  ``min_rough`` > 0 guides only the diffuse-class
+    families and materials at least that rough (the raw ``alpha``
+    column): a coarse cache cannot out-sample a narrow BSDF lobe.
 
     The callback and its ``pdf_at`` take an optional ``params``: the lane's
     material row from ``bsdf.gather_params``, gathered once per bounce by
     the caller; without it they gather it themselves."""
     bsdf_mod.check_types(mat_types)
+    walk = MAX_REFINE_LEVELS if levels is None else levels
 
-    def _params_and_alpha(grid: GuidingGrid, p, mp):
-        cid = cell_index(grid, p, levels=MAX_REFINE_LEVELS)
+    def _params_and_alpha(grid: GuidingGrid, mats, mid, p, frame, mp):
+        cid = cell_index(grid, p, levels=walk)
         params, a_scale = _gather_cells(grid, cid, with_alpha=True)
         if parallax:
             params = parallax_params(grid, cid, params, p)
+        if product:
+            params = product_params(params, frame.n)
         usable = params[-1] & ~_is_delta(mp.type)
+        if min_rough > 0.0:
+            diffuseish = ((mp.type == BSDFType.DIFFUSE) | (mp.type == BSDFType.ROUGH_DIFFUSE)
+                          | (mp.type == BSDFType.DIFFTRANS) | (mp.type == BSDFType.CLOTH))
+            usable = usable & (diffuseish | (mats.alpha[mid.long()] >= min_rough))
         return params, torch.where(usable, alpha * a_scale, 0.0)
 
     def guide(grid: GuidingGrid, mats, mid, p, frame, wi_local, u3, u_sel,
               u_lobe, tex=None, cloth_aux=None, params=None):
         mp = bsdf_mod.gather_params(mats, mid, tex) if params is None else params
-        gparams, a = _params_and_alpha(grid, p, mp)
+        gparams, a = _params_and_alpha(grid, mats, mid, p, frame, mp)
         bs = bsdf_mod.sample_p(mp, wi_local, u3, types=mat_types)
         d_guided = _mixture_sample(gparams, u_lobe, u3[..., 0:2])
         wo_guided = frame.to_local(d_guided)
@@ -75,7 +90,7 @@ def make_guide_fn(alpha: float = 0.5, mat_types=bsdf_mod.PORTED_TYPES, parallax:
         """Density the guided strategy gives an arbitrary direction (the
         density NEE's MIS weight must use)."""
         mp = bsdf_mod.gather_params(mats, mid) if params is None else params
-        gparams, a = _params_and_alpha(grid, p, mp)
+        gparams, a = _params_and_alpha(grid, mats, mid, p, frame, mp)
         return a * _mixture_pdf(gparams, dir_world) + (1.0 - a) * pdf_bsdf
 
     guide.alpha = alpha

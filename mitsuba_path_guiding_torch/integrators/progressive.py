@@ -5,9 +5,11 @@ integrators/progressive.py ``ProgressiveConfig`` and
 
 Each progression renders ``samples_per_progression`` spp as waves of the
 wavefront tracer with path records, sums the fitting statistics of its
-waves and makes one EM update of the vMF grid.  Per-pixel sample counters
-persist across progressions, so the random sequences continue.  Adaptive
-refinement (``refine_grid``) and media are ROADMAP Queue 1 items 7 and 9.
+waves and makes one EM update of the vMF grid, then, with
+``adaptive_refine``, splits the cells that gathered more than
+``refine_threshold`` samples.  Per-pixel sample counters persist across
+progressions, so the random sequences continue.  Media are ROADMAP Queue 1
+item 9.
 """
 from __future__ import annotations
 
@@ -18,6 +20,12 @@ from typing import Optional
 import torch
 
 from mitsuba_path_guiding_torch.film.film import Film, develop, new_film, splat
+from mitsuba_path_guiding_torch.guiding.fit import (
+    SPLIT_THRESHOLD,
+    accumulate_stats,
+    refine_grid,
+    update_grid,
+)
 from mitsuba_path_guiding_torch.guiding.grid import GuidingGrid, make_grid
 from mitsuba_path_guiding_torch.guiding.sampler import make_guide_fn
 from mitsuba_path_guiding_torch.integrators.path import trace
@@ -30,9 +38,6 @@ from mitsuba_path_guiding_torch.models.sensor import generate_rays
 from mitsuba_path_guiding_torch.scene.types import SceneData
 from mitsuba_path_guiding_torch.utils.logger import get_logger
 
-# share of directions drawn from the guiding mixture (one-sample MIS)
-GUIDE_ALPHA = 0.5
-
 
 @dataclass
 class ProgressiveConfig:
@@ -41,8 +46,15 @@ class ProgressiveConfig:
     n_progressions: int = 8           # total spp = spp_per_prog * n_prog
     max_seconds: float = 0.0          # > 0: time-budget mode
     guiding: bool = True
+    guide_alpha: float = 0.5          # share of directions drawn from the mixture
+    parallax: bool = True             # parallax-aware lobe reprojection
     grid_res: int = 16
     n_lobes: int = 8
+    # adaptive spatial refinement between progressions; capacity_factor
+    # reserves rows for the children
+    adaptive_refine: bool = False
+    refine_threshold: float = SPLIT_THRESHOLD
+    capacity_factor: int = 4
 
 
 class ProgressiveRenderer:
@@ -63,12 +75,13 @@ class ProgressiveRenderer:
         self.sample_counter = 0
         self.grid: Optional[GuidingGrid] = None
         if cfg.guiding:
-            self.grid = make_grid(scene.aabb_min, scene.aabb_max, res=cfg.grid_res,
-                                  n_lobes=cfg.n_lobes, capacity=cfg.grid_res**3)
+            self.grid = make_grid(
+                scene.aabb_min, scene.aabb_max, res=cfg.grid_res, n_lobes=cfg.n_lobes,
+                capacity=(cfg.capacity_factor if cfg.adaptive_refine else 1) * cfg.grid_res**3)
         self.em_kinds = kinds_present(scene.emitters)
         self.mat_types = types_present(scene.mats)
-        self.guide_fn = (make_guide_fn(GUIDE_ALPHA, mat_types=self.mat_types, parallax=True)
-                         if cfg.guiding else None)
+        self.guide_fn = (make_guide_fn(cfg.guide_alpha, mat_types=self.mat_types,
+                                       parallax=cfg.parallax) if cfg.guiding else None)
         self.stats = StatsRegistry()
 
     def _wave(self, pixel_id, sample_idx):
@@ -110,13 +123,13 @@ class ProgressiveRenderer:
         self.sample_counter += cfg.samples_per_progression
 
         if records:
-            from mitsuba_path_guiding_torch.guiding.fit import accumulate_stats, update_grid
-
             acc = None
             for rec in records:
                 st = accumulate_stats(self.grid, rec)
                 acc = st if acc is None else tuple(a + b for a, b in zip(acc, st))
             self.grid = update_grid(self.grid, *acc)
+            if cfg.adaptive_refine:
+                self.grid = refine_grid(self.grid, cfg.refine_threshold)
 
     def render(self) -> torch.Tensor:
         """Sample-budget (or time-budget) progressive render."""

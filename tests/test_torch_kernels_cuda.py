@@ -398,3 +398,97 @@ def test_bvh_box_tests_equal_the_reference_walks_pops(door):
     torch.cuda.synchronize()
     assert pops.float().mean() > 10
     assert torch.equal(counts[0], pops)
+
+
+def test_refine_and_guide_options_on_the_card(card):
+    """refine_grid and the product, min_rough-gated guide on CUDA tensors
+    against the same calls on the CPU: the refined grid equal field for
+    field, the guide's directions, densities and weights within the
+    tolerance of the card's transcendentals (rtol 1e-4 on 99% of lanes,
+    the port's trace tolerance), its delta flags and the gate equal."""
+    import numpy as np
+
+    from mitsuba_path_guiding_torch.core.math import Frame
+    from mitsuba_path_guiding_torch.guiding.fit import refine_grid
+    from mitsuba_path_guiding_torch.guiding.grid import make_grid
+    from mitsuba_path_guiding_torch.guiding.sampler import make_guide_fn
+    from mitsuba_path_guiding_torch.models.bsdf import types_present
+    from mitsuba_path_guiding_torch.scene.transforms import rotate, scale, translate
+    from torch_port_parity import frac_close
+
+    rc = {"type": "roughconductor", "eta": [0.2, 0.92, 1.1], "k": [3.9, 2.45, 2.14]}
+    floor = rotate([1, 0, 0], -90) @ scale(0.5)
+    lamp = translate(0, 2.0, 0) @ rotate([1, 0, 0], 90) @ scale(0.3)
+    spec = {"shapes": [
+        {"type": "rectangle", "to_world": translate(-1.0, 0, 0) @ floor,
+         "bsdf": {"type": "diffuse", "reflectance": [0.6, 0.6, 0.6]}},
+        {"type": "rectangle", "to_world": floor, "bsdf": {**rc, "alpha": 0.08}},
+        {"type": "rectangle", "to_world": translate(1.0, 0, 0) @ floor,
+         "bsdf": {**rc, "alpha": 0.5}},
+        {"type": "rectangle", "to_world": lamp, "emitter": {"radiance": [5.0] * 3},
+         "bsdf": {"type": "diffuse", "reflectance": [0.0] * 3}},
+    ]}
+    scenes = {dev: build_scene(spec, device=dev) for dev in ("cpu", "cuda")}
+    sc = scenes["cpu"]
+    rs = np.random.default_rng(11)
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.float32))
+
+    def unit(*shape):
+        return torch.nn.functional.normalize(f32(rs.normal(size=shape)), dim=-1)
+
+    g = make_grid(sc.aabb_min, sc.aabb_max, res=4, n_lobes=4, capacity=8 * 4**3)
+    c, k = g.kappa.shape
+    g = g._replace(mu=unit(c, k, 3), kappa=f32(0.5 + 60.0 * rs.random((c, k))),
+                   log_weight=f32(rs.normal(size=(c, k))),
+                   valid=torch.from_numpy(rs.random(c) < 0.8), alpha_scale=f32(rs.random(c)),
+                   s_count=f32(np.where(rs.random(c) < 0.3, 100.0, 1.0)))
+    on_card = g._replace(**{f: getattr(g, f).cuda() for f in g._fields
+                            if torch.is_tensor(getattr(g, f))})
+    grids = {"cpu": refine_grid(g, 50.0), "cuda": refine_grid(on_card, 50.0)}
+    assert grids["cpu"].n_used == grids["cuda"].n_used > 4**3
+    for f in g._fields:
+        a, b = getattr(grids["cpu"], f), getattr(grids["cuda"], f)
+        if torch.is_tensor(a):
+            assert b.is_cuda and torch.equal(a, b.cpu()), f
+
+    n = 65536
+    mats = sc.mats
+    mid = torch.from_numpy(rs.integers(0, mats.alpha.shape[0], n).astype(np.int32))
+    p = sc.aabb_min + (sc.aabb_max - sc.aabb_min) * f32(rs.random((n, 3)))
+    nrm, wi, d_nee = unit(n, 3), unit(n, 3), unit(n, 3)
+    wi[:, 2] = wi[:, 2].abs()
+    u = f32(rs.random((n, 5)))
+    pdf_b = f32(0.05 + rs.random(n))
+    guide = make_guide_fn(0.5, types_present(mats), product=True, min_rough=0.3)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        x = [v.to(dev) for v in (mid, p, nrm, wi, d_nee, u, pdf_b)]
+        args = (grids[dev], scenes[dev].mats, x[0], x[1], Frame.from_normal(x[2]))
+        out[dev] = [v.cpu() for v in (*guide(*args, x[3], x[5][:, 0:3], x[5][:, 3], x[5][:, 4]),
+                                      guide.pdf_at(*args, x[4], x[6]))]
+    for name, a, b in zip(("wo", "pdf", "weight", "is_delta", "pdf_at"), out["cpu"], out["cuda"]):
+        if name == "is_delta":
+            assert torch.equal(a, b)
+        else:
+            assert frac_close(b.numpy(), a.numpy(), rtol=1e-4) >= 0.99, name
+    narrow = (mats.type.long()[mid.long()] == 3) & (mats.alpha[mid.long()] < 0.3)
+    assert narrow.sum() > 0
+    assert torch.equal(out["cuda"][4][narrow], pdf_b[narrow])
+
+
+def test_cell_sums_repeat_and_equal_the_cpus(card):
+    """The fit's per-cell sums on the card: bit-equal from call to call,
+    and bit-equal to the CPU's serial ``index_add_`` (each cell's rows
+    added in row order) on a payload whose cell ids crowd the low cells."""
+    from mitsuba_path_guiding_torch.guiding.fit import cell_sums
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    n_cells = 4096
+    cid = (torch.rand((300_000,), generator=g, device="cuda") ** 4 * n_cells).long()
+    payload = torch.randn((300_000, 45), generator=g, device="cuda")
+    first = cell_sums(n_cells, cid, payload)
+    for _ in range(3):
+        assert torch.equal(cell_sums(n_cells, cid, payload), first)
+    assert torch.equal(first.cpu(), cell_sums(n_cells, cid.cpu(), payload.cpu()))
