@@ -1892,6 +1892,414 @@ def phase_new_timings(interior, door_tl, door, launches, card):
     return entries, gather_calls
 
 
+# ---------------------------------------------------------------------------
+# the shading breadth: analytic BSDF families, environment and delta
+# emitters, transparent shadows
+# ---------------------------------------------------------------------------
+
+SHADE_W = SHADE_H = 256
+FURNACE_SPP = {True: 48, False: 8}     # NEE on, NEE off (tests/test_render.py's bars)
+FURNACE_TOL = {True: 0.02, False: 1e-4}
+FURNACE_BORDER_ROWS = 32               # the sphere's top edge is at row 48
+FURNACE_CENTRE = slice(112, 144)       # well inside the sphere's disk
+MASK_SPP = 8
+MASK_DEPTH = 9                          # pass-throughs spend depth
+MASK_TOL = 0.05
+VEACH_W = VEACH_H = 512
+# Image means of the JAX package on the CPU, unguided, 128x128 x 64 spp (8
+# groups of 8 spp, seeds 1000-1007), depth 5, with their standard errors
+# over the groups (tools/shading_reference_means.py)
+SHADING_REFERENCE = {
+    "cornell_glass": (0.10983477998524904, 0.00023354688426345248),
+    "cornell_mirror": (0.11891961470246315, 0.0004703238832224376),
+    "veach_mis": (0.2850442975759506, 0.0036488629469124904),
+}
+# sample_direct on the card against the CPU: at least this share of lanes
+# bit-equal in every field, and every lane that is not explained by
+# area_sample_witness (an op of the area branch that, given the same
+# inputs, does not give the same bits on the card as on the CPU).  A
+# grazing lane's pdf, dist^2 / (|cos| area), amplifies such a last-bit
+# difference, hence its wider rtol.
+SAMPLE_DIRECT_MIN_EQUAL = 0.99
+SAMPLE_DIRECT_RTOL = {"direction": 1e-5, "distance": 1e-5, "radiance": 1e-5, "pdf": 1e-4}
+MASK_BSDF = {"type": "mask", "opacity": [0.0] * 3, "bsdf": {"type": "diffuse"}}
+BLEND_BSDF = {"type": "blendbsdf", "weight": 0.4,
+              "bsdfs": [{"type": "diffuse", "reflectance": [0.7, 0.2, 0.2]},
+                        {"type": "roughconductor", "material": "Au", "alpha": 0.2}]}
+
+
+def shading_scenes():
+    """The scenes of the shading phase, compiled on the card."""
+    import numpy as np
+
+    from mitsuba_path_guiding_torch.scene import scenes
+    from mitsuba_path_guiding_torch.scene.builder import build_scene
+
+    env = scenes.furnace(albedo=0.5, env_radiance=1.0)
+    env["emitters"] = [{"type": "envmap", "image": np.ones((16, 32, 3), np.float32)}]
+    mask = scenes.cornell_box()
+    mask["shapes"][5]["bsdf"] = MASK_BSDF
+    removed = scenes.cornell_box()
+    del removed["shapes"][5]
+    nested = scenes.cornell_box()
+    nested["shapes"][4]["bsdf"] = BLEND_BSDF
+    nested["shapes"][5]["bsdf"] = dict(MASK_BSDF, opacity=0.4)
+    descs = {"furnace": scenes.furnace(albedo=0.5, env_radiance=1.0), "furnace_env": env,
+             "cornell_glass": scenes.cornell_box(box_material="glass"),
+             "cornell_mirror": scenes.cornell_box(box_material="mirror"),
+             "cornell_mask": mask, "cornell_removed": removed, "cornell_nested": nested}
+    return {k: build_scene(v, device=DEVICE) for k, v in descs.items()}
+
+
+def glass_bounce_rays(scene, gen):
+    """The first refracted bounce of the glass box: the camera rays of one
+    256x256 wave that hit the glass, refracted at the hit into the box
+    (origins 1e-4 inside), with a third of the tmax unbounded, a third
+    short and a third dead."""
+    import torch
+
+    from mitsuba_path_guiding_torch.accel.traverse import intersect_pallas
+    from mitsuba_path_guiding_torch.core.math import dot
+    from mitsuba_path_guiding_torch.scene.types import BSDFType
+
+    o, d, _ = camera_rays(scene, 1, 0)
+    hit = intersect_pallas(scene.geo, o, d)
+    row = scene.geo.shade_packed[hit.prim.clamp_min(0).long()]
+    mid = row[:, 18].long()
+    glass = hit.valid & (scene.mats.type[mid] == BSDFType.DIELECTRIC)
+    ng = row[:, 0:3]
+    n_f = ng * -torch.sign(dot(ng, d))[:, None]
+    cos_i = -dot(d, n_f)
+    eta = 1.0 / scene.mats.eta[mid, 0]
+    k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
+    t_dir = eta[:, None] * d + (eta * cos_i - torch.sqrt(k.clamp_min(0.0)))[:, None] * n_f
+    p = o + hit.t[:, None] * d
+    sel = glass & (k > 0.0)
+    o2, d2 = (p - n_f * 1e-4)[sel], torch.nn.functional.normalize(t_dir[sel], dim=-1)
+    m = o2.shape[0]
+    pick = torch.randint(0, 3, (m,), generator=gen, device=o.device)
+    tmax = torch.where(pick == 0, 3.0e37, torch.where(
+        pick == 1, 1.5 * torch.rand((m,), generator=gen, device=o.device), -1.0))
+    return o2, d2, tmax
+
+
+def area_sample_witness(row, p, u):
+    """The area-light branch of ``emitter.sample_direct``, op for op, on
+    the CPU inputs ``row`` (32, N), ``p`` and ``u``: each op runs on the
+    CPU and, on a copy of the same inputs, on the card.  Returns, for each
+    op, the share of lanes where one of its uses gave the card other bits
+    than the CPU; the (N,) mask of lanes where any op did; and the CPU's
+    distance and pdf, which must be sample_direct's.  ``rounding`` says
+    which side's sqrt of dist^2 is correctly rounded: the share of lanes
+    where each differs from the float64 root rounded to float32."""
+    import torch
+
+    masks = {}
+
+    def op(name, f, *args):
+        want = f(*args)
+        got = f(*(a.to(DEVICE) for a in args)).cpu()
+        diff = (got != want) & ~(torch.isnan(got) & torch.isnan(want))
+        diff = diff.reshape(p.shape[0], -1).any(dim=-1)
+        masks[name] = masks.get(name, torch.zeros_like(diff)) | diff
+        return want
+
+    mul, add, sub = torch.mul, torch.add, torch.sub
+
+    def dot(a, b):
+        xy = op("add", add, op("mul", mul, a[..., 0], b[..., 0]), op("mul", mul, a[..., 1], b[..., 1]))
+        return op("add", add, xy, op("mul", mul, a[..., 2], b[..., 2]))
+
+    su = op("sqrt", torch.sqrt, op("clamp_min", lambda x: torch.clamp_min(x, 0.0), u[..., 1]))
+    b0 = op("sub", lambda x: 1.0 - x, su)
+    b1 = op("mul", mul, u[..., 2], su)
+    q = torch.stack([op("add", add, op("add", add, row[14 + k], op("mul", mul, b0, row[17 + k])),
+                        op("mul", mul, b1, row[20 + k])) for k in range(3)], dim=-1)
+    ng = torch.stack([row[23], row[24], row[25]], dim=-1)
+    to_q = op("sub", sub, q, p)
+    dist2 = op("clamp_min", lambda x: torch.clamp_min(x, 1e-12), dot(to_q, to_q))
+    dist = op("sqrt", torch.sqrt, dist2)
+    dir_a = op("div", lambda a, b: a / b[..., None], to_q, dist)
+    cos_l = dot(ng, -dir_a)
+    den = op("clamp_min", lambda x: torch.clamp_min(x, 1e-12),
+             op("mul", mul, torch.abs(cos_l), torch.clamp_min(row[13], 1e-12)))
+    pdf = op("div", torch.div, op("mul", mul, row[1], dist2), den)
+    flagged = torch.stack(list(masks.values())).any(dim=0)
+    exact = torch.sqrt(dist2.double()).float()
+    rounding = {"card_sqrt_off": float((torch.sqrt(dist2.to(DEVICE)).cpu() != exact).float().mean()),
+                "cpu_sqrt_off": float((dist != exact).float().mean())}
+    return {k: float(m.float().mean()) for k, m in masks.items()}, flagged, rounding, dist, pdf
+
+
+def phase_shading_kernel_checks(sc, veach):
+    """intersect_tiled bit-equal to tiled_plain on the furnace sphere's
+    camera wave and on the glass box's first refracted bounce;
+    gather_rows_t bit-equal on a material table with nested rows (and on
+    the nested rows' indices); sample_direct on veach_mis's 3840-emitter
+    table against its CPU result."""
+    import torch
+
+    from mitsuba_path_guiding_torch.models import bsdf as bsdf_mod
+    from mitsuba_path_guiding_torch.models.emitter import kinds_present, sample_direct
+    from mitsuba_path_guiding_torch.ops.gather import gather_rows_t, gather_rows_t_plain
+    from mitsuba_path_guiding_torch.scene.types import EmitterKind as K
+    from mitsuba_path_guiding_torch.scene.types import Emitters, Geometry
+
+    dev = DEVICE
+    gen = torch.Generator(device=dev).manual_seed(5)
+    res = {}
+    fur = sc["furnace"]
+    o, d, _ = camera_rays(fur, 1, 0)
+    tmax = torch.full((o.shape[0],), 3.0e37, device=dev)
+    res["intersect_tiled_furnace_camera"] = tiled_check(
+        fur.geo, o, d, tmax, fur.geo.p0.shape[0], "furnace camera")
+    glass = sc["cornell_glass"]
+    o, d, tmax = glass_bounce_rays(glass, gen)
+    check(o.shape[0] > 1000, f"glass bounce: only {o.shape[0]} rays refracted")
+    res["intersect_tiled_glass_bounce"] = tiled_check(
+        glass.geo, o, d, tmax, glass.geo.p0.shape[0], "glass refracted bounce")
+
+    mats = sc["cornell_nested"].mats
+    r = mats.packed.shape[0]
+    for dtype in (torch.int64, torch.int32):
+        idx = torch.randint(-3, r + 3, (524288,), generator=gen, device=dev).to(dtype)
+        got = gather_rows_t(mats.packed, idx)
+        torch.cuda.synchronize()
+        check(torch.equal(got, gather_rows_t_plain(mats.packed, idx)),
+              f"gather_rows_t nested table {dtype}: not bit-equal")
+    mid = torch.randint(0, r, (524288,), generator=gen, device=dev).to(torch.int32)
+    types = bsdf_mod.types_present(mats)
+    p = bsdf_mod.gather_params(mats, mid, types=types)
+    sub = torch.cat([p.sub_a.clamp_min(0), p.sub_b.clamp_min(0)])
+    check(torch.equal(gather_rows_t(mats.packed, sub), gather_rows_t_plain(mats.packed, sub)),
+          "gather_rows_t nested rows: not bit-equal")
+    pa_plain = mats.packed[p.sub_a.clamp_min(0).long(), 1:4]
+    check(torch.equal(p.nested[0].refl, pa_plain), "gather_params nested row A differs")
+    res["gather_rows_t_nested"] = {"table": f"{r}x32", "types": list(types),
+                                   "nested_rows": int((p.sub_a >= 0).sum()), "bit_equal": True}
+
+    em, geo = veach.emitters, veach.geo
+    n = 65536
+    lo, hi = veach.aabb_min, veach.aabb_max
+    pts = lo + (hi - lo) * torch.rand((n, 3), generator=gen, device=dev)
+    u = torch.rand((n, 3), generator=gen, device=dev)
+    kinds = kinds_present(em)
+    got = sample_direct(em, geo, pts, u, kinds=kinds)
+    want = sample_direct(Emitters(*(x.cpu() for x in em)),
+                         Geometry(*(None if x is None else x.cpu() for x in geo)),
+                         pts.cpu(), u.cpu(), kinds=kinds)
+    check(torch.equal(got.emitter_id.cpu(), want.emitter_id), "veach sample_direct: emitter ids")
+    check(torch.equal(got.is_delta.cpu(), want.is_delta), "veach sample_direct: delta flags")
+    check(set(kinds) == {K.AREA}, f"veach sample_direct: kinds {kinds}, the witness covers AREA")
+    eid = want.emitter_id.long()
+    shares, flagged, rounding, w_dist, w_pdf = area_sample_witness(em.packed.cpu()[eid].T.contiguous(),
+                                                                   pts.cpu(), u.cpu())
+    check(torch.equal(w_dist, want.distance) and torch.equal(w_pdf, want.pdf),
+          "veach sample_direct: the witness does not retrace the CPU's area branch")
+    errs, equal, unexplained = {}, {}, {}
+    for f in ("direction", "distance", "radiance", "pdf"):
+        a, b = getattr(got, f).cpu(), getattr(want, f)
+        errs[f] = float((a - b).abs().max())
+        same = (a == b).reshape(n, -1).all(dim=-1)
+        equal[f] = float(same.float().mean())
+        unexplained[f] = int((~same & ~flagged).sum())
+        check(equal[f] >= SAMPLE_DIRECT_MIN_EQUAL,
+              f"veach sample_direct: {f} bit-equal on only {equal[f]} of the lanes")
+        check(unexplained[f] == 0,
+              f"veach sample_direct: {f} differs on {unexplained[f]} lanes where every op agrees")
+        check(bool(torch.allclose(a, b, rtol=SAMPLE_DIRECT_RTOL[f], atol=1e-6)),
+              f"veach sample_direct: {f} off its CPU result by up to {errs[f]}")
+    res["sample_direct_veach"] = {"emitters": int(em.kind.shape[0]), "lanes": n,
+                                  "check": "ids and flags equal; every field bit-equal on at "
+                                           f"least {SAMPLE_DIRECT_MIN_EQUAL} of the lanes and "
+                                           "on every lane where each op of the witness agrees; "
+                                           f"the rest within {SAMPLE_DIRECT_RTOL} (rtol)",
+                                  "max_abs_err": errs, "bit_equal_share": equal,
+                                  "witness_op_differs_share": shares,
+                                  "witness_lanes_flagged": int(flagged.sum()),
+                                  "witness_sqrt_rounding": rounding,
+                                  "unexplained_lanes": unexplained}
+    emit({"phase": "shading_kernel_checks", **res})
+    return res
+
+
+def render_counted(scene, cfg):
+    """integrators.render.render with the path segments of its waves summed
+    (render_wave wrapped).  Returns (image, seconds, segments)."""
+    import torch
+
+    from mitsuba_path_guiding_torch.integrators import render as rmod
+
+    real = rmod.render_wave
+    segs = []
+
+    def counted(*a, **kw):
+        film_xy, L, aux = real(*a, **kw)
+        segs.append(aux.n_bounces.sum())
+        return film_xy, L, aux
+
+    rmod.render_wave = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img = rmod.render(scene, cfg)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+    finally:
+        rmod.render_wave = real
+    return img, dt, int(sum(int(s) for s in segs))
+
+
+def phase_furnace(scene, name, use_nee, card):
+    """The white furnace at 256x256, unguided render(): the top rows see the
+    unit environment (1 +- 1e-3), the sphere's centre albedo x env (0.5 +-
+    0.02 with NEE, +- 1e-4 without, where cosine sampling is
+    zero-variance)."""
+    import torch
+
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig
+
+    spp = FURNACE_SPP[use_nee]
+    img, dt, segs = render_counted(scene, RenderConfig(width=SHADE_W, height=SHADE_H, spp=spp,
+                                                       max_depth=DEPTH, use_nee=use_nee))
+    check(bool(torch.isfinite(img).all()), f"{name}: image not finite")
+    border = float(img[:FURNACE_BORDER_ROWS].mean())
+    centre = float(img[FURNACE_CENTRE, FURNACE_CENTRE].mean())
+    if use_nee:
+        check(abs(border - 1.0) < 1e-3, f"{name}: border {border}, expected 1 +- 1e-3")
+    tol = FURNACE_TOL[use_nee]
+    check(abs(centre - 0.5) < tol, f"{name}: centre {centre}, expected 0.5 +- {tol}")
+    rays = segs * (2 if use_nee else 1)
+    emit({"phase": name, "card": card, "spp": spp, "use_nee": use_nee, "seconds": round(dt, 3),
+          "border_mean": border, "centre_mean": centre, "centre_tol": tol,
+          "mrays_per_s": rays / dt / 1e6})
+
+
+def phase_reference_progressive(scene, name, width, height, card):
+    """ProgressiveRenderer at width x height, depth 5, 4 spp x 4, guided: the
+    image finite, non-black, its mean within max(3%, 4 standard errors) of
+    the JAX reference (SHADING_REFERENCE; the card's standard error from
+    the four progressions' own means), and the grid with valid cells."""
+    import torch
+
+    from mitsuba_path_guiding_torch.integrators.progressive import (
+        ProgressiveConfig,
+        ProgressiveRenderer,
+    )
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig
+
+    ref, ref_se = SHADING_REFERENCE[name]
+    cfg = ProgressiveConfig(render=RenderConfig(width=width, height=height, spp=0,
+                                                max_depth=DEPTH),
+                            samples_per_progression=4, n_progressions=4, guiding=True,
+                            grid_res=16, n_lobes=8)
+    renderer = ProgressiveRenderer(scene, cfg)
+    cum = []
+    run = renderer.run_progression
+
+    def run_and_record():
+        run()
+        rgbw = renderer.film.rgb_weight
+        cum.append(float((rgbw[:, 0:3] / rgbw[:, 3:4].clamp_min(1e-8)).mean()))
+
+    renderer.run_progression = run_and_record
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img = renderer.render()
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    mean = float(img.mean())
+    n_valid = int(renderer.grid.valid.sum())
+    check(bool(torch.isfinite(img).all()), f"{name}: image not finite")
+    check(mean > 0.0, f"{name}: image is black")
+    check(n_valid > 0, f"{name}: guiding grid has no valid cells")
+    own = [(k + 1) * cum[k] - k * cum[k - 1] if k else cum[0] for k in range(len(cum))]
+    se_card = statistics.stdev(own) / len(own) ** 0.5
+    tol = max(MEAN_TOL, 4.0 * (ref_se**2 + se_card**2) ** 0.5 / ref)
+    rel = abs(mean - ref) / ref
+    check(rel < tol, f"{name}: mean {mean} vs reference {ref} (tol {tol})")
+    segs = renderer.stats.get("rays traced") / 2
+    emit({"phase": name, "card": card, "resolution": f"{width}x{height}",
+          "seconds": round(dt, 3), "mean": mean, "reference_mean": ref, "reference_se": ref_se,
+          "rel_err": rel, "rel_tol": tol, "se_card": se_card, "progression_means": own,
+          "valid_cells": n_valid, "spp": renderer.sample_counter,
+          "mrays_per_s": 2 * segs / dt / 1e6})
+
+
+def phase_mask(scene, removed_mean, accel, card):
+    """The Cornell box with an opacity-0 mask on the tall box, unguided
+    render() at 256x256 x 8 spp, depth 9, through ``accel``: its mean
+    within 5% of the Cornell box without the tall box."""
+    import torch
+
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig
+
+    cfg = RenderConfig(width=SHADE_W, height=SHADE_H, spp=MASK_SPP, max_depth=MASK_DEPTH,
+                       seed=1, accel=accel)
+    img, dt, segs = render_counted(scene, cfg)
+    check(bool(torch.isfinite(img).all()), f"mask ({accel}): image not finite")
+    mean = float(img.mean())
+    rel = abs(mean - removed_mean) / removed_mean
+    check(rel < MASK_TOL, f"mask ({accel}): mean {mean} vs {removed_mean} without the box")
+    emit({"phase": f"cornell_mask_{accel}", "card": card, "spp": MASK_SPP,
+          "max_depth": MASK_DEPTH, "seconds": round(dt, 3), "mean": mean,
+          "without_box_mean": removed_mean, "rel_err": rel, "rel_tol": MASK_TOL,
+          "mrays_per_s": 2 * segs / dt / 1e6})
+
+
+def run_shading(sc, veach, card):
+    """The shading phase's routes, each between its own launch-count reset
+    and read.  Returns their launch counts by route."""
+    import torch
+
+    from mitsuba_path_guiding_torch.integrators.render import PIXEL_BATCH, RenderConfig, render
+
+    def waves(w, h, spp):
+        return -(-w * h // PIXEL_BATCH) * spp
+
+    def tiled(n_waves, depth=DEPTH, nee=True, gathers=3, shadow=1, large=0, bvh=False):
+        """A wavefront route: a closest-hit query a bounce and, with NEE,
+        ``shadow`` more; ``gathers`` fetches a bounce, ``large`` of them on
+        tables of more than 512 rows."""
+        queries = n_waves * depth * (1 + (shadow if nee else 0))
+        return {**NONE_LAUNCHED, "intersect_bvh" if bvh else "intersect_tiled": queries,
+                "gather_rows_t": n_waves * depth * gathers,
+                "gather_rows_t_large": n_waves * depth * large}
+
+    counts = {}
+    fw = {nee: waves(SHADE_W, SHADE_H, FURNACE_SPP[nee]) for nee in (True, False)}
+    for name in ("furnace", "furnace_env"):
+        for nee in (True, False):
+            route = f"{name}_{'nee' if nee else 'bsdf'}"
+            # the 9024-row shading table is a large one
+            _, counts[route] = drive(route, lambda: phase_furnace(sc[name], route, nee, card),
+                                     tiled(fw[nee], nee=nee, gathers=3 if nee else 2,
+                                           large=1))
+    cw = waves(SHADE_W, SHADE_H, 16)
+    for name in ("cornell_glass", "cornell_mirror"):
+        _, counts[name] = drive(name, lambda: phase_reference_progressive(
+            sc[name], name, SHADE_W, SHADE_H, card), tiled(cw))
+    torch.cuda.synchronize()
+    removed = render(sc["cornell_removed"], RenderConfig(width=SHADE_W, height=SHADE_H,
+                                                         spp=MASK_SPP, max_depth=MASK_DEPTH,
+                                                         seed=1))
+    removed_mean = float(removed.mean())
+    mw = waves(SHADE_W, SHADE_H, MASK_SPP)
+    for accel in ("auto", "bvh"):
+        # a bounce: shading, material, nested material and emitter rows,
+        # and the shadow march's four closest hits, each with its shading
+        # and material rows
+        _, counts[f"cornell_mask_{accel}"] = drive(
+            f"cornell_mask_{accel}", lambda: phase_mask(sc["cornell_mask"], removed_mean, accel,
+                                                        card),
+            tiled(mw, depth=MASK_DEPTH, gathers=4 + 2 * 4, shadow=4, bvh=accel == "bvh"))
+    # veach_mis: the 3850-row shading table and the 3840-row emitter table
+    # are large ones
+    _, counts["veach_mis"] = drive("veach_mis", lambda: phase_reference_progressive(
+        veach, "veach_mis", VEACH_W, VEACH_H, card), tiled(waves(VEACH_W, VEACH_H, 16), large=2))
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -1994,12 +2402,17 @@ def main(argv=None):
     _, c_door_gain = drive("guiding_gain_door_room", lambda: phase_gain_door_room(door, card),
                            {**NONE_LAUNCHED, **door_gathers(door_gain_waves),
                             "intersect_bvh": 2 * DEPTH * door_gain_waves})
+    # the shading breadth, last: its kernel checks on the new ray
+    # distributions, then its routes
+    shading = shading_scenes()
+    phase_shading_kernel_checks(shading, veach)
+    c_shading = run_shading(shading, veach, card)
     routes = {"progressive": c_prog, "frozen_render": c_frozen, "unguided_render": c_render,
               "progressive_adaptive": c_adaptive, "guiding_gain_bounce_lamp": c_bounce,
               "guiding_gain_door_room": c_door_gain,
               "door_room_progressive": c_door, "door_room_plk": c_plk, **interior["launches"],
               "door_room_twolevel": door_tl["launches"], "door_room_sorted_blocklist": c_sorted,
-              "door_room_bvh": c_bvh}
+              "door_room_bvh": c_bvh, **c_shading}
     launches = {k: {r: c[k] for r, c in routes.items()} for k in c_prog}
 
     entries = phase_timings(scene, veach, tables, grid, checks, launches, card)

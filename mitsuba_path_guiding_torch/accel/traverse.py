@@ -12,6 +12,8 @@ pair pipeline with the blocklist kernel re-tracing its unproven rays;
 without, through ``intersect_twolevel`` / ``occluded_twolevel``, the
 blocklist kernel on Morton-sorted rays.  On the card each query launches
 its kernels; on the CPU it runs their plain versions.
+``shadow_transmittance`` marches shadow rays through NULL and MASK
+surfaces with any of these closest-hit queries.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from mitsuba_path_guiding_torch.ops.intersect_blocklist import (
     occluded_blocklist_raw,
     occluded_blocklist_sorted,
 )
+from mitsuba_path_guiding_torch.ops.gather import gather_rows_t
 from mitsuba_path_guiding_torch.ops.intersect_bvh import bvh_query
 from mitsuba_path_guiding_torch.ops.intersect_pairs import intersect_pairs_raw
 from mitsuba_path_guiding_torch.ops.intersect_tiled import (
@@ -33,7 +36,7 @@ from mitsuba_path_guiding_torch.ops.intersect_tiled import (
     intersect_tiled,
     pack_triangles,
 )
-from mitsuba_path_guiding_torch.scene.types import BVH, BlockList, Geometry, PairTable
+from mitsuba_path_guiding_torch.scene.types import BSDFType, BVH, BlockList, Geometry, PairTable
 
 INF = 3.0e38
 EPS_T = 1e-4  # min ray t (self-intersection offset)
@@ -147,3 +150,33 @@ def occluded_twolevel(blocks: BlockList, o, d, tmax) -> torch.Tensor:
     """Any-hit visibility through the blocklist kernel on Morton-sorted
     rays."""
     return occluded_blocklist_sorted(blocks, o, d, tmax)
+
+
+MAX_HITS = 4  # closest hits a shadow ray marches through, as in the reference
+
+
+def shadow_transmittance(geo: Geometry, mats_packed, o, d, tmax, intersect) -> torch.Tensor:
+    """Transmittance of shadow rays through transparent surfaces (the
+    surface part of the reference's Scene::evalTransmittance): up to
+    ``MAX_HITS`` closest hits, each multiplying the (N,) transmittance by
+    its material's straight-through fraction, NULL 1, MASK 1 - opacity,
+    any other material 0.  ``intersect(o, d, tmax)`` is the closest-hit
+    query of the caller's route (the path tracer passes its wave's own,
+    so that the card runs its kernel).  A lane whose transmittance
+    reached 0 marches on with a dead tmax (its result cannot change).
+    Each step fetches the hit's shading row and material row through
+    ``gather_rows_t``."""
+    tr = torch.ones((o.shape[0],), dtype=torch.float32, device=o.device)
+    o_cur, t_rem = o, tmax
+    for _ in range(MAX_HITS):
+        h = intersect(o_cur, d, t_rem)
+        mid = gather_rows_t(geo.shade_packed, torch.clamp_min(h.prim, 0))[18].to(torch.int32)
+        mrow = gather_rows_t(mats_packed, mid)
+        mtype = mrow[0].to(torch.int32)
+        pass_frac = torch.where(mtype == BSDFType.NULL, 1.0,
+                                torch.where(mtype == BSDFType.MASK, 1.0 - mrow[18], 0.0))
+        tr = torch.where(h.valid, tr * pass_frac, tr)
+        step = torch.where(h.valid, h.t + EPS_T, 0.0)
+        o_cur = o_cur + step[..., None] * d
+        t_rem = torch.where(tr > 0.0, t_rem - step, -1.0)
+    return tr

@@ -75,6 +75,50 @@ def cos_theta(v):
     return v[..., 2]
 
 
+def abs_cos_theta(v):
+    return torch.abs(v[..., 2])
+
+
+def sin_theta2(v):
+    return torch.clamp_min(1.0 - v[..., 2] * v[..., 2], 0.0)
+
+
+def tan_theta2(v):
+    c2 = v[..., 2] * v[..., 2]
+    return sin_theta2(v) / torch.clamp_min(c2, 1e-20)
+
+
+def reflect_local(wi: torch.Tensor) -> torch.Tensor:
+    """Specular reflection in the local frame (negate x, y)."""
+    return torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], dim=-1)
+
+
+def refract_local(wi: torch.Tensor, eta: torch.Tensor):
+    """Refraction in the local frame; ``eta`` the interior/exterior IOR
+    ratio.  Returns (wt, total internal reflection mask)."""
+    rel_eta = torch.where(cos_theta(wi) > 0.0, eta, 1.0 / eta)
+    c2 = 1.0 - (1.0 - wi[..., 2] * wi[..., 2]) / (rel_eta * rel_eta)
+    tir = c2 <= 0.0
+    ct_t = safe_sqrt(c2) * -torch.sign(wi[..., 2])
+    scale = -1.0 / rel_eta
+    wt = torch.stack([wi[..., 0] * scale, wi[..., 1] * scale, ct_t], dim=-1)
+    return wt, tir
+
+
+def fresnel_dielectric(cos_i: torch.Tensor, eta: torch.Tensor) -> torch.Tensor:
+    """Unpolarised Fresnel reflectance of a dielectric interface (the
+    reference's fresnelDielectricExt); 1 under total internal reflection."""
+    rel_eta = torch.where(cos_i > 0.0, eta, 1.0 / eta)
+    ci = torch.abs(cos_i)
+    st2 = torch.clamp_min(1.0 - ci * ci, 0.0) / (rel_eta * rel_eta)
+    tir = st2 >= 1.0
+    ct = safe_sqrt(1.0 - st2)
+    r_s = (ci - rel_eta * ct) / torch.clamp_min(ci + rel_eta * ct, 1e-12)
+    r_p = (rel_eta * ci - ct) / torch.clamp_min(rel_eta * ci + ct, 1e-12)
+    f = 0.5 * (r_s * r_s + r_p * r_p)
+    return torch.where(tir, 1.0, f)
+
+
 def fresnel_conductor(cos_i: torch.Tensor, eta: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Unpolarised conductor Fresnel per channel (the reference's
     fresnelConductorExact form).  cos_i (...,), eta/k (..., 3) -> (..., 3)."""

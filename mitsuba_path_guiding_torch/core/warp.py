@@ -1,5 +1,5 @@
 """Sample warping, unit square -> disks/spheres/triangles (port of the
-reference's core/warp.py; only the warps this slice's path calls)."""
+reference's core/warp.py; the warps the port's paths and tests call)."""
 from __future__ import annotations
 
 import math
@@ -9,6 +9,7 @@ import torch
 from mitsuba_path_guiding_torch.core.math import safe_sqrt
 
 INV_PI = 1.0 / math.pi
+INV_TWOPI = 1.0 / (2.0 * math.pi)
 INV_FOURPI = 1.0 / (4.0 * math.pi)
 
 
@@ -21,6 +22,17 @@ def square_to_uniform_sphere(u):
 
 def square_to_uniform_sphere_pdf(d):
     return torch.full(d.shape[:-1], INV_FOURPI, device=d.device)
+
+
+def square_to_uniform_hemisphere(u):
+    z = u[..., 0]
+    r = safe_sqrt(1.0 - z * z)
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def square_to_uniform_hemisphere_pdf(d):
+    return torch.where(d[..., 2] >= 0.0, INV_TWOPI, 0.0)
 
 
 def square_to_uniform_disk_concentric(u):
@@ -44,6 +56,10 @@ def square_to_uniform_disk_concentric(u):
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
 
 
+def square_to_uniform_disk_pdf(p):
+    return torch.full(p.shape[:-1], INV_PI, device=p.device)
+
+
 def square_to_cosine_hemisphere(u):
     """Malley's method via the concentric disk."""
     p = square_to_uniform_disk_concentric(u)
@@ -53,6 +69,20 @@ def square_to_cosine_hemisphere(u):
 
 def square_to_cosine_hemisphere_pdf(d):
     return torch.clamp_min(d[..., 2], 0.0) * INV_PI
+
+
+def square_to_uniform_cone(u, cos_cutoff):
+    """Uniform on the spherical cap cos(theta) in [cos_cutoff, 1]."""
+    z = 1.0 - u[..., 0] * (1.0 - cos_cutoff)
+    r = safe_sqrt(1.0 - z * z)
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def square_to_uniform_cone_pdf(d, cos_cutoff):
+    inside = d[..., 2] >= cos_cutoff
+    span = torch.as_tensor(1.0 - cos_cutoff, dtype=d.dtype, device=d.device)
+    return torch.where(inside, INV_TWOPI / torch.clamp_min(span, 1e-12), 0.0)
 
 
 def square_to_uniform_triangle(u):

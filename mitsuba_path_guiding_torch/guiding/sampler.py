@@ -42,7 +42,7 @@ def make_guide_fn(alpha: float = 0.5, mat_types=bsdf_mod.PORTED_TYPES, product: 
     ``parallax`` re-aims each lobe at its virtual source from the shading
     point; ``product`` then multiplies the mixture by a cosine lobe about
     the shading normal.  ``min_rough`` > 0 guides only the diffuse-class
-    families and materials at least that rough (the raw ``alpha``
+    families (DIFFUSE, ROUGH_DIFFUSE, DIFFTRANS) and materials at least that rough (the raw ``alpha``
     column): a coarse cache cannot out-sample a narrow BSDF lobe.
 
     The callback and its ``pdf_at`` take an optional ``params``: the lane's
@@ -61,13 +61,13 @@ def make_guide_fn(alpha: float = 0.5, mat_types=bsdf_mod.PORTED_TYPES, product: 
         usable = params[-1] & ~_is_delta(mp.type)
         if min_rough > 0.0:
             diffuseish = ((mp.type == BSDFType.DIFFUSE) | (mp.type == BSDFType.ROUGH_DIFFUSE)
-                          | (mp.type == BSDFType.DIFFTRANS) | (mp.type == BSDFType.CLOTH))
+                          | (mp.type == BSDFType.DIFFTRANS))
             usable = usable & (diffuseish | (mats.alpha[mid.long()] >= min_rough))
         return params, torch.where(usable, alpha * a_scale, 0.0)
 
     def guide(grid: GuidingGrid, mats, mid, p, frame, wi_local, u3, u_sel,
               u_lobe, tex=None, cloth_aux=None, params=None):
-        mp = bsdf_mod.gather_params(mats, mid, tex) if params is None else params
+        mp = bsdf_mod.gather_params(mats, mid, tex, types=mat_types) if params is None else params
         gparams, a = _params_and_alpha(grid, mats, mid, p, frame, mp)
         bs = bsdf_mod.sample_p(mp, wi_local, u3, types=mat_types)
         d_guided = _mixture_sample(gparams, u_lobe, u3[..., 0:2])
@@ -89,7 +89,7 @@ def make_guide_fn(alpha: float = 0.5, mat_types=bsdf_mod.PORTED_TYPES, product: 
     def pdf_at(grid: GuidingGrid, mats, mid, p, frame, dir_world, pdf_bsdf, params=None):
         """Density the guided strategy gives an arbitrary direction (the
         density NEE's MIS weight must use)."""
-        mp = bsdf_mod.gather_params(mats, mid) if params is None else params
+        mp = bsdf_mod.gather_params(mats, mid, types=mat_types) if params is None else params
         gparams, a = _params_and_alpha(grid, mats, mid, p, frame, mp)
         return a * _mixture_pdf(gparams, dir_world) + (1.0 - a) * pdf_bsdf
 

@@ -11,8 +11,13 @@ follows the reference's routing with the card in the TPU's place
 (``trace``'s docstring): pair route, Morton-sorted blocklist, BVH,
 tiled kernel or dense oracle.
 
-Not ported here (they raise): textures, bump maps and cloth, explicit
-``uniforms`` and transparent shadows (ROADMAP Queue 1 items 4 and 9).
+When NULL or MASK is among the scene's types, shadow rays march through
+transparent surfaces (``accel.traverse.shadow_transmittance`` with the
+wave's own closest-hit query), and a straight pass-through keeps the MIS
+state of the last real vertex while its distance accumulates.
+
+Not ported here (they raise): textures, bump maps and cloth, and explicit
+``uniforms`` (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from mitsuba_path_guiding_torch.accel.traverse import (
     occluded_pairs_full,
     occluded_pallas,
     occluded_twolevel,
+    shadow_transmittance,
     tri_pack_rows,
 )
 from mitsuba_path_guiding_torch.accel.traverse import occluded as occluded_bvh
@@ -39,7 +45,7 @@ from mitsuba_path_guiding_torch.core.spectrum import luminance
 from mitsuba_path_guiding_torch.models import bsdf as bsdf_mod
 from mitsuba_path_guiding_torch.models import emitter as em_mod
 from mitsuba_path_guiding_torch.ops.gather import gather_rows_t
-from mitsuba_path_guiding_torch.scene.types import SceneData
+from mitsuba_path_guiding_torch.scene.types import BSDFType, SceneData
 
 INFD = 3.0e37
 
@@ -121,10 +127,11 @@ def trace(
     - "bvh", or "auto" on a smaller scene with ``use_bvh``: the BVH, for
       shadows too;
     - "pallas", or "auto" otherwise: the tiled intersector;
-    - "brute": the dense oracle."""
+    - "brute": the dense oracle.
+    Shadow rays through NULL and MASK surfaces march with the route's
+    closest-hit query."""
     _check_supported(scene, use_bvh, accel, textured, bumped, clothed, uniforms, cone_angle)
     bsdf_mod.check_types(mat_types)
-    em_mod.check_kinds(em_kinds)
     n = ray_o.shape[0]
     dev = ray_o.device
     geo, mats, em = scene.geo, scene.mats, scene.emitters
@@ -164,6 +171,16 @@ def trace(
         def occluded(o, d, tmax):
             return occluded_pallas(geo, o, d, tmax, pack=pack)
 
+    # null and mask surfaces transmit shadow rays; boolean occlusion where
+    # the scene has no transparent material
+    transparent = BSDFType.NULL in mat_types or BSDFType.MASK in mat_types
+    if transparent:
+        def visibility(o_, d_, tmax_):
+            return shadow_transmittance(geo, mats.packed, o_, d_, tmax_, intersect)
+    else:
+        def visibility(o_, d_, tmax_):
+            return 1.0 - occluded(o_, d_, tmax_).to(torch.float32)
+
     f32 = dict(dtype=torch.float32, device=dev)
     o, d = ray_o, ray_d
     L = torch.zeros((n, 3), **f32)
@@ -171,6 +188,7 @@ def trace(
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
     prev_pdf = torch.full((n,), INFD, **f32)
     prev_delta = torch.ones((n,), dtype=torch.bool, device=dev)
+    t_acc = torch.zeros((n,), **f32)  # distance through straight pass-throughs
     aux = PathAux(
         albedo=torch.zeros((n, 3), **f32),
         normal=torch.zeros((n, 3), **f32),
@@ -215,14 +233,17 @@ def trace(
         ns = torch.where(dot(ns, ng)[..., None] < 0.0, -ns, ns)
         mid = row[18].to(torch.int32)
         is_emitter = row[19] >= 0.0
-        mp = bsdf_mod.gather_params(mats, mid)
+        mp = bsdf_mod.gather_params(mats, mid, types=mat_types)
 
         # emissive hit with MIS against NEE
         cos_l = dot(ng, -d)
         Le = torch.where((is_emitter & (cos_l > 0.0))[..., None],
                          torch.stack([row[20], row[21], row[22]], dim=-1), 0.0)
         if use_nee:
-            dist2 = t_hit * t_hit
+            # the distance through straight pass-throughs keeps NEE's MIS
+            # consistent across them
+            d_mis = t_hit + t_acc
+            dist2 = d_mis * d_mis
             pdf_nee_hit = row[23] * dist2 / torch.clamp_min(
                 torch.abs(cos_l) * torch.clamp_min(row[25], 1e-12), 1e-12)
             pdf_nee_hit = torch.where(is_emitter, pdf_nee_hit, 0.0)
@@ -256,8 +277,7 @@ def trace(
                 pdf_dir_nee = pdf_bsdf_nee
             o_sh = _offset_ray(p, ng, ds.direction)
             t_sh = torch.where(ds.distance >= INFD, INFD, ds.distance * (1.0 - 1e-3))
-            vis = 1.0 - occluded(o_sh, ds.direction,
-                                 torch.where(act, t_sh, -1.0)).to(torch.float32)
+            vis = visibility(o_sh, ds.direction, torch.where(act, t_sh, -1.0))
             w_mis = torch.where(ds.is_delta, 1.0, power_heuristic(ds.pdf, pdf_dir_nee))
             contrib = (T * f_nee * ds.radiance
                        * (vis * w_mis / torch.clamp_min(ds.pdf, 1e-12))[..., None])
@@ -283,6 +303,17 @@ def trace(
             T_new = torch.where(cont[..., None], T_new / torch.clamp_min(q, 1e-6)[..., None], T_new)
             cont = cont & (u[..., 8] < q)
 
+        # a straight pass-through (null or mask transmission) keeps the MIS
+        # state of the last real vertex and accumulates its distance; else a
+        # light behind the surface would get delta weight 1 and full NEE
+        if transparent:
+            straight = next_delta & (dot(wo_world, d) > 1.0 - 1e-6)
+            next_pdf_c = torch.where(straight, prev_pdf, next_pdf)
+            next_delta_c = torch.where(straight, prev_delta, next_delta)
+            t_acc_new = torch.where(straight, t_acc + t_hit, 0.0)
+        else:
+            next_pdf_c, next_delta_c, t_acc_new = next_pdf, next_delta, torch.zeros_like(t_acc)
+
         o_next = _offset_ray(p, ng, wo_world)
         if record_paths:
             recs.append((
@@ -294,8 +325,9 @@ def trace(
         o = torch.where(cont[..., None], o_next, o)
         d = torch.where(cont[..., None], wo_world, d)
         T = torch.where(cont[..., None], T_new, T)
-        prev_pdf = torch.where(cont, next_pdf, prev_pdf)
-        prev_delta = torch.where(cont, next_delta, prev_delta)
+        prev_pdf = torch.where(cont, next_pdf_c, prev_pdf)
+        prev_delta = torch.where(cont, next_delta_c, prev_delta)
+        t_acc = torch.where(cont, t_acc_new, t_acc)
         alive = cont
 
     record = None

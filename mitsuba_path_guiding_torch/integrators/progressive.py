@@ -91,7 +91,7 @@ class ProgressiveRenderer:
                                       u_cam[..., 2:4], kind=self.scene.sensor.kind)
         L, aux, rec = trace(
             self.scene, o, d, rkeys, max_depth=r.max_depth, rr_depth=r.rr_depth,
-            guide=self.guide_fn, guide_state=self.grid, record_paths=self.grid is not None,
+            use_nee=r.use_nee, accel=r.accel, guide=self.guide_fn, guide_state=self.grid, record_paths=self.grid is not None,
             em_kinds=self.em_kinds, mat_types=self.mat_types,
         )
         return film_xy, L, aux, rec
@@ -117,7 +117,7 @@ class ProgressiveRenderer:
                     records.append(rec)
         seg_total = int(seg_total)
         self.stats.add("samples", lane_total)
-        self.stats.add("rays traced", seg_total * 2)  # path and shadow rays
+        self.stats.add("rays traced", seg_total * (2 if r.use_nee else 1))  # path and shadow rays
         self.stats.average("avg path length", seg_total, max(lane_total, 1))
         self.film = Film(rgb_weight=rgbw, width=r.width, height=r.height)
         self.sample_counter += cfg.samples_per_progression

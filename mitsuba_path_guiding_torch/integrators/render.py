@@ -2,7 +2,7 @@
 reference's integrators/render.py ``RenderConfig``, ``wave_keys_and_jitter``,
 ``camera_jitter``, ``render_wave`` and ``render``).
 
-On the card, unguided waves of a supported scene (diffuse materials, area
+On the card, unguided waves with NEE of a supported scene (diffuse materials, area
 lights, at most 2048 triangles) take the fused megakernel
 (``ops.fused_path.trace_fused``), as the reference does on the TPU; every
 other wave runs the wavefront ``integrators.path.trace``.
@@ -47,6 +47,8 @@ class RenderConfig(NamedTuple):
     max_depth: int = 5
     rr_depth: int = 5
     seed: int = 0
+    use_nee: bool = True
+    accel: str = "auto"  # integrators.path.trace's route
 
 
 def camera_jitter(cfg, sample_idx, u_cam):
@@ -78,7 +80,7 @@ def render_wave(scene: SceneData, cfg: RenderConfig, pixel_id, sample_idx,
         em_kinds = kinds_present(scene.emitters)
     mat_types = types_present(scene.mats)
     fused_tables = None
-    if guide is None and pixel_id.is_cuda:
+    if guide is None and cfg.use_nee and pixel_id.is_cuda:
         fused_tables = _fused_tables_for(scene)
     if guide is None:
         from mitsuba_path_guiding_torch.guiding.sampler import make_guide_fn
@@ -96,8 +98,8 @@ def render_wave(scene: SceneData, cfg: RenderConfig, pixel_id, sample_idx,
                                 rr_depth=cfg.rr_depth, guided=False)
     else:
         L, aux, _ = trace(scene, o, d, rkeys, max_depth=cfg.max_depth, rr_depth=cfg.rr_depth,
-                          guide=guide, guide_state=guide_state, em_kinds=em_kinds,
-                          mat_types=mat_types)
+                          use_nee=cfg.use_nee, guide=guide, guide_state=guide_state,
+                          em_kinds=em_kinds, mat_types=mat_types, accel=cfg.accel)
     return film_xy, L, aux
 
 

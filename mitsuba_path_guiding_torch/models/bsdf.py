@@ -1,28 +1,50 @@
-"""Wavefront BSDF layer: the DIFFUSE and ROUGH_CONDUCTOR families (port of
-the reference's models/bsdf.py ``gather_params``, ``eval_pdf``,
-``sample`` and ``albedo``).
+"""Wavefront BSDF layer (port of the reference's models/bsdf.py
+``gather_params``, ``eval_pdf``, ``sample`` and ``albedo``): every family
+present is evaluated on the whole wavefront and each lane keeps the
+result of its own material type.
 
 Conventions are the reference's: directions in the local shading frame
 (+z = shading normal), ``wi`` toward the previous vertex, ``eval`` returns
 f * |cos(wo)|, ``sample`` returns (wo, weight = f cos / pdf, pdf,
-is_delta), reflective families act two-sided.  ``types`` is the static
-tuple of families present; any other family raises (ROADMAP Queue 1
-item 5).  The rough conductor is GGX with visible-normal sampling and
-the conductor Fresnel term.
+is_delta) and uses u[..., 0:2] for the direction and u[..., 2] for the
+lobe; delta lobes have a discrete pdf and are invisible to eval/pdf.
+Reflective families act two-sided; DIELECTRIC, ROUGH_DIELECTRIC, NULL and
+THINDIELECTRIC keep the side of ``wi``.  ``types`` is the static tuple of
+families present.
+
+Ported families: DIFFUSE, ROUGH_DIFFUSE (Oren-Nayar), CONDUCTOR,
+ROUGH_CONDUCTOR (GGX, visible normals), DIELECTRIC, ROUGH_DIELECTRIC,
+THINDIELECTRIC, PLASTIC, ROUGH_PLASTIC, PHONG, WARD, DIFFTRANS, NULL, and
+the one-level wrappers BLEND (``blendbsdf`` / ``mixturebsdf``) and MASK.
+COATING and HK (they need ``models/microfacet_tables.py``) and CLOTH
+raise (ROADMAP Queue 1 items 5 and 9).
 
 Every entry point takes either ``(mats, mid)`` or, through the ``*_p``
 variants, the lane's material row already gathered by ``gather_params``:
 the path tracer fetches that row once per bounce and reuses it for NEE
-evaluation, sampling and the albedo AOV, which gives the same values as
-the reference's repeated gathers.
+evaluation, sampling and the albedo AOV.  When BLEND or MASK is among the
+types, ``gather_params`` also fetches the two nested rows, in a second
+``gather_rows_t`` call; the reference gathers them again at each use,
+which gives the same values.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
-from mitsuba_path_guiding_torch.core.math import cos_theta, dot, fresnel_conductor, normalize
+from mitsuba_path_guiding_torch.core.math import (
+    Frame,
+    cos_theta,
+    dot,
+    fresnel_conductor,
+    fresnel_dielectric,
+    normalize,
+    reflect_local,
+    refract_local,
+    safe_sqrt,
+)
 from mitsuba_path_guiding_torch.core.warp import (
     INV_PI,
     square_to_cosine_hemisphere,
@@ -39,19 +61,22 @@ from mitsuba_path_guiding_torch.models.microfacet import (
 from mitsuba_path_guiding_torch.ops.gather import gather_rows_t
 from mitsuba_path_guiding_torch.scene.types import BSDFType, Materials
 
-PORTED_TYPES = (BSDFType.DIFFUSE, BSDFType.ROUGH_CONDUCTOR)
+T = BSDFType
+PORTED_TYPES = (T.DIFFUSE, T.CONDUCTOR, T.DIELECTRIC, T.ROUGH_CONDUCTOR, T.PLASTIC,
+                T.ROUGH_DIELECTRIC, T.NULL, T.ROUGH_PLASTIC, T.ROUGH_DIFFUSE, T.PHONG, T.MASK,
+                T.WARD, T.DIFFTRANS, T.BLEND, T.THINDIELECTRIC)
+NESTED_TYPES = (T.BLEND, T.MASK)
 
 
 class BSDFSample(NamedTuple):
     wo: torch.Tensor        # (N, 3) local frame
     weight: torch.Tensor    # (N, 3) f * cos / pdf
-    pdf: torch.Tensor       # (N,) solid-angle pdf
+    pdf: torch.Tensor       # (N,) solid-angle pdf (discrete for delta lobes)
     is_delta: torch.Tensor  # (N,) bool
 
 
 class _P(NamedTuple):
-    """Per-lane gathered material parameters (those the ported families
-    read; the other families add theirs when they are ported)."""
+    """Per-lane gathered material parameters."""
 
     type: torch.Tensor
     refl: torch.Tensor
@@ -59,13 +84,19 @@ class _P(NamedTuple):
     eta: torch.Tensor
     k: torch.Tensor
     alpha: torch.Tensor
+    alpha_v: torch.Tensor
+    sub_a: torch.Tensor    # int32 nested material row (-1 none)
+    sub_b: torch.Tensor
+    weight: torch.Tensor   # blend factor / mask opacity
+    nested: Optional[tuple] = None  # (_P of sub_a, _P of sub_b), see gather_params
 
 
 def check_types(types) -> None:
     missing = sorted(set(types) - set(PORTED_TYPES))
     if missing:
         raise NotImplementedError(
-            f"BSDF families {missing} are not ported yet: ROADMAP Queue 1 item 5")
+            f"BSDF families {missing} are not ported yet: ROADMAP Queue 1 item 5 "
+            "(COATING and HK with microfacet_tables, the next slice) or item 9 (CLOTH)")
 
 
 def types_present(mats: Materials):
@@ -73,29 +104,90 @@ def types_present(mats: Materials):
     return tuple(sorted(set(mats.type.cpu().tolist())))
 
 
-def gather_params(mats: Materials, mid: torch.Tensor, tex=None) -> _P:
-    """One packed material-row gather per lane (``Materials.packed``)."""
-    if tex is not None:
-        raise NotImplementedError("textured reflectance: ROADMAP Queue 1 item 9")
-    row = gather_rows_t(mats.packed, mid)  # (32, N)
+def _has_nested(types) -> bool:
+    return any(t in types for t in NESTED_TYPES)
 
+
+def _row_params(row) -> _P:
     def v3(a):
         return torch.stack([row[a], row[a + 1], row[a + 2]], dim=-1)
 
     return _P(type=row[0].to(torch.int32), refl=v3(1), spec=v3(4), eta=v3(7), k=v3(10),
-              alpha=torch.clamp_min(row[13], ALPHA_MIN))
+              alpha=torch.clamp_min(row[13], ALPHA_MIN),
+              alpha_v=torch.clamp_min(row[15], ALPHA_MIN),
+              sub_a=row[16].to(torch.int32), sub_b=row[17].to(torch.int32), weight=row[18])
 
 
-def _flip_two_sided(wi):
+def gather_params(mats: Materials, mid: torch.Tensor, tex=None, *, types) -> _P:
+    """One packed material-row gather per lane (``Materials.packed``), and,
+    when BLEND or MASK is among ``types``, one more for both nested rows
+    of every lane (sub_a and sub_b, clamped to row 0 where absent)."""
+    if tex is not None:
+        raise NotImplementedError("textured reflectance: ROADMAP Queue 1 item 9")
+    p = _row_params(gather_rows_t(mats.packed, mid))  # (32, N)
+    if _has_nested(types):
+        n = mid.shape[0]
+        sub = torch.cat([torch.clamp_min(p.sub_a, 0), torch.clamp_min(p.sub_b, 0)])
+        rows = gather_rows_t(mats.packed, sub)  # (32, 2N)
+        p = p._replace(nested=(_row_params(rows[:, :n]), _row_params(rows[:, n:])))
+    return p
+
+
+def _nested(p: _P):
+    if p.nested is None:
+        raise ValueError("BLEND/MASK lanes need gather_params(..., types) with those types")
+    return p.nested
+
+
+def _flip_z(w, s):
+    return torch.stack([w[..., 0], w[..., 1], w[..., 2] * s], dim=-1)
+
+
+def _flip_two_sided(p: _P, wi):
     """Reflective families act two-sided: flip wi into the upper
-    hemisphere.  Returns (wi_flipped, sign)."""
-    s = torch.where(cos_theta(wi) >= 0.0, 1.0, -1.0)
-    return torch.stack([wi[..., 0], wi[..., 1], wi[..., 2] * s], dim=-1), s
+    hemisphere.  Returns (wi_flipped, sign); wo is un-flipped with the
+    same sign.  The transmissive families keep their side (sign 1)."""
+    transmissive = ((p.type == T.DIELECTRIC) | (p.type == T.ROUGH_DIELECTRIC)
+                    | (p.type == T.NULL) | (p.type == T.HK) | (p.type == T.THINDIELECTRIC))
+    s = torch.where(transmissive | (cos_theta(wi) >= 0.0), 1.0, -1.0)
+    return _flip_z(wi, s), s
 
+
+def _fdr_int(eta):
+    """Average internal Fresnel reflectance (d'Eon's fit) for plastic."""
+    return torch.where(
+        eta < 1.0,
+        -0.4399 + 0.7099 / eta - 0.3319 / (eta * eta) + 0.0636 / (eta * eta * eta),
+        -1.4399 / (eta * eta) + 0.7099 / eta + 0.6681 + 0.0636 * eta,
+    )
+
+
+# ---------------------------------------------------------------------------
+# per-family eval (f * |cos_o|) and pdf of the smooth lobes
+# ---------------------------------------------------------------------------
 
 def _diffuse_eval_pdf(p: _P, wi, wo):
     up = (cos_theta(wi) > 0.0) & (cos_theta(wo) > 0.0)
     f = p.refl * (INV_PI * torch.clamp_min(cos_theta(wo), 0.0))[..., None]
+    pdf = square_to_cosine_hemisphere_pdf(wo)
+    return torch.where(up[..., None], f, 0.0), torch.where(up, pdf, 0.0)
+
+
+def _orennayar_eval_pdf(p: _P, wi, wo):
+    up = (cos_theta(wi) > 0.0) & (cos_theta(wo) > 0.0)
+    sigma = p.alpha
+    s2 = sigma * sigma
+    A = 1.0 - s2 / (2.0 * (s2 + 0.33))
+    B = 0.45 * s2 / (s2 + 0.09)
+    ci, co = cos_theta(wi), cos_theta(wo)
+    si = safe_sqrt(1.0 - ci * ci)
+    so = safe_sqrt(1.0 - co * co)
+    denom = torch.clamp_min(si * so, 1e-7)
+    cos_dphi = torch.clamp((wi[..., 0] * wo[..., 0] + wi[..., 1] * wo[..., 1]) / denom, -1.0, 1.0)
+    sin_alpha = torch.maximum(si, so)
+    tan_beta = torch.minimum(si / torch.clamp_min(ci, 1e-7), so / torch.clamp_min(co, 1e-7))
+    f = p.refl * (INV_PI * torch.clamp_min(co, 0.0)
+                  * (A + B * torch.clamp_min(cos_dphi, 0.0) * sin_alpha * tan_beta))[..., None]
     pdf = square_to_cosine_hemisphere_pdf(wo)
     return torch.where(up[..., None], f, 0.0), torch.where(up, pdf, 0.0)
 
@@ -112,18 +204,174 @@ def _rough_conductor_eval_pdf(p: _P, wi, wo):
     return torch.where(up[..., None], f, 0.0), torch.where(up, pdf, 0.0)
 
 
-_EVALS = {BSDFType.DIFFUSE: _diffuse_eval_pdf,
-          BSDFType.ROUGH_CONDUCTOR: _rough_conductor_eval_pdf}
+def _plastic_lobe_probs(p: _P, wi):
+    fi = fresnel_dielectric(torch.abs(cos_theta(wi)), p.eta[..., 0])
+    return torch.clamp(fi, 0.05, 0.95), fi
 
 
-def eval_pdf_p(p: _P, wi, wo, types=PORTED_TYPES):
-    """(f*cos (N,3), pdf (N,)) from gathered parameters."""
-    check_types(types)
-    wi2, s = _flip_two_sided(wi)
-    wo2 = torch.stack([wo[..., 0], wo[..., 1], wo[..., 2] * s], dim=-1)
+def _plastic_diffuse(p: _P, wi, wo, eta):
+    """The internally scattered diffuse lobe of both plastics (f * cos)."""
+    fi = fresnel_dielectric(cos_theta(wi), eta)
+    fo = fresnel_dielectric(cos_theta(wo), eta)
+    fdr = _fdr_int(eta)
+    inv_eta2 = 1.0 / (eta * eta)
+    return (p.refl / torch.clamp_min(1.0 - p.refl * fdr[..., None], 1e-3)
+            * (INV_PI * torch.clamp_min(cos_theta(wo), 0.0) * (1.0 - fi) * (1.0 - fo)
+               * inv_eta2)[..., None])
+
+
+def _plastic_eval_pdf(p: _P, wi, wo):
+    """Smooth plastic: a delta coat (invisible here) over an internally
+    scattered diffuse base."""
+    up = (cos_theta(wi) > 0.0) & (cos_theta(wo) > 0.0)
+    f = _plastic_diffuse(p, wi, wo, p.eta[..., 0])
+    spec_prob, _ = _plastic_lobe_probs(p, wi)
+    pdf = (1.0 - spec_prob) * square_to_cosine_hemisphere_pdf(wo)
+    return torch.where(up[..., None], f, 0.0), torch.where(up, pdf, 0.0)
+
+
+def _rough_plastic_eval_pdf(p: _P, wi, wo):
+    up = (cos_theta(wi) > 1e-6) & (cos_theta(wo) > 1e-6)
+    eta = p.eta[..., 0]
+    m = normalize(wi + wo)
+    D = ggx_d(m, p.alpha)
+    G2 = ggx_g2(wi, wo, p.alpha)
+    Fm = fresnel_dielectric(dot(wi, m), eta)
+    ci = torch.clamp_min(cos_theta(wi), 1e-6)
+    f_spec = p.spec * (Fm * D * G2 / (4.0 * ci))[..., None]
+    f_diff = _plastic_diffuse(p, wi, wo, eta)
+    spec_prob, _ = _plastic_lobe_probs(p, wi)
+    pdf_spec = ggx_vndf_pdf(wi, m, p.alpha) / torch.clamp_min(4.0 * torch.abs(dot(m, wo)), 1e-8)
+    pdf = spec_prob * pdf_spec + (1.0 - spec_prob) * square_to_cosine_hemisphere_pdf(wo)
+    f = f_spec + f_diff
+    return torch.where(up[..., None], f, 0.0), torch.where(up, pdf, 0.0)
+
+
+def _phong_exponent(p: _P):
+    return torch.clamp(2.0 / torch.clamp_min(p.alpha * p.alpha, 1e-6) - 2.0, 1.0, 1e5)
+
+
+def _spec_lobe_prob(p: _P):
+    """Pick probability of the specular lobe of Phong and Ward."""
+    ks = torch.mean(p.spec, dim=-1)
+    kd = torch.mean(p.refl, dim=-1)
+    return torch.clamp(ks / torch.clamp_min(ks + kd, 1e-9), 0.05, 0.95)
+
+
+def _phong_eval_pdf(p: _P, wi, wo):
+    """Modified Phong."""
+    up = (cos_theta(wi) > 0.0) & (cos_theta(wo) > 0.0)
+    n = _phong_exponent(p)
+    r = reflect_local(wi)
+    cos_r = torch.clamp_min(dot(r, wo), 0.0)
+    co = torch.clamp_min(cos_theta(wo), 0.0)
+    lobe = torch.pow(cos_r, n)
+    f = (p.refl * (INV_PI * co)[..., None]
+         + p.spec * ((n + 2.0) / (2.0 * math.pi) * lobe * co)[..., None])
+    spec_prob = _spec_lobe_prob(p)
+    pdf_spec = (n + 1.0) / (2.0 * math.pi) * lobe
+    pdf = spec_prob * pdf_spec + (1.0 - spec_prob) * square_to_cosine_hemisphere_pdf(wo)
+    return torch.where(up[..., None], f, 0.0), torch.where(up, pdf, 0.0)
+
+
+def _rough_dielectric_eval_pdf(p: _P, wi, wo):
+    """GGX rough glass (Walter et al. 2007), computed where wi lies in the
+    upper hemisphere (s = sign(cos_i)), the microfacet normal kept upper.
+    The lobe pick is the microfacet Fresnel F(wi.m), as in sampling, so
+    sample and pdf agree under total internal reflection too."""
+    eta = p.eta[..., 0]
+    ci = cos_theta(wi)
+    s = torch.where(ci >= 0.0, 1.0, -1.0)
+    wi_f = _flip_z(wi, s)
+    wo_f = _flip_z(wo, s)
+    eta_rel = torch.where(ci >= 0.0, eta, 1.0 / eta)
+    reflect_side = cos_theta(wo_f) > 0.0
+
+    m_r = normalize(wi_f + wo_f)
+    m_t = normalize(wi_f + eta_rel[..., None] * wo_f)
+    m_t = m_t * torch.sign(cos_theta(m_t) + 1e-20)[..., None]
+    m = torch.where(reflect_side[..., None], m_r, m_t)
+
+    wim = dot(wi_f, m)
+    wom = dot(wo_f, m)
+    F = fresnel_dielectric(wim, eta_rel)
+    D = ggx_d(m, p.alpha)
+    G = ggx_g2(wi_f, wo_f, p.alpha)
+    aci = torch.clamp_min(torch.abs(ci), 1e-6)
+    pdf_m = ggx_vndf_pdf(wi_f, m, p.alpha)
+
+    f_r = F * D * G / (4.0 * aci)
+    pdf_r = F * pdf_m / torch.clamp_min(4.0 * torch.abs(wom), 1e-8)
+    valid_r = reflect_side & (wim > 1e-6) & (wom > 1e-6)
+
+    denom_t = wim + eta_rel * wom
+    dt2 = torch.clamp_min(denom_t * denom_t, 1e-10)
+    jac_t = eta_rel * eta_rel * torch.abs(wom) / dt2
+    f_t = torch.abs(wim) * torch.abs(wom) * (1.0 - F) * D * G / (aci * dt2)
+    pdf_t = (1.0 - F) * pdf_m * jac_t
+    valid_t = (~reflect_side) & (wim > 1e-6) & (wom < -1e-6)
+
+    f = torch.where(valid_r, f_r, torch.where(valid_t, f_t, 0.0))
+    pdf = torch.where(valid_r, pdf_r, torch.where(valid_t, pdf_t, 0.0))
+    return p.spec * f[..., None], pdf
+
+
+def _ward_C(p: _P, m):
+    """Anisotropic exponent tan^2(theta_h) * C(phi_h) of half vector m."""
+    c2 = cos_theta(m) ** 2
+    return ((m[..., 0] ** 2 / (p.alpha * p.alpha) + m[..., 1] ** 2 / (p.alpha_v * p.alpha_v))
+            / torch.clamp_min(c2, 1e-8))
+
+
+def _ward_h_pdf(p: _P, m):
+    c = torch.clamp_min(cos_theta(m), 1e-6)
+    return torch.exp(-_ward_C(p, m)) / (math.pi * p.alpha * p.alpha_v * c * c * c)
+
+
+def _ward_eval_pdf(p: _P, wi, wo):
+    """Anisotropic Ward-Duer, with Walter's 2005 sampling density."""
+    ci, co = cos_theta(wi), cos_theta(wo)
+    up = (ci > 1e-6) & (co > 1e-6)
+    m = normalize(wi + wo)
+    expo = torch.exp(-_ward_C(p, m))
+    f_spec = p.spec * (expo / torch.clamp_min(
+        4.0 * math.pi * p.alpha * p.alpha_v * torch.sqrt(torch.clamp_min(ci * co, 1e-8)),
+        1e-8) * co)[..., None]
+    f = p.refl * (INV_PI * torch.clamp_min(co, 0.0))[..., None] + f_spec
+    sp = _spec_lobe_prob(p)
+    pdf_spec = _ward_h_pdf(p, m) / torch.clamp_min(4.0 * torch.abs(dot(m, wo)), 1e-8)
+    pdf = sp * pdf_spec + (1.0 - sp) * square_to_cosine_hemisphere_pdf(wo)
+    return torch.where(up[..., None], f, 0.0), torch.where(up, pdf, 0.0)
+
+
+def _difftrans_eval_pdf(p: _P, wi, wo):
+    """Diffuse transmission: wo on the side opposite wi (here: wi up,
+    wo down)."""
+    thru = (cos_theta(wi) > 0.0) & (cos_theta(wo) < 0.0)
+    aco = torch.abs(cos_theta(wo))
+    f = p.refl * (INV_PI * aco)[..., None]
+    pdf = aco * INV_PI
+    return torch.where(thru[..., None], f, 0.0), torch.where(thru, pdf, 0.0)
+
+
+_SMOOTH_EVALS = {
+    T.DIFFUSE: _diffuse_eval_pdf,
+    T.ROUGH_DIFFUSE: _orennayar_eval_pdf,
+    T.ROUGH_CONDUCTOR: _rough_conductor_eval_pdf,
+    T.PLASTIC: _plastic_eval_pdf,
+    T.ROUGH_PLASTIC: _rough_plastic_eval_pdf,
+    T.PHONG: _phong_eval_pdf,
+    T.ROUGH_DIELECTRIC: _rough_dielectric_eval_pdf,
+    T.WARD: _ward_eval_pdf,
+    T.DIFFTRANS: _difftrans_eval_pdf,
+}
+
+
+def _eval_smooth(p: _P, wi2, wo2, types):
+    """Family-dispatched smooth eval/pdf on already-flipped directions."""
     f = torch.zeros_like(wi2)
     pdf = torch.zeros_like(wi2[..., 0])
-    for t, fn in _EVALS.items():
+    for t, fn in _SMOOTH_EVALS.items():
         if t in types:
             ft, pt = fn(p, wi2, wo2)
             sel = p.type == t
@@ -132,52 +380,294 @@ def eval_pdf_p(p: _P, wi, wo, types=PORTED_TYPES):
     return f, pdf
 
 
-def sample_p(p: _P, wi, u, types=PORTED_TYPES) -> BSDFSample:
-    """BSDF sampling from gathered parameters; u (N, 3)."""
+def eval_pdf_p(p: _P, wi, wo, types=PORTED_TYPES):
+    """(f*cos (N,3), pdf (N,)) of the smooth lobes from gathered
+    parameters; 0 for delta lobes.  BLEND lanes mix their nested lobes by
+    weight; MASK lanes scale the nested lobe by the opacity (the
+    pass-through is a delta lobe)."""
     check_types(types)
-    wi2, s = _flip_two_sided(wi)
-    u2 = u[..., 0:2]
-    wo = torch.zeros_like(wi)
-    weight = torch.zeros_like(wi)
-    pdf = torch.zeros_like(wi[..., 0])
+    wi2, s = _flip_two_sided(p, wi)
+    wo2 = _flip_z(wo, s)
+    f, pdf = _eval_smooth(p, wi2, wo2, types)
+    if _has_nested(types):
+        pa, pb = _nested(p)
+        fa, pdfa = _eval_smooth(pa, wi2, wo2, types)
+        if T.BLEND in types:
+            fb, pdfb = _eval_smooth(pb, wi2, wo2, types)
+            is_b = p.type == T.BLEND
+            w = p.weight
+            f = torch.where(is_b[..., None], (1.0 - w)[..., None] * fa + w[..., None] * fb, f)
+            pdf = torch.where(is_b, (1.0 - w) * pdfa + w * pdfb, pdf)
+        if T.MASK in types:
+            is_m = p.type == T.MASK
+            f = torch.where(is_m[..., None], p.weight[..., None] * fa, f)
+            pdf = torch.where(is_m, p.weight * pdfa, pdf)
+    return f, pdf
 
-    def put(sel, wo_c, w_c, pdf_c):
-        return (torch.where(sel[..., None], wo_c, wo), torch.where(sel[..., None], w_c, weight),
-                torch.where(sel, pdf_c, pdf))
 
-    if BSDFType.DIFFUSE in types:
-        wo_cos = square_to_cosine_hemisphere(u2)
-        wo, weight, pdf = put(p.type == BSDFType.DIFFUSE, wo_cos, p.refl,
-                              square_to_cosine_hemisphere_pdf(wo_cos))
-    if BSDFType.ROUGH_CONDUCTOR in types:
-        m = ggx_sample_vndf(wi2, p.alpha, u2)
-        wo_rc = 2.0 * dot(wi2, m)[..., None] * m - wi2
-        ok = cos_theta(wo_rc) > 1e-6  # below-horizon reflections are rejected
-        F = fresnel_conductor(dot(wi2, m), p.eta, p.k)
-        g1 = torch.clamp_min(ggx_g1(wi2, p.alpha), 1e-8)
-        w_rc = p.spec * F * (ggx_g2(wi2, wo_rc, p.alpha) / g1)[..., None]
-        pdf_rc = ggx_vndf_pdf(wi2, m, p.alpha) / torch.clamp_min(
-            4.0 * torch.abs(dot(m, wo_rc)), 1e-8)
-        wo, weight, pdf = put(p.type == BSDFType.ROUGH_CONDUCTOR, wo_rc,
-                              torch.where(ok[..., None], w_rc, 0.0),
-                              torch.where(ok, pdf_rc, 0.0))
-    wo = torch.stack([wo[..., 0], wo[..., 1], wo[..., 2] * s], dim=-1)
-    is_delta = torch.zeros(wi.shape[:-1], dtype=torch.bool, device=wi.device)
-    return BSDFSample(wo=wo, weight=weight, pdf=pdf, is_delta=is_delta)
+def _albedo_of(p: _P):
+    spec_like = (p.type == T.CONDUCTOR) | (p.type == T.ROUGH_CONDUCTOR)
+    glassy = ((p.type == T.DIELECTRIC) | (p.type == T.ROUGH_DIELECTRIC)
+              | (p.type == T.THINDIELECTRIC))
+    a = torch.where(spec_like[..., None], p.spec, p.refl)
+    return torch.where(glassy[..., None], 1.0, a)
 
 
 def albedo_p(p: _P) -> torch.Tensor:
-    """BSDF::getAlbedo: the reflectance, the specular tint for conductors."""
-    return torch.where((p.type == BSDFType.ROUGH_CONDUCTOR)[..., None], p.spec, p.refl)
+    """BSDF::getAlbedo: the reflectance, the specular tint for conductors,
+    1 for glass; BLEND lerps and MASK scales its nested rows' albedo."""
+    a = _albedo_of(p)
+    if p.nested is not None:
+        pa, pb = p.nested
+        aa, ab = _albedo_of(pa), _albedo_of(pb)
+        w = p.weight[..., None]
+        a = torch.where((p.type == T.BLEND)[..., None], (1.0 - w) * aa + w * ab, a)
+        a = torch.where((p.type == T.MASK)[..., None], w * aa, a)
+    return a
+
+
+def _sample_families(p: _P, wi, u2, ul, types) -> BSDFSample:
+    """Sample the plain families on the wavefront, select by type."""
+    def has(*ts):
+        return any(t in types for t in ts)
+
+    wi2, s = _flip_two_sided(p, wi)
+    wo = torch.zeros_like(wi)
+    weight = torch.zeros_like(wi)
+    pdf = torch.zeros_like(wi[..., 0])
+    is_delta = torch.zeros(wi.shape[:-1], dtype=torch.bool, device=wi.device)
+    no = torch.zeros_like(is_delta)
+    yes = torch.ones_like(is_delta)
+
+    def put(sel, wo_c, w_c, pdf_c, delta_c):
+        nonlocal wo, weight, pdf, is_delta
+        wo = torch.where(sel[..., None], wo_c, wo)
+        weight = torch.where(sel[..., None], w_c, weight)
+        pdf = torch.where(sel, pdf_c, pdf)
+        is_delta = torch.where(sel, delta_c, is_delta)
+
+    eta_s = p.eta[..., 0]
+    if has(T.DIFFUSE, T.ROUGH_DIFFUSE, T.PLASTIC, T.ROUGH_PLASTIC, T.PHONG, T.WARD, T.DIFFTRANS):
+        wo_cos = square_to_cosine_hemisphere(u2)
+        pdf_cos = square_to_cosine_hemisphere_pdf(wo_cos)
+    if has(T.CONDUCTOR, T.PLASTIC):
+        wo_mirror = reflect_local(wi2)
+
+    if has(T.DIFFUSE):
+        put(p.type == T.DIFFUSE, wo_cos, p.refl, pdf_cos, no)
+
+    if has(T.ROUGH_DIFFUSE):
+        f_on, _ = _orennayar_eval_pdf(p, wi2, wo_cos)
+        put(p.type == T.ROUGH_DIFFUSE, wo_cos, f_on / torch.clamp_min(pdf_cos, 1e-8)[..., None],
+            pdf_cos, no)
+
+    if has(T.DIFFTRANS):
+        # the cosine lobe on the other side (here: below)
+        put(p.type == T.DIFFTRANS, _flip_z(wo_cos, -1.0), p.refl, pdf_cos, no)
+
+    if has(T.WARD):
+        # anisotropic half-vector sampling (Walter 2005, eq. 6-7) mixed with
+        # a cosine diffuse lobe
+        take_spec_w = ul < _spec_lobe_prob(p)
+        phi2 = 2.0 * math.pi * u2[..., 1]
+        hx = p.alpha * torch.cos(phi2)
+        hy = p.alpha_v * torch.sin(phi2)
+        norm = torch.sqrt(hx * hx + hy * hy)
+        cphi = hx / torch.clamp_min(norm, 1e-12)
+        sphi = hy / torch.clamp_min(norm, 1e-12)
+        C = cphi * cphi / (p.alpha * p.alpha) + sphi * sphi / (p.alpha_v * p.alpha_v)
+        tan2 = -torch.log(torch.clamp_min(u2[..., 0], 1e-9)) / torch.clamp_min(C, 1e-12)
+        ct = 1.0 / torch.sqrt(1.0 + tan2)
+        st = safe_sqrt(1.0 - ct * ct)
+        m_w = torch.stack([st * cphi, st * sphi, ct], dim=-1)
+        wo_w_spec = 2.0 * dot(wi2, m_w)[..., None] * m_w - wi2
+        wo_w = torch.where(take_spec_w[..., None], wo_w_spec, wo_cos)
+        f_w, pdf_w = _ward_eval_pdf(p, wi2, wo_w)
+        ok_w = (cos_theta(wo_w) > 1e-6) & (pdf_w > 1e-9)
+        w_w = f_w / torch.clamp_min(pdf_w, 1e-9)[..., None]
+        put(p.type == T.WARD, wo_w, torch.where(ok_w[..., None], w_w, 0.0),
+            torch.where(ok_w, pdf_w, 0.0), no)
+
+    if has(T.CONDUCTOR):
+        F_c = fresnel_conductor(cos_theta(wi2), p.eta, p.k)
+        put(p.type == T.CONDUCTOR, wo_mirror, p.spec * F_c, torch.ones_like(pdf), yes)
+
+    if has(T.DIELECTRIC):
+        # delta reflection or refraction, on the side of the signed wi
+        F_d = fresnel_dielectric(cos_theta(wi), eta_s)
+        refl_choice = ul < F_d
+        wo_refr, _ = refract_local(wi, eta_s)
+        rel_eta = torch.where(cos_theta(wi) > 0.0, eta_s, 1.0 / eta_s)
+        wo_d = torch.where(refl_choice[..., None], reflect_local(wi), wo_refr)
+        w_d = torch.where(refl_choice[..., None], p.spec,
+                          p.spec / torch.clamp_min(rel_eta * rel_eta, 1e-8)[..., None])
+        pdf_d = torch.where(refl_choice, F_d, 1.0 - F_d)
+        put(p.type == T.DIELECTRIC, wo_d, w_d, pdf_d, yes)
+
+    if has(T.THINDIELECTRIC):
+        # a zero-thickness slab: the interior bounces sum to R' = 2R/(1+R),
+        # and transmitted rays leave parallel to wi
+        F_t = fresnel_dielectric(torch.abs(cos_theta(wi)), eta_s)
+        Rp = torch.where(F_t < 1.0, 2.0 * F_t / (1.0 + F_t), 1.0)
+        refl_t = ul < Rp
+        wo_t = torch.where(refl_t[..., None], reflect_local(wi), -wi)
+        put(p.type == T.THINDIELECTRIC, wo_t, p.spec, torch.where(refl_t, Rp, 1.0 - Rp), yes)
+
+    if has(T.NULL):
+        put(p.type == T.NULL, -wi, torch.ones_like(weight), torch.ones_like(pdf), yes)
+
+    if has(T.ROUGH_CONDUCTOR, T.ROUGH_PLASTIC):
+        m = ggx_sample_vndf(wi2, p.alpha, u2)
+        wo_rc = 2.0 * dot(wi2, m)[..., None] * m - wi2
+
+    if has(T.ROUGH_CONDUCTOR):
+        ok = cos_theta(wo_rc) > 1e-6  # below-horizon reflections are rejected
+        F_rc = fresnel_conductor(dot(wi2, m), p.eta, p.k)
+        g1 = torch.clamp_min(ggx_g1(wi2, p.alpha), 1e-8)
+        w_rc = p.spec * F_rc * (ggx_g2(wi2, wo_rc, p.alpha) / g1)[..., None]
+        pdf_rc = ggx_vndf_pdf(wi2, m, p.alpha) / torch.clamp_min(
+            4.0 * torch.abs(dot(m, wo_rc)), 1e-8)
+        put(p.type == T.ROUGH_CONDUCTOR, wo_rc, torch.where(ok[..., None], w_rc, 0.0),
+            torch.where(ok, pdf_rc, 0.0), no)
+
+    if has(T.PLASTIC, T.ROUGH_PLASTIC):
+        spec_prob, fi_p = _plastic_lobe_probs(p, wi2)
+        take_spec = ul < spec_prob
+
+    if has(T.PLASTIC):
+        # the delta coat, or the internally scattered diffuse base
+        fo_p = fresnel_dielectric(cos_theta(wo_cos), eta_s)
+        fdr = _fdr_int(eta_s)
+        inv_eta2 = 1.0 / torch.clamp_min(eta_s * eta_s, 1e-8)
+        w_pl_diff = (p.refl / torch.clamp_min(1.0 - p.refl * fdr[..., None], 1e-3)
+                     * ((1.0 - fi_p) * (1.0 - fo_p) * inv_eta2 / (1.0 - spec_prob))[..., None])
+        w_pl_spec = p.spec * (fi_p / spec_prob)[..., None]
+        wo_pl = torch.where(take_spec[..., None], wo_mirror, wo_cos)
+        w_pl = torch.where(take_spec[..., None], w_pl_spec, w_pl_diff)
+        pdf_pl = torch.where(take_spec, spec_prob, (1.0 - spec_prob) * pdf_cos)
+        put(p.type == T.PLASTIC, wo_pl, w_pl, pdf_pl, take_spec)
+
+    if has(T.ROUGH_PLASTIC):
+        # the GGX coat or the diffuse base, weighted by the mixed pdf
+        wo_rp = torch.where(take_spec[..., None], wo_rc, wo_cos)
+        f_rp, pdf_rp = _rough_plastic_eval_pdf(p, wi2, wo_rp)
+        w_rp = f_rp / torch.clamp_min(pdf_rp, 1e-8)[..., None]
+        ok_rp = cos_theta(wo_rp) > 1e-6
+        put(p.type == T.ROUGH_PLASTIC, wo_rp, torch.where(ok_rp[..., None], w_rp, 0.0),
+            torch.where(ok_rp, pdf_rp, 0.0), no)
+
+    if has(T.PHONG):
+        # the cosine lobe or the specular lobe about the mirror direction
+        n_ph = _phong_exponent(p)
+        take_spec_ph = ul < _spec_lobe_prob(p)
+        cos_a = torch.pow(torch.clamp_min(u2[..., 0], 1e-9), 1.0 / (n_ph + 1.0))
+        sin_a = safe_sqrt(1.0 - cos_a * cos_a)
+        phi = 2.0 * math.pi * u2[..., 1]
+        local_lobe = torch.stack([sin_a * torch.cos(phi), sin_a * torch.sin(phi), cos_a], dim=-1)
+        wo_ph_spec = Frame.from_normal(reflect_local(wi2)).to_world(local_lobe)
+        wo_ph = torch.where(take_spec_ph[..., None], wo_ph_spec, wo_cos)
+        f_ph, pdf_ph = _phong_eval_pdf(p, wi2, wo_ph)
+        w_ph = f_ph / torch.clamp_min(pdf_ph, 1e-8)[..., None]
+        ok_ph = cos_theta(wo_ph) > 0.0
+        put(p.type == T.PHONG, wo_ph, torch.where(ok_ph[..., None], w_ph, 0.0), pdf_ph, no)
+
+    if has(T.ROUGH_DIELECTRIC):
+        # a visible GGX normal, then Fresnel reflection or refraction,
+        # computed with wi in the upper hemisphere as in the eval
+        flip_rd = torch.where(cos_theta(wi) >= 0.0, 1.0, -1.0)
+        wi_rd = _flip_z(wi, flip_rd)
+        m_rd = ggx_sample_vndf(wi_rd, p.alpha, u2)
+        eta_rel_rd = torch.where(cos_theta(wi) >= 0.0, eta_s, 1.0 / eta_s)
+        wim_rd = dot(wi_rd, m_rd)
+        F_rd = fresnel_dielectric(wim_rd, eta_rel_rd)  # 1 under TIR
+        take_refl_rd = ul < F_rd
+        wo_rd_refl = 2.0 * wim_rd[..., None] * m_rd - wi_rd
+        inv_e = 1.0 / eta_rel_rd
+        c2 = 1.0 - (1.0 - wim_rd * wim_rd) * inv_e * inv_e
+        wo_rd_refr = ((inv_e * wim_rd - safe_sqrt(c2))[..., None] * m_rd
+                      - inv_e[..., None] * wi_rd)
+        wo_rd_f = normalize(torch.where(take_refl_rd[..., None], wo_rd_refl, wo_rd_refr))
+        # a reflection below the horizon or a refraction above it is
+        # rejected, as in the reference
+        consistent_rd = take_refl_rd == (cos_theta(wo_rd_f) > 0.0)
+        wo_rd = _flip_z(wo_rd_f, flip_rd)
+        f_rd, pdf_rd = _rough_dielectric_eval_pdf(p, wi, wo_rd)
+        w_rd = f_rd / torch.clamp_min(pdf_rd, 1e-8)[..., None]
+        ok_rd = consistent_rd & (pdf_rd > 1e-9)
+        put(p.type == T.ROUGH_DIELECTRIC, wo_rd, torch.where(ok_rd[..., None], w_rd, 0.0),
+            torch.where(ok_rd, pdf_rd, 0.0), no)
+
+    # un-flip wo for the two-sided families (s is 1 for the transmissive)
+    return BSDFSample(wo=_flip_z(wo, s), weight=weight, pdf=pdf, is_delta=is_delta)
+
+
+def _select(cond, a: _P, b: _P) -> _P:
+    """Field-wise where(cond, a, b) of two gathered rows."""
+    def sel(x, y):
+        return torch.where(cond.reshape(cond.shape + (1,) * (x.dim() - cond.dim())), x, y)
+
+    return _P(*(sel(x, y) for x, y in zip(a[:-1], b[:-1])))
+
+
+def sample_p(p: _P, wi, u, types=PORTED_TYPES) -> BSDFSample:
+    """BSDF sampling from gathered parameters; u (N, 3).
+
+    BLEND picks lobe B with probability ``weight``, samples it and
+    re-weights a smooth sample by the whole mixture's eval/pdf; a delta
+    pick keeps the component's result.  MASK passes straight through
+    (delta, weight 1) with probability 1 - opacity, else samples its
+    nested lobe; the opacity cancels the same way."""
+    check_types(types)
+    u2 = u[..., 0:2]
+    ul = u[..., 2]
+    if not _has_nested(types):
+        return _sample_families(p, wi, u2, ul, types)
+
+    pa, pb = _nested(p)
+    is_blend = p.type == T.BLEND
+    is_mask = p.type == T.MASK
+    w_sel = p.weight
+    pick_b = is_blend & (ul < w_sel)
+    mask_pass = is_mask & (ul >= w_sel)  # the 1 - opacity pass-through
+    use_sub = (is_blend | is_mask) & ~mask_pass
+    p_eff = _select(use_sub, _select(pick_b, pb, pa), p)
+    # stretch the lobe uniform back to [0, 1) inside the pick
+    denom_b = torch.where(pick_b, torch.clamp_min(w_sel, 1e-9),
+                          torch.clamp_min(1.0 - w_sel, 1e-9))
+    ul_eff = torch.where(
+        is_blend,
+        torch.clamp(torch.where(pick_b, ul / denom_b, (ul - w_sel) / denom_b), 0.0, 1.0 - 1e-7),
+        torch.where(is_mask, torch.clamp(ul / torch.clamp_min(w_sel, 1e-9), 0.0, 1.0 - 1e-7),
+                    ul))
+    res = _sample_families(p_eff, wi, u2, ul_eff, types)
+
+    wo = torch.where(mask_pass[..., None], -wi, res.wo)
+    weight = torch.where(mask_pass[..., None], 1.0, res.weight)
+    pdf = torch.where(mask_pass, 1.0 - w_sel, res.pdf)
+    is_delta = res.is_delta | mask_pass
+
+    # smooth samples of a nested lobe: the whole mixture's weight
+    smooth_sub = use_sub & ~is_delta
+    f_mix, pdf_mix = eval_pdf_p(p, wi, wo, types)
+    ok = smooth_sub & (pdf_mix > 1e-9)
+    weight = torch.where(ok[..., None], f_mix / torch.clamp_min(pdf_mix, 1e-9)[..., None], weight)
+    weight = torch.where((smooth_sub & ~ok)[..., None], 0.0, weight)
+    pdf = torch.where(smooth_sub, pdf_mix, pdf)
+    # delta picks of a nested lobe: the pick probability times the
+    # component's own discrete pdf
+    delta_sub = use_sub & is_delta
+    p_pick = torch.where(is_mask, w_sel, torch.where(pick_b, w_sel, 1.0 - w_sel))
+    pdf = torch.where(delta_sub, pdf * p_pick, pdf)
+    return BSDFSample(wo=wo, weight=weight, pdf=pdf, is_delta=is_delta)
 
 
 def eval_pdf(mats: Materials, mid, wi, wo, types=PORTED_TYPES, tex=None, cloth_aux=None):
-    return eval_pdf_p(gather_params(mats, mid, tex), wi, wo, types)
+    return eval_pdf_p(gather_params(mats, mid, tex, types=types), wi, wo, types)
 
 
 def sample(mats: Materials, mid, wi, u, types=PORTED_TYPES, tex=None, cloth_aux=None) -> BSDFSample:
-    return sample_p(gather_params(mats, mid, tex), wi, u, types)
+    return sample_p(gather_params(mats, mid, tex, types=types), wi, u, types)
 
 
-def albedo(mats: Materials, mid):
-    return albedo_p(gather_params(mats, mid))
+def albedo(mats: Materials, mid, types=PORTED_TYPES):
+    return albedo_p(gather_params(mats, mid, types=types))

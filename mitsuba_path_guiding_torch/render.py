@@ -1,8 +1,10 @@
-"""Command-line renderer of the port (the reference's render.py for the
-built-in Cornell box).
+"""Command-line renderer of the port (the reference's render.py for its
+built-in scenes: ``cornell``, ``furnace`` (a diffuse sphere in a constant
+environment, the white-furnace check) and ``veach`` (Veach's MIS plates);
+``volbox`` raises until volumes are ported).
 
   python -m mitsuba_path_guiding_torch.render cornell -o out.exr
-  python -m mitsuba_path_guiding_torch.render cornell -o out.npy -s 64 -G --device cpu
+  python -m mitsuba_path_guiding_torch.render veach -o out.npy -s 64 -G --device cpu
 
   -o FILE      output (exr/pfm/npy; default <scene>.exr)
   -s N         samples per pixel (default 16)
@@ -26,7 +28,8 @@ import time
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="mitsuba_path_guiding_torch.render")
-    ap.add_argument("scene", choices=["cornell"], help="built-in scene")
+    ap.add_argument("scene", choices=["cornell", "furnace", "veach", "volbox"],
+                    help="built-in scene")
     ap.add_argument("-o", "--output", default=None)
     ap.add_argument("-s", "--spp", type=int, default=16)
     ap.add_argument("-d", "--depth", type=int, default=5)
@@ -48,14 +51,19 @@ def main(argv=None):
         ProgressiveRenderer,
     )
     from mitsuba_path_guiding_torch.integrators.render import RenderConfig
+    from mitsuba_path_guiding_torch.scene import scenes as builtin
     from mitsuba_path_guiding_torch.scene.builder import build_scene
-    from mitsuba_path_guiding_torch.scene.scenes import cornell_box
+
+    if args.scene == "volbox":
+        raise NotImplementedError("the volumetric box: ROADMAP Queue 1 item 9 (volumes)")
+    builtins = {"cornell": builtin.cornell_box, "furnace": builtin.furnace,
+                "veach": builtin.veach_mis}
 
     width, height = (int(x) for x in args.resolution.lower().split("x"))
     out = args.output or f"{args.scene}.exr"
     log(f"scene: {args.scene}  {width}x{height}@{args.spp}spp depth={args.depth} "
         f"guiding={'on' if args.guide else 'off'}")
-    scene = build_scene(cornell_box(), device=args.device)
+    scene = build_scene(builtins[args.scene](), device=args.device)
     log(f"scene compiled on {scene.geo.p0.device}: {int(scene.geo.p0.shape[0])} triangles")
     rcfg = RenderConfig(width=width, height=height, spp=0, max_depth=args.depth,
                         rr_depth=5, seed=args.seed)

@@ -1,15 +1,19 @@
 """Scene compiler: dict scene description -> flat SceneData tensors.
 
 Port of the reference's scene/builder.py ``build_scene`` for the port's
-subset: triangle shapes (with shape groups and instances flattened),
-``diffuse`` and ``roughconductor`` materials, ``area`` emitters on shapes
-and the perspective pinhole sensor.  Every scene carries its BVH (built
-by the native builder, so a compile needs g++; its depth is checked
-against the traversal stack); from 16384 triangles on it also carries
-the blocklist and pair tables of the big-scene intersectors.  The arrays
-are computed host-side in numpy with the reference's exact arithmetic,
-so a compiled scene is equal to the JAX build array for array.  Anything else raises ``NotImplementedError``
-naming the ROADMAP item that brings it.
+subset: triangle shapes (with shape groups and instances flattened), the
+analytic BSDF families (``blendbsdf``, ``mixturebsdf`` and ``mask`` with
+one level of nested rows, interned before their parent as the reference
+does), ``area`` emitters on shapes, the ``constant``, ``envmap`` (inline
+``image``), ``point``, ``directional``, ``spot`` and ``collimated``
+emitters, and the perspective pinhole sensor.  Every scene carries its
+BVH (built by the native builder, so a compile needs g++; its depth is
+checked against the traversal stack); from 16384 triangles on it also
+carries the blocklist and pair tables of the big-scene intersectors.  The
+arrays are computed host-side in numpy with the reference's exact
+arithmetic, so a compiled scene is equal to the JAX build array for
+array.  Anything else raises ``NotImplementedError`` naming the ROADMAP
+item that brings it.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from mitsuba_path_guiding_torch.accel.bvh import build_bvh, pack_bvh, to_device
 from mitsuba_path_guiding_torch.accel.pairs import build_pair_table
 from mitsuba_path_guiding_torch.core.device import resolve_device
 from mitsuba_path_guiding_torch.core.spectrum import LUM_WEIGHTS_NP
+from mitsuba_path_guiding_torch.models.envmap import build_env_tables, constant_env_tables
 from mitsuba_path_guiding_torch.ops.intersect_bvh import STACK_SIZE
 from mitsuba_path_guiding_torch.scene.shapes import SHAPE_BUILDERS
 from mitsuba_path_guiding_torch.scene.transforms import look_at, scale, translate
@@ -41,7 +46,35 @@ from mitsuba_path_guiding_torch.scene.types import (
 TWOLEVEL_MIN_TRIS = 16384
 N_COS = 16  # rough-coating transmittance table width (all zero here)
 
-_BSDF_TYPES = {"diffuse": BSDFType.DIFFUSE, "roughconductor": BSDFType.ROUGH_CONDUCTOR}
+_BSDF_TYPES = {
+    "diffuse": BSDFType.DIFFUSE,
+    "roughdiffuse": BSDFType.ROUGH_DIFFUSE,
+    "conductor": BSDFType.CONDUCTOR,
+    "dielectric": BSDFType.DIELECTRIC,
+    "thindielectric": BSDFType.THINDIELECTRIC,
+    "roughconductor": BSDFType.ROUGH_CONDUCTOR,
+    "roughdielectric": BSDFType.ROUGH_DIELECTRIC,
+    "plastic": BSDFType.PLASTIC,
+    "roughplastic": BSDFType.ROUGH_PLASTIC,
+    "phong": BSDFType.PHONG,
+    "null": BSDFType.NULL,
+    "ward": BSDFType.WARD,
+    "difftrans": BSDFType.DIFFTRANS,
+    # nested wrappers, one level deep
+    "blendbsdf": BSDFType.BLEND,
+    "mixturebsdf": BSDFType.BLEND,
+    "mask": BSDFType.MASK,
+}
+# families the reference compiles that the port does not yet, by the
+# ROADMAP item that brings them
+_LATER_BSDFS = {
+    "hk": "Queue 1 item 5 (COATING and HK with microfacet_tables, the next slice)",
+    "coating": "Queue 1 item 5 (COATING and HK with microfacet_tables, the next slice)",
+    "roughcoating": "Queue 1 item 5 (COATING and HK with microfacet_tables, the next slice)",
+    "irawan": "Queue 1 item 9 (textures and cloth)",
+    "bumpmap": "Queue 1 item 9 (textures)",
+    "normalmap": "Queue 1 item 9 (textures)",
+}
 
 # named conductor IOR presets (the reference's, RGB-averaged)
 _CONDUCTOR_IOR = {
@@ -64,12 +97,17 @@ def _rgb(x, default):
     return np.full(3, float(x)) if x.ndim == 0 else x
 
 
-def _compile_bsdf(spec: dict) -> dict:
-    """One material row; the diffuse and rough-conductor families are
-    ported."""
+def _compile_bsdf(spec: dict, register_sub=None) -> dict:
+    """One material row.  The nested wrappers (``blendbsdf``,
+    ``mixturebsdf``, ``mask``) register their child lobes through
+    ``register_sub`` (a callable returning the child's row index) and
+    store the indices in sub_a / sub_b; a wrapper inside a wrapper
+    raises, as in the reference."""
     t = spec.get("type", "diffuse")
+    if t in _LATER_BSDFS:
+        _not_ported(f"bsdf type '{t}'", _LATER_BSDFS[t])
     if t not in _BSDF_TYPES:
-        _not_ported(f"bsdf type '{t}'", "Queue 1 item 5 (other BSDF families)")
+        raise ValueError(f"unknown bsdf type: {t}")
     if spec.get("texture") is not None:
         _not_ported("textured reflectance", "Queue 1 item 9 (textures)")
     row = {
@@ -87,11 +125,35 @@ def _compile_bsdf(spec: dict) -> dict:
         "bump_tex_id": -1,
         "bump_scale": 1.0,
     }
-    if t == "roughconductor":
+    if t in ("blendbsdf", "mixturebsdf", "mask"):
+        if register_sub is None:
+            raise ValueError(f"{t} may not be nested inside another wrapper")
+        if t == "mask":
+            op = _rgb(spec.get("opacity"), [0.5] * 3)
+            row["weight"] = float(np.mean(op))
+            row["sub_a"] = register_sub(spec.get("bsdf") or {"type": "diffuse"})
+        else:
+            subs = spec.get("bsdfs")
+            if t == "mixturebsdf":
+                weights = [float(x) for x in spec.get("weights", [0.5, 0.5])]
+                if len(subs) != 2:
+                    raise ValueError("mixturebsdf: exactly 2 components are supported")
+                wsum = max(weights[0] + weights[1], 1e-9)
+                row["weight"] = weights[1] / wsum
+            else:
+                row["weight"] = float(spec.get("weight", 0.5))
+            row["sub_a"] = register_sub(subs[0])
+            row["sub_b"] = register_sub(subs[1])
+        return row
+    if t in ("conductor", "roughconductor"):
         mat = spec.get("material", None)
         if mat is not None or "eta" not in spec:
             eta, k = _CONDUCTOR_IOR[mat or "none"]
             row["eta"], row["k"] = np.array(eta), np.array(k)
+    if t in ("dielectric", "thindielectric", "roughdielectric", "plastic", "roughplastic"):
+        int_ior = float(spec.get("int_ior", 1.5046))
+        ext_ior = float(spec.get("ext_ior", 1.000277))
+        row["eta"] = np.full(3, int_ior / ext_ior)
     return row
 
 
@@ -106,37 +168,72 @@ def _to_world(spec):
     return np.asarray(m, dtype=np.float64)
 
 
-def _env_tables_none():
-    """Emitters.env_* tables of an absent environment (a (1,1) black
-    constant map), as the reference's constant_env_tables(zeros)."""
-    img = np.zeros((1, 1, 3), np.float32)
-    lum = img @ LUM_WEIGHTS_NP
-    theta = (np.arange(1) + 0.5) / 1 * np.pi
-    w = lum * np.sin(theta)[:, None] + 1e-12
-    row_w = w.sum(axis=1)
-    cdf_rows = np.cumsum(row_w) / row_w.sum()
-    cdf_cols = np.cumsum(w, axis=1) / w.sum(axis=1, keepdims=True)
-    pdf_tex = (w / w.sum()) * 1 / (2.0 * np.pi * np.pi)
-    return {
-        "env_image": img,
-        "env_cdf_rows": cdf_rows.astype(np.float32),
-        "env_cdf_cols": cdf_cols.astype(np.float32),
-        "env_pdf_tex": pdf_tex.astype(np.float32),
-    }
-
-
 def _check_supported(desc: dict):
     if desc.get("medium") is not None:
         _not_ported("a participating medium", "Queue 1 item 9 (volumes)")
-    for espec in desc.get("emitters", []):
-        _not_ported(f"emitter type '{espec.get('type')}'",
-                    "Queue 1 item 5 (env, point and other emitters)")
     sspec = desc.get("sensor", {})
     st = sspec.get("type", "perspective")
     if st != "perspective" or float(sspec.get("aperture_radius", 0.0)) > 0.0 \
             or sspec.get("kc") is not None:
         _not_ported(f"sensor '{st}' beyond the pinhole",
                     "Queue 1 item 3 (other sensors)")
+
+
+def _compile_emitters(especs, add_emitter):
+    """The scene-level emitters, appended through ``add_emitter``.  Returns
+    (env_id, env_kind, env_tables): the environment emitter's row (-1
+    without one; the last one listed wins, as in the reference), its kind
+    and, for an ``envmap``, its tables."""
+    env_id, env_kind, env_tables = -1, None, None
+    lum = lambda rgb: float(np.dot(rgb, LUM_WEIGHTS_NP))  # noqa: E731
+    for espec in especs:
+        t = espec["type"]
+        if t == "envmap":
+            if "image" not in espec:
+                _not_ported("an envmap from a file", "Queue 1 item 9 (loaders)")
+            img = np.asarray(espec["image"], dtype=np.float32)
+            sc_f = float(espec.get("scale", 1.0))
+            env_tables = build_env_tables(img, sc_f)
+            mean_lum = float((img @ LUM_WEIGHTS_NP).mean()) * sc_f
+            env_id = add_emitter(EmitterKind.ENVMAP, [mean_lum] * 3, power=mean_lum * 4 * np.pi)
+            env_kind = EmitterKind.ENVMAP
+        elif t == "constant":
+            rad = _rgb(espec.get("radiance"), [1.0, 1.0, 1.0])
+            env_id = add_emitter(EmitterKind.CONSTANT, rad, power=lum(rad) * 4 * np.pi)
+            env_kind = EmitterKind.CONSTANT
+        elif t == "point":
+            inten = _rgb(espec.get("intensity"), [1.0, 1.0, 1.0])
+            pos = np.asarray(espec.get("position", _to_world(espec)[:3, 3]), dtype=np.float64)
+            add_emitter(EmitterKind.POINT, inten, position=pos, power=lum(inten) * 4 * np.pi)
+        elif t == "directional":
+            irr = _rgb(espec.get("irradiance"), [1.0, 1.0, 1.0])
+            d = np.asarray(espec["direction"], dtype=np.float64)
+            d = d / np.linalg.norm(d)
+            add_emitter(EmitterKind.DIRECTIONAL, irr, position=d, power=lum(irr))
+        elif t == "collimated":
+            # a delta beam along one ray: NEE never reaches it
+            pw = _rgb(espec.get("power"), [1.0, 1.0, 1.0])
+            tw = _to_world(espec)
+            pos = np.asarray(espec.get("position", tw[:3, 3]), dtype=np.float64)
+            axis = np.asarray(espec["direction"], dtype=np.float64) if "direction" in espec \
+                else tw[:3, 2]
+            axis = axis / np.linalg.norm(axis)
+            add_emitter(EmitterKind.COLLIMATED, pw, position=pos, aux=axis, power=lum(pw))
+        elif t == "spot":
+            inten = _rgb(espec.get("intensity"), [1.0, 1.0, 1.0])
+            tw = _to_world(espec)
+            axis = tw[:3, 2] / np.linalg.norm(tw[:3, 2])
+            cut_deg = float(espec.get("cutoff_angle", 20.0))
+            cutoff = np.cos(np.deg2rad(cut_deg))
+            beam = np.cos(np.deg2rad(float(espec.get("beam_width", cut_deg * 0.75))))
+            add_emitter(EmitterKind.SPOT, inten, position=tw[:3, 3], aux=axis,
+                        cutoff=(cutoff, beam),
+                        power=lum(inten) * 2 * np.pi * (1 - cutoff))
+        elif t in ("sky", "sun", "sunsky"):
+            _not_ported(f"emitter type '{t}'", "Queue 1 item 5 (sun and sky, models/sunsky.py)")
+        else:
+            raise ValueError(f"unknown emitter type {t}")
+    return env_id, env_kind, env_tables
 
 
 def build_scene(desc: dict, device=None) -> SceneData:
@@ -150,25 +247,32 @@ def build_scene(desc: dict, device=None) -> SceneData:
     mat_rows: list[dict] = []
     mat_cache: dict[str, int] = {}
 
-    def mat_index(bspec):
-        row = _compile_bsdf(bspec or {"type": "diffuse"})
+    def intern(row):
         key = repr(sorted((k, repr(v)) for k, v in row.items()))
         if key not in mat_cache:
             mat_cache[key] = len(mat_rows)
             mat_rows.append(row)
         return mat_cache[key]
 
+    def register_sub(bspec):
+        # nested lobes are plain families: a wrapper here raises
+        return intern(_compile_bsdf(bspec, register_sub=None))
+
+    def mat_index(bspec):
+        return intern(_compile_bsdf(bspec or {"type": "diffuse"}, register_sub))
+
     tris = {k: [] for k in ("p0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2")}
     tri_mat, tri_emitter = [], []
     em = {k: [] for k in ("kind", "tri", "radiance", "position", "aux", "cutoff", "area", "power")}
 
-    def add_emitter(kind, radiance, tri, area, power):
+    def add_emitter(kind, radiance, position=(0, 0, 0), aux=(0, 0, 1), cutoff=(0.0, 0.0),
+                    tri=-1, area=1.0, power=1.0):
         em["kind"].append(kind)
         em["tri"].append(tri)
         em["radiance"].append(np.asarray(radiance, dtype=np.float64))
-        em["position"].append(np.zeros(3))
-        em["aux"].append(np.asarray((0, 0, 1), dtype=np.float64))
-        em["cutoff"].append(np.zeros(2))
+        em["position"].append(np.asarray(position, dtype=np.float64))
+        em["aux"].append(np.asarray(aux, dtype=np.float64))
+        em["cutoff"].append(np.asarray(cutoff, dtype=np.float64))
         em["area"].append(area)
         em["power"].append(max(power, 1e-12))
         return len(em["kind"]) - 1
@@ -217,6 +321,7 @@ def build_scene(desc: dict, device=None) -> SceneData:
         else:
             tri_emitter.extend([-1] * nf)
 
+    env_id, env_kind, env_tables = _compile_emitters(desc.get("emitters", []), add_emitter)
     if not em["kind"]:
         raise ValueError("scene has no emitters")
 
@@ -293,11 +398,13 @@ def build_scene(desc: dict, device=None) -> SceneData:
     epk[:, 8:11] = np.stack(em["aux"]).astype(np.float32)
     epk[:, 11:13] = np.stack(em["cutoff"]).astype(np.float32)
     epk[:, 13] = np.asarray(em["area"], dtype=np.float32)
-    ei = np.maximum(np.asarray(em["tri"], dtype=np.int64), 0)
-    epk[:, 14:17] = h["p0"][ei]
-    epk[:, 17:20] = h["e1"][ei]
-    epk[:, 20:23] = h["e2"][ei]
-    epk[:, 23:26] = gn[ei]
+    etri = np.asarray(em["tri"], dtype=np.int64)
+    has_tri = etri >= 0
+    ei = np.maximum(etri, 0)
+    epk[:, 14:17] = np.where(has_tri[:, None], h["p0"][ei], 0.0)
+    epk[:, 17:20] = np.where(has_tri[:, None], h["e1"][ei], 0.0)
+    epk[:, 20:23] = np.where(has_tri[:, None], h["e2"][ei], 0.0)
+    epk[:, 23:26] = np.where(has_tri[:, None], gn[ei], 0.0)
 
     # np.array copies C-contiguous and keeps 0-d scalars 0-d
     t = lambda a, dtype=torch.float32: torch.as_tensor(  # noqa: E731
@@ -320,7 +427,18 @@ def build_scene(desc: dict, device=None) -> SceneData:
         packed=t(mpk),
         coat_trans=t(np.zeros((M, N_COS), np.float32)),
     )
-    env = _env_tables_none()
+    if env_id >= 0:
+        env_radiance = np.asarray(em["radiance"][env_id], dtype=np.float32)
+        if env_kind == EmitterKind.ENVMAP:
+            # the pick pmf; the directional factor is env_pdf_tex's
+            env_pdf = np.float32(pmf[env_id])
+        else:
+            env_pdf = np.float32(pmf[env_id] / (4.0 * np.pi))
+            env_tables = constant_env_tables(env_radiance)
+    else:
+        env_radiance = np.zeros(3, dtype=np.float32)
+        env_pdf = np.float32(0.0)
+        env_tables = constant_env_tables(env_radiance)
     emitters = Emitters(
         kind=t(np.asarray(em["kind"], np.int32), torch.int32),
         tri=t(np.asarray(em["tri"], np.int32), torch.int32),
@@ -331,10 +449,10 @@ def build_scene(desc: dict, device=None) -> SceneData:
         area=t(np.asarray(em["area"], np.float32)),
         pmf=t(pmf.astype(np.float32)),
         cdf=t(cdf.astype(np.float32)),
-        env_radiance=t(np.zeros(3, np.float32)),
-        env_pdf=t(np.float32(0.0)),
+        env_radiance=t(env_radiance),
+        env_pdf=t(env_pdf),
         packed=t(epk),
-        **{k: t(v) for k, v in env.items()},
+        **{k: t(v) for k, v in env_tables.items()},
     )
 
     sspec = desc.get("sensor", {})

@@ -38,10 +38,32 @@ def _compare(port, ref, path):
     np.testing.assert_array_equal(got, want.astype(got.dtype), err_msg=path)
 
 
-@pytest.mark.parametrize("name", ["cornell_box", "bounce_lamp_room"])
+def _tallbox(mod, bsdf):
+    sc = mod.cornell_box()
+    sc["shapes"][5]["bsdf"] = bsdf
+    return sc
+
+
+RECIPES = {
+    "cornell_box": lambda m: m.cornell_box(),
+    "bounce_lamp_room": lambda m: m.bounce_lamp_room(),
+    "veach_mis": lambda m: m.veach_mis(),
+    "furnace": lambda m: m.furnace(),
+    "cornell_glass": lambda m: m.cornell_box(box_material="glass"),
+    "cornell_mirror": lambda m: m.cornell_box(box_material="mirror"),
+    "cornell_mask": lambda m: _tallbox(m, {"type": "mask", "opacity": [0.0] * 3,
+                                           "bsdf": {"type": "diffuse"}}),
+    "cornell_blend": lambda m: _tallbox(m, {
+        "type": "blendbsdf", "weight": 0.4,
+        "bsdfs": [{"type": "diffuse", "reflectance": [0.7, 0.2, 0.2]},
+                  {"type": "roughconductor", "material": "Au", "alpha": 0.2}]}),
+}
+
+
+@pytest.mark.parametrize("name", list(RECIPES))
 def test_scene_compiles_to_equal_arrays(name):
-    ref = j_build_scene(getattr(jscenes, name)())
-    port = build_scene(getattr(tscenes, name)(), device="cpu")
+    ref = j_build_scene(RECIPES[name](jscenes))
+    port = build_scene(RECIPES[name](tscenes), device="cpu")
     assert port.bvh is not None and port.pairs is None and port.blocks is None
     _compare(port, ref, name)
 
@@ -49,12 +71,19 @@ def test_scene_compiles_to_equal_arrays(name):
 def test_scene_descriptions_are_copies():
     assert repr(tscenes.cornell_box()) == repr(jscenes.cornell_box())
     assert repr(tscenes.bounce_lamp_room()) == repr(jscenes.bounce_lamp_room())
+    for box in ("glass", "mirror"):
+        assert repr(tscenes.cornell_box(box_material=box)) == repr(
+            jscenes.cornell_box(box_material=box))
+    assert repr(tscenes.furnace()) == repr(jscenes.furnace())
+    assert repr(tscenes.veach_mis()) == repr(jscenes.veach_mis())
 
 
 def test_converted_scene_equals_compiled_scene():
-    ref = j_build_scene(jscenes.cornell_box())
-    conv = scene_from_numpy(to_numpy_tree(ref), device="cpu")
-    _compare(conv, ref, "converted")
+    # nested material rows and the environment tables come across too
+    for name in ("cornell_box", "cornell_blend", "cornell_mask", "furnace"):
+        ref = j_build_scene(RECIPES[name](jscenes))
+        conv = scene_from_numpy(to_numpy_tree(ref), device="cpu")
+        _compare(conv, ref, f"converted {name}")
 
 
 @pytest.mark.parametrize("name,w,h", [("cornell_box", 32, 32), ("bounce_lamp_room", 48, 24)])
@@ -76,13 +105,39 @@ def test_generate_rays(name, w, h):
 
 
 @pytest.mark.parametrize("desc,match", [
-    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "conductor"}}],
+    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "hk"}}],
       "emitters": []}, "Queue 1 item 5"),
-    ({"shapes": [{"type": "rectangle"}], "emitters": [{"type": "point"}]}, "Queue 1 item 5"),
+    ({"shapes": [{"type": "rectangle"}], "emitters": [{"type": "sunsky"}]}, "Queue 1 item 5"),
     ({"shapes": [{"type": "rectangle"}], "medium": {"sigma_s": 1.0}}, "Queue 1 item 9"),
 ])
 def test_unported_features_raise(desc, match):
     with pytest.raises(NotImplementedError, match=match):
+        build_scene(desc, device="cpu")
+
+
+@pytest.mark.parametrize("desc,match", [
+    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "coating"}}]}, "microfacet_tables"),
+    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "roughcoating"}}]}, "microfacet_tables"),
+    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "hk"}}]}, "microfacet_tables"),
+    ({"shapes": [{"type": "rectangle"}], "emitters": [{"type": "sky"}]}, "sunsky"),
+    ({"shapes": [{"type": "rectangle"}], "emitters": [{"type": "sun"}]}, "sunsky"),
+    ({"shapes": [{"type": "rectangle"}], "emitters": [{"type": "envmap", "filename": "sky.exr"}]},
+     "Queue 1 item 9"),
+    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "irawan"}}]}, "Queue 1 item 9"),
+])
+def test_next_slices_raise(desc, match):
+    with pytest.raises(NotImplementedError, match=match):
+        build_scene(desc, device="cpu")
+
+
+@pytest.mark.parametrize("desc", [
+    {"shapes": [{"type": "rectangle", "bsdf": {"type": "velvet"}}]},
+    {"shapes": [{"type": "rectangle"}], "emitters": [{"type": "laser"}]},
+    {"shapes": [{"type": "rectangle", "bsdf": {"type": "mask", "bsdf": {"type": "mask"}}}],
+     "emitters": [{"type": "constant"}]},
+])
+def test_unknown_or_nested_wrappers_are_refused(desc):
+    with pytest.raises(ValueError):
         build_scene(desc, device="cpu")
 
 
