@@ -109,6 +109,24 @@ Phases:
      report; the gather and the BVH also timed with the L2 evicted before
      each call, ms_l2_cold), and the Mrays/s of the sorted two-level, sorted blocklist
      and BVH routes.
+  11. "shading" (slice 5): see phase_shading_kernel_checks and run_shading.
+  12. "vocabulary" (slice 6): gather_rows_t on the rough-coated Cornell
+     box's (M, 16) coat transmittance table (the kernel's general path),
+     bit-equal and timed, and intersect_tiled bit-equal on the sunsky
+     plane's camera wave; then at 256x256, depth 5: the coated,
+     rough-coated (alpha 0.1) and HK Cornell boxes, guided progressive 4
+     spp x 4; the sky, sun and sunsky planes and the Cornell box through
+     the orthographic, spherical, thin-lens and telecentric sensors,
+     unguided render() in 4 groups of 4 spp; each mean within max(3%, 4
+     standard errors) of the JAX package's CPU mean (SHADING_REFERENCE,
+     tools/shading_reference_means.py); the radiance, irradiance and
+     fluence meters in a constant environment of radiance 2 within 5% of
+     2, 2 pi and 8 pi; Cornell through the stratified, halton,
+     hammersley, sobol and ldsampler samplers and sobol with 2 Sobol'
+     bounces (16 spp), and the six reconstruction filters (8 spp), each
+     mean held to the Cornell reference, each sampler's relMSE against a
+     512-spp independent image printed beside the independent sampler's
+     at equal spp.  Every render prints its Mrays/s and its launches.
 
 Each main-path route runs with the launch counts set to 0 just before it
 and read just after it, and is held to the kernels it must launch: the
@@ -126,7 +144,10 @@ the three door_room renders to three gathers a bounce, one of them on the
 244838-row shading table (240 and 80, 120 and 40, 60 and 20); the
 adaptive Cornell render and the bounce-lamp waves to one tiled launch a
 query and three small-table gathers a bounce, and the door_room gain
-waves to one BVH launch a query and the door_room gathers (1200 and 400).
+waves to one BVH launch a query and the door_room gathers (1200 and 400);
+the vocabulary's wavefront renders to two tiled launches a bounce and
+three gathers (five with a coat: its nested rows and its coat-table
+row), its independent-sampler Cornell renders to one trace_fused a wave.
 """
 from __future__ import annotations
 
@@ -142,6 +163,7 @@ import time
 # depth 5: 0.11478 +- 0.00021 (standard error), from the JAX package on
 # the CPU by tools/cornell_reference_mean.py.
 CORNELL_REFERENCE_MEAN = 0.11478328797966242
+CORNELL_REFERENCE_SE = 0.00021
 MEAN_TOL = 0.03
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and FP32 operations/s
@@ -1913,6 +1935,17 @@ SHADING_REFERENCE = {
     "cornell_glass": (0.10983477998524904, 0.00023354688426345248),
     "cornell_mirror": (0.11891961470246315, 0.0004703238832224376),
     "veach_mis": (0.2850442975759506, 0.0036488629469124904),
+    # the vocabulary phase's scenes (vocabulary_descs), one run of 70.5 s
+    "cornell_coating": (0.10910035856068134, 0.00021600490766381095),
+    "cornell_roughcoating": (0.10901905968785286, 0.00020939744716564425),
+    "cornell_hk": (0.10655821580439806, 0.0002109382210435026),
+    "sky": (0.6427139416337013, 0.00014881391990161118),
+    "sun": (0.00899671867955476, 4.1175605574201175e-06),
+    "sunsky": (0.6516549214720726, 0.0001441705643453525),
+    "cornell_orthographic": (0.11648211162537336, 6.615952264381384e-05),
+    "cornell_spherical": (1.0676129758358002, 0.0002166853104705525),
+    "cornell_thinlens": (0.11456377431750298, 0.0003035078921063422),
+    "cornell_telecentric": (0.11749121733009815, 0.0001013830901008974),
 }
 # sample_direct on the card against the CPU: at least this share of lanes
 # bit-equal in every field, and every lane that is not explained by
@@ -2300,6 +2333,238 @@ def run_shading(sc, veach, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the scene vocabulary: coats and the HK slab, sun and sky, every sensor,
+# the samplers and the reconstruction filters
+# ---------------------------------------------------------------------------
+
+# the tall box's material, from cornell_box()'s white diffuse row
+VOCAB_BSDFS = {
+    "cornell_coating": lambda white: {"type": "coating", "bsdf": white},
+    "cornell_roughcoating": lambda white: {"type": "roughcoating", "alpha": 0.1, "bsdf": white},
+    "cornell_hk": lambda white: {"type": "hk"},
+}
+VOCAB_SENSORS = ("orthographic", "spherical", "thinlens", "telecentric")
+
+
+def vocabulary_descs(mod):
+    """The vocabulary phase's scene descriptions, built from ``mod``'s
+    ``cornell_box()`` and ``look_at`` (the port's scenes module here, the
+    JAX package's in tools/shading_reference_means.py): the Cornell box
+    with a coated, rough-coated or HK tall box; the plane of the JAX
+    package's tests/test_sunsky.py under ``sky``, ``sun`` and ``sunsky``;
+    the Cornell box through four sensors (orthographic and telecentric of
+    half-width 1 from the pinhole's place, a thin lens focused on the
+    boxes, a spherical camera inside the box)."""
+    descs = {}
+    for name, make in VOCAB_BSDFS.items():
+        sc = mod.cornell_box()
+        sc["shapes"][5]["bsdf"] = make(sc["shapes"][5]["bsdf"])
+        descs[name] = sc
+    for etype in ("sky", "sun", "sunsky"):
+        # azimuth 180 puts the sun on the camera's side of the plane
+        descs[etype] = {"sensor": {"type": "perspective", "fov": 60.0},
+                        "shapes": [{"type": "rectangle", "bsdf": {"type": "diffuse"}}],
+                        "emitters": [{"type": etype, "elevation": 35.0, "azimuth": 180.0,
+                                      "turbidity": 3.0}]}
+    sensors = {
+        "orthographic": {"type": "orthographic", "ortho_width": 1.0},
+        "telecentric": {"type": "telecentric", "ortho_width": 1.0, "aperture_radius": 0.05,
+                        "focus_distance": 3.7},
+        "thinlens": {"type": "thinlens", "aperture_radius": 0.1, "focus_distance": 3.7},
+        "spherical": {"type": "spherical", "to_world": mod.look_at([0, 1.0, 0.0], [0, 1.0, 1.0])},
+    }
+    for kind in VOCAB_SENSORS:
+        sc = mod.cornell_box()
+        sc["sensor"] = {**sc["sensor"], **sensors[kind]}
+        descs[f"cornell_{kind}"] = sc
+    return descs
+
+
+VOCAB_SPP = 16                        # 4 groups of 4 spp, or 4 spp x 4 progressions
+VOCAB_GROUPS = 4
+SAMPLER_NAMES = ("stratified", "halton", "hammersley", "sobol", "ldsampler")
+QMC_BOUNCES = 2
+SAMPLER_REF_SPP = 512                 # the independent image relMSE is read against
+FILTER_NAMES = ("box", "tent", "gaussian", "mitchell", "catmullrom", "lanczos")
+FILTER_SPP = 8
+METER_W = METER_H = 64
+METER_SPP = 4
+METER_TOL = 0.05
+METER_EXPECT = {"radiancemeter": 2.0, "irradiancemeter": 2.0 * 3.141592653589793,
+                "fluencemeter": 8.0 * 3.141592653589793}
+
+
+def meter_desc(stype):
+    """A probe at the origin in a constant environment of radiance 2 (the
+    JAX package's tests/test_sensors_meters.py); the far sphere never
+    blocks it."""
+    from mitsuba_path_guiding_torch.scene.scenes import look_at
+
+    return {"sensor": {"type": stype, "to_world": look_at([0, 0, 0], [0, 0, 1])},
+            "shapes": [{"type": "sphere", "center": [0, 100, 0], "radius": 0.5,
+                        "bsdf": {"type": "diffuse", "reflectance": [0.5] * 3}}],
+            "emitters": [{"type": "constant", "radiance": [2.0, 2.0, 2.0]}]}
+
+
+def vocabulary_scenes():
+    """The vocabulary phase's scenes, compiled on the card."""
+    from mitsuba_path_guiding_torch.scene import scenes
+    from mitsuba_path_guiding_torch.scene.builder import build_scene
+
+    descs = vocabulary_descs(scenes)
+    descs.update({stype: meter_desc(stype) for stype in METER_EXPECT})
+    return {k: build_scene(v, device=DEVICE) for k, v in descs.items()}
+
+
+def phase_vocabulary_kernel_checks(vs, card):
+    """gather_rows_t on the coat transmittance table (the rough-coated
+    Cornell box's, (M, 16): the kernel's general path) bit-equal to its
+    plain version, on a wave of random rows and on the material ids of a
+    camera wave's hits, with its CUDA-event median of 7; intersect_tiled
+    bit-equal on the sunsky plane's camera wave."""
+    import torch
+
+    from mitsuba_path_guiding_torch.accel.traverse import intersect_pallas
+    from mitsuba_path_guiding_torch.ops.gather import gather_rows_t, gather_rows_t_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    table = vs["cornell_roughcoating"].mats.coat_trans
+    check(table.shape[1] == 16 and int((table.amax(dim=1) > 0).sum()) == 1,
+          f"coat table {tuple(table.shape)}: expected one coat row of 16 columns")
+    # the timed calls take rows in range (torch.index_select, the library
+    # call beside them, refuses others); the kernel clamps the rest
+    idx = torch.randint(-3, table.shape[0] + 3, (W * H,), generator=gen, device=DEVICE)
+    check(torch.equal(gather_rows_t(table, idx), gather_rows_t_plain(table, idx)),
+          "gather_rows_t coat table, rows out of range: not bit-equal")
+    random_call = gather_call(table, idx.clamp(0, table.shape[0] - 1).to(torch.int32))
+    sc = vs["cornell_roughcoating"]
+    o, d, _ = camera_rays(sc, 1, 0)
+    hit = intersect_pallas(sc.geo, o, d)
+    mid = sc.geo.shade_packed[hit.prim.clamp_min(0).long(), 18].to(torch.int32)
+    wave_call = gather_call(table, mid)
+    sky = vs["sunsky"]
+    o, d, _ = camera_rays(sky, 1, 0)
+    tmax = torch.full((o.shape[0],), 3.0e37, device=DEVICE)
+    tiled = tiled_check(sky.geo, o, d, tmax, sky.geo.p0.shape[0], "sunsky camera")
+    res = {"gather_rows_t_coat_random": random_call, "gather_rows_t_coat_wave": wave_call,
+           "intersect_tiled_sunsky_camera": tiled}
+    emit({"phase": "vocabulary_kernel_checks", "card": card, **res})
+    return res
+
+
+def render_groups(scene, name, cfg, card, ref=None, groups=VOCAB_GROUPS):
+    """integrators.render.render in ``groups`` runs of cfg.spp, seeds 0 up:
+    the groups' mean image, and the mean and standard error of their
+    image means.  With ``ref`` = (mean, se) the mean is held within
+    max(3%, 4 sqrt(se_ref^2 + se^2)) of it.  Returns (image, mean,
+    record)."""
+    import torch
+
+    means, imgs, secs, segs = [], [], 0.0, 0
+    for g in range(groups):
+        img, dt, sg = render_counted(scene, cfg._replace(seed=g))
+        check(bool(torch.isfinite(img).all()), f"{name}: image not finite")
+        means.append(float(img.mean()))
+        imgs.append(img)
+        secs, segs = secs + dt, segs + sg
+    mean = statistics.fmean(means)
+    se = statistics.stdev(means) / len(means) ** 0.5 if groups > 1 else 0.0
+    rec = {"phase": name, "card": card, "resolution": f"{cfg.width}x{cfg.height}",
+           "spp": cfg.spp * groups, "sampler": cfg.sampler, "qmc_bounces": cfg.qmc_bounces,
+           "filter": cfg.filter_name, "seconds": round(secs, 3), "mean": mean, "se": se,
+           "group_means": means, "mrays_per_s": 2 * segs / secs / 1e6}
+    if ref is not None:
+        check(mean > 0.0, f"{name}: image is black")
+        tol = max(MEAN_TOL, 4.0 * (ref[1] ** 2 + se ** 2) ** 0.5 / ref[0])
+        rel = abs(mean - ref[0]) / ref[0]
+        check(rel < tol, f"{name}: mean {mean} vs reference {ref[0]} (tol {tol})")
+        rec.update(reference_mean=ref[0], reference_se=ref[1], rel_err=rel, rel_tol=tol)
+    return torch.stack(imgs).mean(dim=0), mean, rec
+
+
+def run_vocabulary(vs, cornell, card):
+    """The vocabulary phase's renders, each between its own launch-count
+    reset and read, held to the kernels it must launch.  Returns their
+    launch counts by route."""
+    import torch
+
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig
+
+    cfg = RenderConfig(width=SHADE_W, height=SHADE_H, spp=VOCAB_SPP // VOCAB_GROUPS,
+                       max_depth=DEPTH)
+    waves = VOCAB_SPP  # 256x256 is one wave a sample
+
+    def wavefront(n_waves, gathers=3, large=0):
+        return {**NONE_LAUNCHED, "intersect_tiled": 2 * DEPTH * n_waves,
+                "gather_rows_t": gathers * DEPTH * n_waves,
+                "gather_rows_t_large": large * DEPTH * n_waves}
+
+    def fused(n_waves):
+        return {**NONE_LAUNCHED, "trace_fused": n_waves}
+
+    counts, records = {}, {}
+    # a coat's bounce: shading, material, nested and emitter rows and the
+    # coat table's row; HK's: shading, material and emitter rows
+    for name in VOCAB_BSDFS:
+        _, counts[name] = drive(name, lambda: phase_reference_progressive(
+            vs[name], name, SHADE_W, SHADE_H, card),
+            wavefront(waves, gathers=3 if name == "cornell_hk" else 5))
+    for name in ("sky", "sun", "sunsky"):
+        (_, _, records[name]), counts[name] = drive(
+            name, lambda: render_groups(vs[name], name, cfg, card, SHADING_REFERENCE[name]),
+            wavefront(waves))
+        emit(records[name])
+    for kind in VOCAB_SENSORS:
+        name = f"cornell_{kind}"
+        (_, _, records[name]), counts[name] = drive(
+            name, lambda: render_groups(vs[name], name, cfg, card, SHADING_REFERENCE[name]),
+            fused(waves))
+        emit(records[name])
+    for stype, expect in METER_EXPECT.items():
+        mcfg = RenderConfig(width=METER_W, height=METER_H, spp=METER_SPP, max_depth=DEPTH)
+        # the probe's far sphere is a large shading table (9024 rows)
+        (_, mean, rec), counts[stype] = drive(
+            stype, lambda: render_groups(vs[stype], stype, mcfg, card, groups=1),
+            wavefront(METER_SPP, large=1))
+        rel = abs(mean / expect - 1.0)
+        check(rel < METER_TOL, f"{stype}: {mean}, expected {expect} within {METER_TOL}")
+        emit({**rec, "expected": expect, "rel_err": rel, "rel_tol": METER_TOL})
+
+    # the samplers, against a high-spp independent image (the fused route),
+    # each in one render of VOCAB_SPP samples: a sampler's sequence (the
+    # stratified grid too) runs over one render's sample indices
+    from mitsuba_path_guiding_torch.integrators.render import render
+
+    ref_cfg = cfg._replace(spp=SAMPLER_REF_SPP, seed=99)
+    ref_img, c_ref = drive("sampler_reference", lambda: render(cornell, ref_cfg),
+                           fused(SAMPLER_REF_SPP))
+    counts["sampler_reference"] = c_ref
+    ref_mean = (CORNELL_REFERENCE_MEAN, CORNELL_REFERENCE_SE)
+    rel_mse = {}
+    for smp in ("independent",) + SAMPLER_NAMES + ("sobol_qmc",):
+        scfg = cfg._replace(spp=VOCAB_SPP, sampler="sobol" if smp == "sobol_qmc" else smp,
+                            qmc_bounces=QMC_BOUNCES if smp == "sobol_qmc" else 0)
+        name = f"sampler_{smp}"
+        (img, _, rec), counts[name] = drive(
+            name, lambda: render_groups(cornell, name, scfg, card, ref_mean, groups=1),
+            fused(waves) if smp == "independent" else wavefront(waves))
+        rel_mse[smp] = relmse(img, ref_img)
+        emit({**rec, "relmse": rel_mse[smp], "reference_spp": SAMPLER_REF_SPP})
+    emit({"phase": "sampler_relmse", "card": card, "spp": VOCAB_SPP,
+          "reference_spp": SAMPLER_REF_SPP, "relmse": rel_mse,
+          "qmc_bounces_over_independent": rel_mse["sobol_qmc"] / rel_mse["independent"]})
+    for filt in FILTER_NAMES:
+        name = f"filter_{filt}"
+        fcfg = cfg._replace(spp=FILTER_SPP, filter_name=filt)
+        (_, _, rec), counts[name] = drive(
+            name, lambda: render_groups(cornell, name, fcfg, card, ref_mean, groups=1),
+            fused(FILTER_SPP))
+        emit(rec)
+    torch.cuda.synchronize()
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -2407,12 +2672,17 @@ def main(argv=None):
     shading = shading_scenes()
     phase_shading_kernel_checks(shading, veach)
     c_shading = run_shading(shading, veach, card)
+    # the scene vocabulary: its kernel checks at the new shapes, then its
+    # renders
+    vocab = vocabulary_scenes()
+    vocab_checks = phase_vocabulary_kernel_checks(vocab, card)
+    c_vocab = run_vocabulary(vocab, scene, card)
     routes = {"progressive": c_prog, "frozen_render": c_frozen, "unguided_render": c_render,
               "progressive_adaptive": c_adaptive, "guiding_gain_bounce_lamp": c_bounce,
               "guiding_gain_door_room": c_door_gain,
               "door_room_progressive": c_door, "door_room_plk": c_plk, **interior["launches"],
               "door_room_twolevel": door_tl["launches"], "door_room_sorted_blocklist": c_sorted,
-              "door_room_bvh": c_bvh, **c_shading}
+              "door_room_bvh": c_bvh, **c_shading, **c_vocab}
     launches = {k: {r: c[k] for r, c in routes.items()} for k in c_prog}
 
     entries = phase_timings(scene, veach, tables, grid, checks, launches, card)
@@ -2420,6 +2690,8 @@ def main(argv=None):
                                   mt_render)
     new_entries, gather_calls = phase_new_timings(interior, door_tl, door, launches, card)
     entries[0]["calls"].update(gather_calls)
+    entries[0]["calls"].update({"coat_table_random": vocab_checks["gather_rows_t_coat_random"],
+                                "coat_table_wave": vocab_checks["gather_rows_t_coat_wave"]})
     entries += new_entries
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

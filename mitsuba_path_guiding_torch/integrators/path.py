@@ -16,8 +16,11 @@ transparent surfaces (``accel.traverse.shadow_transmittance`` with the
 wave's own closest-hit query), and a straight pass-through keeps the MIS
 state of the last real vertex while its distance accumulates.
 
-Not ported here (they raise): textures, bump maps and cloth, and explicit
-``uniforms`` (ROADMAP Queue 1 item 9).
+Explicit ``uniforms`` (9 * max_depth, N), dim-major, replace the
+counter-based draws bounce by bounce: the hook of the Sobol' bounce
+dimensions (``RenderConfig.qmc_bounces``) and of primary-sample-space
+mutations.  Not ported here (they raise): textures, bump maps and cloth
+(ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -83,15 +86,16 @@ def _offset_ray(p, ng, d):
     return p + ng * s * 1e-4
 
 
-def _check_supported(scene, use_bvh, accel, textured, bumped, clothed, uniforms, cone_angle):
+def _check_supported(scene, accel, textured, bumped, clothed, uniforms, max_depth, n, cone_angle):
     if accel not in ("auto", "pallas", "brute", "bvh", "twolevel"):
         raise ValueError(f"unknown accel '{accel}'")
     if accel == "twolevel" and scene.blocks is None:
         raise ValueError("accel='twolevel' needs block tables (16384 triangles or more)")
     if textured or bumped or clothed or cone_angle > 0.0:
         raise NotImplementedError("textures, bump maps and cloth: ROADMAP Queue 1 item 9")
-    if uniforms is not None:
-        raise NotImplementedError("explicit primary-sample uniforms (PSSMLT): ROADMAP Queue 1 item 9")
+    if uniforms is not None and tuple(uniforms.shape) != (9 * max_depth, n):
+        raise ValueError(f"uniforms must be (9 * max_depth, N) = {(9 * max_depth, n)}, "
+                         f"got {tuple(uniforms.shape)}")
 
 
 def trace(
@@ -130,9 +134,9 @@ def trace(
     - "brute": the dense oracle.
     Shadow rays through NULL and MASK surfaces march with the route's
     closest-hit query."""
-    _check_supported(scene, use_bvh, accel, textured, bumped, clothed, uniforms, cone_angle)
-    bsdf_mod.check_types(mat_types)
     n = ray_o.shape[0]
+    _check_supported(scene, accel, textured, bumped, clothed, uniforms, max_depth, n, cone_angle)
+    bsdf_mod.check_types(mat_types)
     dev = ray_o.device
     geo, mats, em = scene.geo, scene.mats, scene.emitters
     blocks_route = accel == "twolevel" or (accel == "auto" and scene.blocks is not None)
@@ -201,7 +205,10 @@ def trace(
     # uniforms per bounce: 0:3 NEE, 3:6 BSDF (2 dir + lobe),
     # 6 guide selection, 7 guide lobe, 8 russian roulette
     for depth in range(max_depth):
-        u = bounce_uniform(rkeys, depth, 9)
+        if uniforms is None:
+            u = bounce_uniform(rkeys, depth, 9)
+        else:
+            u = uniforms[depth * 9:(depth + 1) * 9].T
         hit = intersect(o, d, torch.where(alive, INFD, -1.0))
         escaped = alive & ~hit.valid
 

@@ -8,8 +8,9 @@ wavefront tracer with path records, sums the fitting statistics of its
 waves and makes one EM update of the vMF grid, then, with
 ``adaptive_refine``, splits the cells that gathered more than
 ``refine_threshold`` samples.  Per-pixel sample counters persist across
-progressions, so the random sequences continue.  Media are ROADMAP Queue 1
-item 9.
+progressions, so the random sequences continue, with every sampler of
+``RenderConfig.sampler``; the film takes ``RenderConfig.filter_name``.
+Media are ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -110,7 +111,7 @@ class ProgressiveRenderer:
             for s in range(cfg.samples_per_progression):
                 sidx = torch.full_like(pix, self.sample_counter + s)
                 film_xy, L, aux, rec = self._wave(pix, sidx)
-                rgbw = splat(rgbw, film_xy, L, r.width, r.height)
+                rgbw = splat(rgbw, film_xy, L, r.width, r.height, r.filter_name)
                 seg_total += torch.sum(aux.n_bounces)
                 lane_total += int(pix.shape[0])
                 if rec is not None:

@@ -14,18 +14,21 @@ families present.
 
 Ported families: DIFFUSE, ROUGH_DIFFUSE (Oren-Nayar), CONDUCTOR,
 ROUGH_CONDUCTOR (GGX, visible normals), DIELECTRIC, ROUGH_DIELECTRIC,
-THINDIELECTRIC, PLASTIC, ROUGH_PLASTIC, PHONG, WARD, DIFFTRANS, NULL, and
-the one-level wrappers BLEND (``blendbsdf`` / ``mixturebsdf``) and MASK.
-COATING and HK (they need ``models/microfacet_tables.py``) and CLOTH
-raise (ROADMAP Queue 1 items 5 and 9).
+THINDIELECTRIC, PLASTIC, ROUGH_PLASTIC, PHONG, WARD, DIFFTRANS, NULL, HK
+(the Hanrahan-Krueger slab), and the one-level wrappers BLEND
+(``blendbsdf`` / ``mixturebsdf``), MASK and COATING (a dielectric layer
+over its nested row; ``roughcoating`` is a COATING row with alpha > 0).
+CLOTH raises (ROADMAP Queue 1 item 9).
 
 Every entry point takes either ``(mats, mid)`` or, through the ``*_p``
 variants, the lane's material row already gathered by ``gather_params``:
 the path tracer fetches that row once per bounce and reuses it for NEE
-evaluation, sampling and the albedo AOV.  When BLEND or MASK is among the
-types, ``gather_params`` also fetches the two nested rows, in a second
-``gather_rows_t`` call; the reference gathers them again at each use,
-which gives the same values.
+evaluation, sampling and the albedo AOV.  When BLEND, MASK or COATING is
+among the types, ``gather_params`` also fetches the two nested rows, in a
+second ``gather_rows_t`` call, and with COATING the lane's row of the
+(M, 16) coat transmittance table (``Materials.coat_trans``) in a third;
+the reference gathers them again at each use, which gives the same
+values.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ from mitsuba_path_guiding_torch.core.math import (
     safe_sqrt,
 )
 from mitsuba_path_guiding_torch.core.warp import (
+    INV_FOURPI,
     INV_PI,
     square_to_cosine_hemisphere,
     square_to_cosine_hemisphere_pdf,
@@ -58,14 +62,15 @@ from mitsuba_path_guiding_torch.models.microfacet import (
     ggx_sample_vndf,
     ggx_vndf_pdf,
 )
+from mitsuba_path_guiding_torch.models.phase import hg_pdf, phase_sample
 from mitsuba_path_guiding_torch.ops.gather import gather_rows_t
 from mitsuba_path_guiding_torch.scene.types import BSDFType, Materials
 
 T = BSDFType
 PORTED_TYPES = (T.DIFFUSE, T.CONDUCTOR, T.DIELECTRIC, T.ROUGH_CONDUCTOR, T.PLASTIC,
                 T.ROUGH_DIELECTRIC, T.NULL, T.ROUGH_PLASTIC, T.ROUGH_DIFFUSE, T.PHONG, T.MASK,
-                T.WARD, T.DIFFTRANS, T.BLEND, T.THINDIELECTRIC)
-NESTED_TYPES = (T.BLEND, T.MASK)
+                T.WARD, T.DIFFTRANS, T.BLEND, T.COATING, T.HK, T.THINDIELECTRIC)
+NESTED_TYPES = (T.BLEND, T.MASK, T.COATING)
 
 
 class BSDFSample(NamedTuple):
@@ -87,16 +92,18 @@ class _P(NamedTuple):
     alpha_v: torch.Tensor
     sub_a: torch.Tensor    # int32 nested material row (-1 none)
     sub_b: torch.Tensor
-    weight: torch.Tensor   # blend factor / mask opacity
+    weight: torch.Tensor   # blend factor / mask opacity / coat or slab thickness
+    tcoat: Optional[torch.Tensor] = None  # (16, N) coat transmittance row, see gather_params
     nested: Optional[tuple] = None  # (_P of sub_a, _P of sub_b), see gather_params
+
+    N_OWN = 10  # the per-lane fields of the row itself, before tcoat and nested
 
 
 def check_types(types) -> None:
     missing = sorted(set(types) - set(PORTED_TYPES))
     if missing:
         raise NotImplementedError(
-            f"BSDF families {missing} are not ported yet: ROADMAP Queue 1 item 5 "
-            "(COATING and HK with microfacet_tables, the next slice) or item 9 (CLOTH)")
+            f"BSDF families {missing} are not ported yet: ROADMAP Queue 1 item 9 (CLOTH)")
 
 
 def types_present(mats: Materials):
@@ -106,6 +113,10 @@ def types_present(mats: Materials):
 
 def _has_nested(types) -> bool:
     return any(t in types for t in NESTED_TYPES)
+
+
+def _has_blend_mask(types) -> bool:
+    return T.BLEND in types or T.MASK in types
 
 
 def _row_params(row) -> _P:
@@ -119,9 +130,11 @@ def _row_params(row) -> _P:
 
 
 def gather_params(mats: Materials, mid: torch.Tensor, tex=None, *, types) -> _P:
-    """One packed material-row gather per lane (``Materials.packed``), and,
-    when BLEND or MASK is among ``types``, one more for both nested rows
-    of every lane (sub_a and sub_b, clamped to row 0 where absent)."""
+    """One packed material-row gather per lane (``Materials.packed``);
+    when BLEND, MASK or COATING is among ``types``, one more for both
+    nested rows of every lane (sub_a and sub_b, clamped to row 0 where
+    absent); and with COATING, the lane's coat transmittance row (a table
+    of 16 columns) where the table exists."""
     if tex is not None:
         raise NotImplementedError("textured reflectance: ROADMAP Queue 1 item 9")
     p = _row_params(gather_rows_t(mats.packed, mid))  # (32, N)
@@ -130,12 +143,14 @@ def gather_params(mats: Materials, mid: torch.Tensor, tex=None, *, types) -> _P:
         sub = torch.cat([torch.clamp_min(p.sub_a, 0), torch.clamp_min(p.sub_b, 0)])
         rows = gather_rows_t(mats.packed, sub)  # (32, 2N)
         p = p._replace(nested=(_row_params(rows[:, :n]), _row_params(rows[:, n:])))
+    if T.COATING in types and mats.coat_trans is not None:
+        p = p._replace(tcoat=gather_rows_t(mats.coat_trans, mid))  # (16, N)
     return p
 
 
 def _nested(p: _P):
     if p.nested is None:
-        raise ValueError("BLEND/MASK lanes need gather_params(..., types) with those types")
+        raise ValueError("BLEND/MASK/COATING lanes need gather_params(..., types) with those types")
     return p.nested
 
 
@@ -354,7 +369,45 @@ def _difftrans_eval_pdf(p: _P, wi, wo):
     return torch.where(thru[..., None], f, 0.0), torch.where(thru, pdf, 0.0)
 
 
+def _hk_params(p: _P):
+    """sigma_s = refl, sigma_a = k, thickness = weight, HG g = eta[..., 0]."""
+    sigma_t = p.refl + p.k
+    tau_d = sigma_t * p.weight[..., None]
+    albedo = p.refl / torch.clamp_min(sigma_t, 1e-9)
+    return tau_d, albedo, p.eta[..., 0]
+
+
+def _hk_prob_delta(tau_d, cos_i):
+    """Mean attenuated transmittance: the pick probability of the delta
+    transmission lobe."""
+    return torch.mean(torch.exp(-tau_d / torch.clamp_min(torch.abs(cos_i), 1e-6)[..., None]),
+                      dim=-1)
+
+
+def _hk_eval_pdf(p: _P, wi, wo):
+    """Hanrahan-Krueger single-scattering slab, its smooth lobes (the
+    reflection and transmission terms of Hanrahan et al. 93 times
+    |cos_o|); the delta transmission is invisible here."""
+    tau_d, albedo, g = _hk_params(p)
+    ci, co = cos_theta(wi), cos_theta(wo)
+    aci, aco = torch.clamp_min(torch.abs(ci), 1e-6), torch.clamp_min(torch.abs(co), 1e-6)
+    ph = torch.where(torch.abs(g) < 1e-4, INV_FOURPI, hg_pdf(dot(-wi, wo), g))
+    f_r = (albedo * (ph * ci / torch.clamp_min(ci + co, 1e-6))[..., None]
+           * (1.0 - torch.exp((-1.0 / aci - 1.0 / aco)[..., None] * tau_d)))
+    # the grazing-equal case of the transmission term apart
+    same = torch.abs(aci - aco) < 1e-5
+    t_gen = ((ph * aci)[..., None] / torch.where(same, 1.0, aci - aco)[..., None]
+             * (torch.exp(-tau_d / aci[..., None]) - torch.exp(-tau_d / aco[..., None])))
+    t_same = (ph * 1.0)[..., None] * tau_d / aco[..., None] * torch.exp(-tau_d / aco[..., None])
+    f_t = albedo * torch.where(same[..., None], t_same, t_gen)
+    f = torch.where((ci * co > 0)[..., None], f_r, f_t) * aco[..., None]
+    # the phase pdf times the share of the smooth lobes
+    pdf = ph * (1.0 - _hk_prob_delta(tau_d, ci))
+    return torch.clamp_min(f, 0.0), torch.clamp_min(pdf, 0.0)
+
+
 _SMOOTH_EVALS = {
+    T.HK: _hk_eval_pdf,
     T.DIFFUSE: _diffuse_eval_pdf,
     T.ROUGH_DIFFUSE: _orennayar_eval_pdf,
     T.ROUGH_CONDUCTOR: _rough_conductor_eval_pdf,
@@ -380,16 +433,90 @@ def _eval_smooth(p: _P, wi2, wo2, types):
     return f, pdf
 
 
+def _coat_refract(w, eta_ratio):
+    """Hemisphere-keeping refraction across the coat interface: the
+    tangential part scaled by 1/eta_ratio, z keeps its sign.  Returns
+    (w_t, R), R = 1 under total internal reflection."""
+    inv = 1.0 / eta_ratio
+    cz = w[..., 2]
+    st2 = torch.clamp_min(1.0 - cz * cz, 0.0) * inv * inv
+    ct = safe_sqrt(1.0 - st2)
+    w_t = torch.stack([w[..., 0] * inv, w[..., 1] * inv, torch.sign(cz) * ct], dim=-1)
+    R = fresnel_dielectric(torch.abs(cz), eta_ratio)
+    return w_t, torch.where(st2 >= 1.0, 1.0, R)
+
+
+def _coat_rough_reflection(p: _P, wi, wo):
+    """The GGX reflection off a rough coat interface: the coat's alpha,
+    dielectric Fresnel at the half vector.  Returns (f*cos, pdf)."""
+    up = (cos_theta(wi) > 1e-6) & (cos_theta(wo) > 1e-6)
+    m = normalize(wi + wo)
+    D = ggx_d(m, p.alpha)
+    G2 = ggx_g2(wi, wo, p.alpha)
+    F = fresnel_dielectric(dot(wi, m), torch.clamp_min(p.eta[..., 0], 1e-3))
+    ci = torch.clamp_min(cos_theta(wi), 1e-6)
+    f = p.spec * (F * D * G2 / (4.0 * ci))[..., None]
+    pdf = ggx_vndf_pdf(wi, m, p.alpha) / torch.clamp_min(4.0 * torch.abs(dot(m, wo)), 1e-8)
+    return torch.where(up[..., None], f, 0.0), torch.where(up, pdf, 0.0)
+
+
+def _interp_coat_trans(tcoat, cos_v):
+    """Linear interpolation of the (16, N) coat rows at |cos_v| per lane."""
+    n_cos = tcoat.shape[0]
+    x = torch.clamp(torch.abs(cos_v), 0.0, 1.0) * (n_cos - 1)
+    i0 = torch.clamp(x.to(torch.int64), 0, n_cos - 2)
+    t = x - i0.to(x.dtype)
+    v0 = torch.gather(tcoat, 0, i0[None])[0]
+    v1 = torch.gather(tcoat, 0, (i0 + 1)[None])[0]
+    return v0 * (1.0 - t) + v1 * t
+
+
+def _coating_f_pdf(p: _P, pc: _P, wi2, wo2, types, tcoat=None):
+    """Smooth eval/pdf of a coat over its nested row ``pc``: both
+    directions refracted into the layer, the nested lobe evaluated there,
+    attenuated by the two interface transmittances and the absorption of
+    the layer, and the measure converted back (1/eta^2 and the cosine
+    ratio).  A rough interface (alpha > 0) adds its GGX reflection to the
+    eval, and its pdf with probability R12.  ``tcoat``: the lanes' rows of
+    the transmittance table, which replace the smooth 1 - F on a rough
+    interface."""
+    eta_c = torch.clamp_min(p.eta[..., 0], 1e-3)
+    wi_in, R12 = _coat_refract(wi2, eta_c)
+    wo_in, R21 = _coat_refract(wo2, eta_c)
+    f_n, pdf_n = _eval_smooth(pc, wi_in, wo_in, types)
+    inv_eta2 = 1.0 / (eta_c * eta_c)
+    czo_in = torch.where(torch.abs(wo_in[..., 2]) < 1e-6, 1e-6, wo_in[..., 2])
+    cos_ratio = wo2[..., 2] / czo_in
+    sa = p.refl * p.weight[..., None]  # sigma_a x thickness
+    absorb = torch.exp(-sa * (1.0 / torch.clamp_min(torch.abs(wi_in[..., 2]), 1e-6)
+                              + 1.0 / torch.clamp_min(torch.abs(wo_in[..., 2]), 1e-6))[..., None])
+    t12, t21 = (1.0 - R12), (1.0 - R21)
+    if tcoat is not None:
+        rough_if = p.alpha > 1e-3
+        t12 = torch.where(rough_if, _interp_coat_trans(tcoat, wi2[..., 2]), t12)
+        t21 = torch.where(rough_if, _interp_coat_trans(tcoat, wo2[..., 2]), t21)
+    trans = t12 * t21 * inv_eta2 * cos_ratio
+    ok = (R12 < 1.0) & (R21 < 1.0)
+    f_c = torch.where(ok[..., None], f_n * absorb * trans[..., None], 0.0)
+    pdf_c = torch.where(ok, (1.0 - R12) * pdf_n * inv_eta2 * cos_ratio, 0.0)
+    f_r, pdf_r = _coat_rough_reflection(p, wi2, wo2)
+    rough_c = p.alpha > 1e-3
+    f_c = torch.where(rough_c[..., None], f_c + f_r, f_c)
+    pdf_c = torch.where(rough_c, pdf_c + R12 * pdf_r, pdf_c)
+    return f_c, pdf_c
+
+
 def eval_pdf_p(p: _P, wi, wo, types=PORTED_TYPES):
     """(f*cos (N,3), pdf (N,)) of the smooth lobes from gathered
     parameters; 0 for delta lobes.  BLEND lanes mix their nested lobes by
     weight; MASK lanes scale the nested lobe by the opacity (the
-    pass-through is a delta lobe)."""
+    pass-through is a delta lobe); COATING lanes take the coat over their
+    nested lobe (``_coating_f_pdf``)."""
     check_types(types)
     wi2, s = _flip_two_sided(p, wi)
     wo2 = _flip_z(wo, s)
     f, pdf = _eval_smooth(p, wi2, wo2, types)
-    if _has_nested(types):
+    if _has_blend_mask(types):
         pa, pb = _nested(p)
         fa, pdfa = _eval_smooth(pa, wi2, wo2, types)
         if T.BLEND in types:
@@ -402,6 +529,11 @@ def eval_pdf_p(p: _P, wi, wo, types=PORTED_TYPES):
             is_m = p.type == T.MASK
             f = torch.where(is_m[..., None], p.weight[..., None] * fa, f)
             pdf = torch.where(is_m, p.weight * pdfa, pdf)
+    if T.COATING in types:
+        f_c, pdf_c = _coating_f_pdf(p, _nested(p)[0], wi2, wo2, types, p.tcoat)
+        is_c = p.type == T.COATING
+        f = torch.where(is_c[..., None], f_c, f)
+        pdf = torch.where(is_c, pdf_c, pdf)
     return f, pdf
 
 
@@ -415,7 +547,8 @@ def _albedo_of(p: _P):
 
 def albedo_p(p: _P) -> torch.Tensor:
     """BSDF::getAlbedo: the reflectance, the specular tint for conductors,
-    1 for glass; BLEND lerps and MASK scales its nested rows' albedo."""
+    1 for glass; BLEND lerps and MASK scales its nested rows' albedo, and
+    COATING takes its nested row's."""
     a = _albedo_of(p)
     if p.nested is not None:
         pa, pb = p.nested
@@ -423,6 +556,7 @@ def albedo_p(p: _P) -> torch.Tensor:
         w = p.weight[..., None]
         a = torch.where((p.type == T.BLEND)[..., None], (1.0 - w) * aa + w * ab, a)
         a = torch.where((p.type == T.MASK)[..., None], w * aa, a)
+        a = torch.where((p.type == T.COATING)[..., None], aa, a)
     return a
 
 
@@ -516,6 +650,23 @@ def _sample_families(p: _P, wi, u2, ul, types) -> BSDFSample:
     if has(T.NULL):
         put(p.type == T.NULL, -wi, torch.ones_like(weight), torch.ones_like(pdf), yes)
 
+    if has(T.HK):
+        # the attenuated delta transmission, picked with its mean
+        # transmittance, else an HG direction inside the slab
+        tau_d, _, g_hk = _hk_params(p)
+        ci_hk = cos_theta(wi2)
+        p_delta = _hk_prob_delta(tau_d, ci_hk)
+        take_delta = ul < p_delta
+        w_delta = (torch.exp(-tau_d / torch.clamp_min(torch.abs(ci_hk), 1e-6)[..., None])
+                   / torch.clamp_min(p_delta, 1e-9)[..., None])
+        wo_ph, _ = phase_sample(wi2, g_hk, u2)
+        f_hk, pdf_hk = _hk_eval_pdf(p, wi2, wo_ph)
+        w_s = f_hk / torch.clamp_min(pdf_hk, 1e-9)[..., None]
+        ok_s = pdf_hk > 1e-9
+        put(p.type == T.HK, torch.where(take_delta[..., None], -wi2, wo_ph),
+            torch.where(take_delta[..., None], w_delta, torch.where(ok_s[..., None], w_s, 0.0)),
+            torch.where(take_delta, torch.clamp_min(p_delta, 1e-9), pdf_hk), take_delta)
+
     if has(T.ROUGH_CONDUCTOR, T.ROUGH_PLASTIC):
         m = ggx_sample_vndf(wi2, p.alpha, u2)
         wo_rc = 2.0 * dot(wi2, m)[..., None] * m - wi2
@@ -602,11 +753,67 @@ def _sample_families(p: _P, wi, u2, ul, types) -> BSDFSample:
 
 
 def _select(cond, a: _P, b: _P) -> _P:
-    """Field-wise where(cond, a, b) of two gathered rows."""
+    """Field-wise where(cond, a, b) of two gathered rows' own fields."""
     def sel(x, y):
         return torch.where(cond.reshape(cond.shape + (1,) * (x.dim() - cond.dim())), x, y)
 
-    return _P(*(sel(x, y) for x, y in zip(a[:-1], b[:-1])))
+    return _P(*(sel(x, y) for x, y in zip(a[:_P.N_OWN], b[:_P.N_OWN])))
+
+
+def _coat_sample(p: _P, wi, u2, ul, types, res: BSDFSample) -> BSDFSample:
+    """COATING lanes: the coat's reflection with probability R12, else
+    refract in, sample the nested lobe, attenuate and refract back out.
+    A rough coat's smooth outcomes take the whole coat's eval / pdf as
+    their weight.  Overrides ``res`` where the lane is COATING."""
+    is_coat = p.type == T.COATING
+    pc = _nested(p)[0]
+    eta_c = torch.clamp_min(p.eta[..., 0], 1e-3)
+    wi2, s = _flip_two_sided(p, wi)
+    wi_in, R12 = _coat_refract(wi2, eta_c)
+    p_spec = R12
+    choose_spec = ul < p_spec
+    # the nested lobe with the refracted incident direction
+    ul_n = torch.clamp((ul - p_spec) / torch.clamp_min(1.0 - p_spec, 1e-9), 0.0, 1.0 - 1e-7)
+    sub = _sample_families(pc, wi_in, u2, ul_n, types)
+    wo_in = sub.wo
+    sa = p.refl * p.weight[..., None]
+    absorb = torch.exp(-sa * (1.0 / torch.clamp_min(torch.abs(wi_in[..., 2]), 1e-6)
+                              + 1.0 / torch.clamp_min(torch.abs(wo_in[..., 2]), 1e-6))[..., None])
+    wo_out, R21 = _coat_refract(wo_in, 1.0 / eta_c)  # out of the layer
+    tir = (R21 >= 1.0) | (R12 >= 1.0)
+    inv_eta2 = 1.0 / (eta_c * eta_c)
+    czo_in = torch.where(torch.abs(wo_in[..., 2]) < 1e-6, 1e-6, wo_in[..., 2])
+    cos_ratio = wo_out[..., 2] / czo_in
+    # the measure factors cancel in the weight: the transmittances, the
+    # absorption and 1 / (1 - probability of the coat reflection) remain
+    w_n = sub.weight * absorb * ((1.0 - R12) * (1.0 - R21)
+                                 / torch.clamp_min(1.0 - p_spec, 1e-9))[..., None]
+    pdf_n = sub.pdf * (1.0 - p_spec) * torch.where(sub.is_delta, 1.0, inv_eta2 * cos_ratio)
+    ok_n = ~tir & (sub.pdf > 0.0)
+    # the coat's reflection: a delta mirror, or a GGX visible-normal
+    # sample on a rough interface
+    rough_c = p.alpha > 1e-3
+    m_r = ggx_sample_vndf(wi2, p.alpha, u2)
+    wo_ggx = 2.0 * dot(wi2, m_r)[..., None] * m_r - wi2
+    wo_spec = torch.where(rough_c[..., None], wo_ggx, reflect_local(wi2))
+    wo_c = torch.where(choose_spec[..., None], wo_spec, wo_out)
+    f_full, pdf_full = _coating_f_pdf(p, pc, wi2, wo_c, types, p.tcoat)
+    smooth_out = rough_c & ~torch.where(choose_spec, False, sub.is_delta)
+    ok_r = pdf_full > 1e-9
+    w_full = f_full / torch.clamp_min(pdf_full, 1e-9)[..., None]
+    w_c = torch.where(choose_spec[..., None], p.spec, torch.where(ok_n[..., None], w_n, 0.0))
+    pdf_c = torch.where(choose_spec, torch.clamp_min(p_spec, 1e-9),
+                        torch.where(ok_n, pdf_n, 0.0))
+    w_c = torch.where(smooth_out[..., None], torch.where(ok_r[..., None], w_full, 0.0), w_c)
+    pdf_c = torch.where(smooth_out, torch.where(ok_r, pdf_full, 0.0), pdf_c)
+    delta_c = torch.where(choose_spec, ~rough_c, sub.is_delta)
+    wo_c = _flip_z(wo_c, s)  # un-flip the two-sided mirror
+    return BSDFSample(
+        wo=torch.where(is_coat[..., None], wo_c, res.wo),
+        weight=torch.where(is_coat[..., None], w_c, res.weight),
+        pdf=torch.where(is_coat, pdf_c, res.pdf),
+        is_delta=torch.where(is_coat, delta_c, res.is_delta),
+    )
 
 
 def sample_p(p: _P, wi, u, types=PORTED_TYPES) -> BSDFSample:
@@ -616,12 +823,14 @@ def sample_p(p: _P, wi, u, types=PORTED_TYPES) -> BSDFSample:
     re-weights a smooth sample by the whole mixture's eval/pdf; a delta
     pick keeps the component's result.  MASK passes straight through
     (delta, weight 1) with probability 1 - opacity, else samples its
-    nested lobe; the opacity cancels the same way."""
+    nested lobe; the opacity cancels the same way.  COATING lanes are
+    sampled last (``_coat_sample``)."""
     check_types(types)
     u2 = u[..., 0:2]
     ul = u[..., 2]
-    if not _has_nested(types):
-        return _sample_families(p, wi, u2, ul, types)
+    if not _has_blend_mask(types):
+        res = _sample_families(p, wi, u2, ul, types)
+        return _coat_sample(p, wi, u2, ul, types, res) if T.COATING in types else res
 
     pa, pb = _nested(p)
     is_blend = p.type == T.BLEND
@@ -658,7 +867,8 @@ def sample_p(p: _P, wi, u, types=PORTED_TYPES) -> BSDFSample:
     delta_sub = use_sub & is_delta
     p_pick = torch.where(is_mask, w_sel, torch.where(pick_b, w_sel, 1.0 - w_sel))
     pdf = torch.where(delta_sub, pdf * p_pick, pdf)
-    return BSDFSample(wo=wo, weight=weight, pdf=pdf, is_delta=is_delta)
+    res = BSDFSample(wo=wo, weight=weight, pdf=pdf, is_delta=is_delta)
+    return _coat_sample(p, wi, u2, ul, types, res) if T.COATING in types else res
 
 
 def eval_pdf(mats: Materials, mid, wi, wo, types=PORTED_TYPES, tex=None, cloth_aux=None):

@@ -6,7 +6,7 @@ environment, the white-furnace check) and ``veach`` (Veach's MIS plates);
   python -m mitsuba_path_guiding_torch.render cornell -o out.exr
   python -m mitsuba_path_guiding_torch.render veach -o out.npy -s 64 -G --device cpu
 
-  -o FILE      output (exr/pfm/npy; default <scene>.exr)
+  -o FILE      output (exr/pfm/png/npy; default <scene>.exr)
   -s N         samples per pixel (default 16)
   -d N         max path depth (default 5)
   -r WxH       resolution (default 256x256)

@@ -2,11 +2,15 @@
 
 Port of the reference's scene/builder.py ``build_scene`` for the port's
 subset: triangle shapes (with shape groups and instances flattened), the
-analytic BSDF families (``blendbsdf``, ``mixturebsdf`` and ``mask`` with
-one level of nested rows, interned before their parent as the reference
-does), ``area`` emitters on shapes, the ``constant``, ``envmap`` (inline
-``image``), ``point``, ``directional``, ``spot`` and ``collimated``
-emitters, and the perspective pinhole sensor.  Every scene carries its
+analytic BSDF families (``blendbsdf``, ``mixturebsdf``, ``mask``,
+``coating`` and ``roughcoating`` with one level of nested rows, interned
+before their parent as the reference does, and ``hk``), the coat
+transmittance tables, ``area`` emitters on shapes, the ``constant``,
+``envmap`` (inline ``image``), ``point``, ``directional``, ``spot``,
+``collimated``, ``sky``, ``sun`` and ``sunsky`` emitters, and every
+sensor kind of the reference (perspective, thin lens and radially
+distorted perspective, orthographic, spherical, telecentric and the
+three measurement probes).  Every scene carries its
 BVH (built by the native builder, so a compile needs g++; its depth is
 checked against the traversal stack); from 16384 triangles on it also
 carries the blocklist and pair tables of the big-scene intersectors.  The
@@ -26,6 +30,13 @@ from mitsuba_path_guiding_torch.accel.pairs import build_pair_table
 from mitsuba_path_guiding_torch.core.device import resolve_device
 from mitsuba_path_guiding_torch.core.spectrum import LUM_WEIGHTS_NP
 from mitsuba_path_guiding_torch.models.envmap import build_env_tables, constant_env_tables
+from mitsuba_path_guiding_torch.models.microfacet_tables import N_COS, coat_transmittance_table
+from mitsuba_path_guiding_torch.models.sunsky import (
+    hosek_sky_image,
+    preetham_sky_image,
+    preetham_sun_irradiance,
+    sun_direction_from_angles,
+)
 from mitsuba_path_guiding_torch.ops.intersect_bvh import STACK_SIZE
 from mitsuba_path_guiding_torch.scene.shapes import SHAPE_BUILDERS
 from mitsuba_path_guiding_torch.scene.transforms import look_at, scale, translate
@@ -44,7 +55,6 @@ from mitsuba_path_guiding_torch.scene.types import (
 # From this triangle count on, the scene carries the pair and blocklist
 # tables of the big-scene intersectors, as in the reference.
 TWOLEVEL_MIN_TRIS = 16384
-N_COS = 16  # rough-coating transmittance table width (all zero here)
 
 _BSDF_TYPES = {
     "diffuse": BSDFType.DIFFUSE,
@@ -60,17 +70,18 @@ _BSDF_TYPES = {
     "null": BSDFType.NULL,
     "ward": BSDFType.WARD,
     "difftrans": BSDFType.DIFFTRANS,
+    "hk": BSDFType.HK,
     # nested wrappers, one level deep
     "blendbsdf": BSDFType.BLEND,
     "mixturebsdf": BSDFType.BLEND,
     "mask": BSDFType.MASK,
+    "coating": BSDFType.COATING,
+    # a COATING row with alpha > 0: a GGX lobe off the coat interface
+    "roughcoating": BSDFType.COATING,
 }
 # families the reference compiles that the port does not yet, by the
 # ROADMAP item that brings them
 _LATER_BSDFS = {
-    "hk": "Queue 1 item 5 (COATING and HK with microfacet_tables, the next slice)",
-    "coating": "Queue 1 item 5 (COATING and HK with microfacet_tables, the next slice)",
-    "roughcoating": "Queue 1 item 5 (COATING and HK with microfacet_tables, the next slice)",
     "irawan": "Queue 1 item 9 (textures and cloth)",
     "bumpmap": "Queue 1 item 9 (textures)",
     "normalmap": "Queue 1 item 9 (textures)",
@@ -83,6 +94,19 @@ _CONDUCTOR_IOR = {
     "Al": ([1.345, 0.965, 0.617], [7.475, 6.400, 5.303]),
     "Cu": ([0.201, 0.924, 1.102], [3.910, 2.448, 2.168]),
     "none": ([0.0, 0.0, 0.0], [1.0, 1.0, 1.0]),  # perfect mirror
+}
+
+
+_SENSOR_KINDS = {
+    "perspective": SensorKind.PERSPECTIVE,
+    "thinlens": SensorKind.PERSPECTIVE,
+    "perspective_rdist": SensorKind.PERSPECTIVE,
+    "orthographic": SensorKind.ORTHOGRAPHIC,
+    "spherical": SensorKind.SPHERICAL,
+    "telecentric": SensorKind.TELECENTRIC,
+    "irradiancemeter": SensorKind.IRRADIANCEMETER,
+    "radiancemeter": SensorKind.RADIANCEMETER,
+    "fluencemeter": SensorKind.FLUENCEMETER,
 }
 
 
@@ -99,7 +123,7 @@ def _rgb(x, default):
 
 def _compile_bsdf(spec: dict, register_sub=None) -> dict:
     """One material row.  The nested wrappers (``blendbsdf``,
-    ``mixturebsdf``, ``mask``) register their child lobes through
+    ``mixturebsdf``, ``mask``, ``coating``, ``roughcoating``) register their child lobes through
     ``register_sub`` (a callable returning the child's row index) and
     store the indices in sub_a / sub_b; a wrapper inside a wrapper
     raises, as in the reference."""
@@ -125,6 +149,32 @@ def _compile_bsdf(spec: dict, register_sub=None) -> dict:
         "bump_tex_id": -1,
         "bump_scale": 1.0,
     }
+    if t in ("coating", "roughcoating"):
+        if register_sub is None:
+            raise ValueError(f"{t} may not be nested inside another wrapper")
+        row["eta"] = np.full(3, float(spec.get("int_ior", 1.5046))
+                             / float(spec.get("ext_ior", 1.000277)))
+        # coat interface roughness: 0 is a delta reflection (coating), > 0
+        # a GGX reflection lobe (roughcoating)
+        row["alpha"] = float(spec.get("alpha", 0.1)) if t == "roughcoating" else 0.0
+        row["weight"] = float(spec.get("thickness", 1.0))
+        row["reflectance"] = _rgb(spec.get("sigma_a"), [0.0, 0.0, 0.0])
+        row["sub_a"] = register_sub(spec.get("bsdf") or {"type": "diffuse"})
+        return row
+    if t == "hk":
+        # Hanrahan-Krueger slab: sigma_s/sigma_a (or sigma_t and albedo),
+        # thickness and the HG g, packed as refl = sigma_s, k = sigma_a,
+        # weight = thickness, eta = g (models/bsdf.py _hk_params)
+        ss, sa = spec.get("sigma_s"), spec.get("sigma_a")
+        if "sigma_t" in spec:
+            st = _rgb(spec["sigma_t"], [1.0] * 3)
+            al = _rgb(spec.get("albedo"), [0.8] * 3)
+            ss, sa = st * al, st * (1.0 - al)
+        row["reflectance"] = _rgb(ss, [1.0] * 3)
+        row["k"] = _rgb(sa, [0.05] * 3)
+        row["weight"] = float(spec.get("thickness", 1.0))
+        row["eta"] = np.full(3, float(spec.get("g", 0.0)))
+        return row
     if t in ("blendbsdf", "mixturebsdf", "mask"):
         if register_sub is None:
             raise ValueError(f"{t} may not be nested inside another wrapper")
@@ -171,12 +221,6 @@ def _to_world(spec):
 def _check_supported(desc: dict):
     if desc.get("medium") is not None:
         _not_ported("a participating medium", "Queue 1 item 9 (volumes)")
-    sspec = desc.get("sensor", {})
-    st = sspec.get("type", "perspective")
-    if st != "perspective" or float(sspec.get("aperture_radius", 0.0)) > 0.0 \
-            or sspec.get("kc") is not None:
-        _not_ported(f"sensor '{st}' beyond the pinhole",
-                    "Queue 1 item 3 (other sensors)")
 
 
 def _compile_emitters(especs, add_emitter):
@@ -230,7 +274,35 @@ def _compile_emitters(especs, add_emitter):
                         cutoff=(cutoff, beam),
                         power=lum(inten) * 2 * np.pi * (1 - cutoff))
         elif t in ("sky", "sun", "sunsky"):
-            _not_ported(f"emitter type '{t}'", "Queue 1 item 5 (sun and sky, models/sunsky.py)")
+            # the clear sky becomes an importance-sampled envmap, the sun a
+            # directional delta light (models/sunsky.py)
+            if "sun_direction" in espec:
+                sdir = np.asarray(espec["sun_direction"], dtype=np.float64)
+                sdir = sdir / np.linalg.norm(sdir)
+            else:
+                sdir = sun_direction_from_angles(float(espec.get("elevation", 30.0)),
+                                                 float(espec.get("azimuth", 0.0)))
+            turb = float(espec.get("turbidity", 3.0))
+            sc_f = float(espec.get("scale", 1.0))
+            if t in ("sky", "sunsky"):
+                if env_id >= 0:
+                    raise ValueError("only one environment emitter allowed")
+                # Hosek-Wilkie 2012 by default, Preetham 1999 with
+                # model="preetham"
+                sky_fn = (preetham_sky_image
+                          if str(espec.get("model", "hosek")).lower() == "preetham"
+                          else hosek_sky_image)
+                img = sky_fn(sdir, turb, resolution=int(espec.get("resolution", 128)),
+                             scale=sc_f * float(espec.get("sky_scale", 1.0)))
+                env_tables = build_env_tables(img, 1.0)
+                mean_lum = float((img @ LUM_WEIGHTS_NP).mean())
+                env_id = add_emitter(EmitterKind.ENVMAP, [mean_lum] * 3,
+                                     power=mean_lum * 4 * np.pi)
+                env_kind = EmitterKind.ENVMAP
+            if t in ("sun", "sunsky"):
+                irr = preetham_sun_irradiance(sdir, turb,
+                                              scale=sc_f * float(espec.get("sun_scale", 1.0)))
+                add_emitter(EmitterKind.DIRECTIONAL, irr, position=-sdir, power=lum(irr))
         else:
             raise ValueError(f"unknown emitter type {t}")
     return env_id, env_kind, env_tables
@@ -388,6 +460,12 @@ def build_scene(desc: dict, device=None) -> SceneData:
     mpk[:, 19] = [m["bump_tex_id"] for m in mat_rows]
     mpk[:, 20] = [m["bump_scale"] for m in mat_rows]
     mpk[:, 25:27] = 1.0  # UV tiling factors
+    # the coat interfaces' transmittance over cos(theta): quadrature for a
+    # rough interface, the exact smooth Fresnel otherwise
+    coat_tab = np.zeros((M, N_COS), np.float32)
+    for i, m in enumerate(mat_rows):
+        if m["type"] == BSDFType.COATING:
+            coat_tab[i] = coat_transmittance_table(float(m["alpha"]), float(m["eta"][0]))
 
     E = len(em["kind"])
     epk = np.zeros((E, 32), dtype=np.float32)
@@ -425,7 +503,7 @@ def build_scene(desc: dict, device=None) -> SceneData:
         alpha=t(np.asarray([m["alpha"] for m in mat_rows], np.float32)),
         texture_id=t(np.asarray([m["texture_id"] for m in mat_rows], np.int32), torch.int32),
         packed=t(mpk),
-        coat_trans=t(np.zeros((M, N_COS), np.float32)),
+        coat_trans=t(coat_tab),
     )
     if env_id >= 0:
         env_radiance = np.asarray(em["radiance"][env_id], dtype=np.float32)
@@ -456,15 +534,25 @@ def build_scene(desc: dict, device=None) -> SceneData:
     )
 
     sspec = desc.get("sensor", {})
+    skind = _SENSOR_KINDS.get(sspec.get("type", "perspective"), SensorKind.PERSPECTIVE)
+    # fov is along x; the y extent follows the aspect ratio at ray
+    # generation.  Orthographic and telecentric sensors take a half-width.
     tan_half = np.tan(np.deg2rad(float(sspec.get("fov", 45.0))) / 2)
+    if skind in (SensorKind.ORTHOGRAPHIC, SensorKind.TELECENTRIC):
+        tan_half = float(sspec.get("ortho_width", 1.0))
+    kc = sspec.get("kc", None)  # perspective_rdist's distortion polynomial
+    # the measurement probes' constant weight, folded in at develop time
+    meas = {SensorKind.IRRADIANCEMETER: np.pi, SensorKind.FLUENCEMETER: 4 * np.pi}
     sensor = Sensor(
         to_world=t(np.asarray(sspec.get("to_world", look_at([0, 0, -5], [0, 0, 0]))).astype(np.float32)),
         tan_half_fov_x=t(np.float32(tan_half)),
         tan_half_fov_y=t(np.float32(tan_half)),
-        aperture_radius=t(np.float32(0.0)),
+        aperture_radius=t(np.float32(sspec.get("aperture_radius", 0.0))),
         focus_distance=t(np.float32(sspec.get("focus_distance", 1.0))),
         near_clip=t(np.float32(sspec.get("near_clip", 1e-3))),
-        kind=SensorKind.PERSPECTIVE,
+        kind=skind,
+        kc=None if kc is None else t(np.asarray(kc, dtype=np.float32)),
+        meas_scale=t(np.float32(meas[skind])) if skind in meas else None,
     )
     medium = MediumData(
         sigma_a=t(np.zeros(3, np.float32)), sigma_s=t(np.zeros(3, np.float32)),

@@ -95,7 +95,7 @@ class Materials(NamedTuple):
     alpha: torch.Tensor       # (M,)
     texture_id: torch.Tensor  # (M,) int32, -1 = none
     packed: torch.Tensor      # (M, 32) float32, layout above
-    coat_trans: Optional[torch.Tensor] = None  # (M, 16)
+    coat_trans: Optional[torch.Tensor] = None  # (M, 16) coat transmittance over cos
 
 
 class Emitters(NamedTuple):
@@ -120,17 +120,19 @@ class Emitters(NamedTuple):
 
 
 class Sensor(NamedTuple):
-    """Perspective pinhole camera (the only sensor this slice compiles)."""
+    """Perspective (pinhole, thin lens, radially distorted), orthographic,
+    spherical and telecentric cameras and the irradiance, radiance and
+    fluence meters; ``kind`` picks the ray-generation branch host-side."""
 
     to_world: torch.Tensor        # (4, 4) camera-to-world
-    tan_half_fov_x: torch.Tensor  # ()
+    tan_half_fov_x: torch.Tensor  # () orthographic/telecentric: half-width
     tan_half_fov_y: torch.Tensor  # ()
     aperture_radius: torch.Tensor  # () 0 = pinhole
     focus_distance: torch.Tensor  # ()
     near_clip: torch.Tensor       # ()
     kind: int                     # SensorKind, host-side
-    kc: Optional[torch.Tensor] = None
-    meas_scale: Optional[torch.Tensor] = None
+    kc: Optional[torch.Tensor] = None  # (2,) radial distortion: 1 + kc0 r^2 + kc1 r^4
+    meas_scale: Optional[torch.Tensor] = None  # () probe weight applied at develop
 
 
 class MediumData(NamedTuple):

@@ -492,3 +492,49 @@ def test_cell_sums_repeat_and_equal_the_cpus(card):
     for _ in range(3):
         assert torch.equal(cell_sums(n_cells, cid, payload), first)
     assert torch.equal(first.cpu(), cell_sums(n_cells, cid.cpu(), payload.cpu()))
+
+
+def test_gather_rows_t_coat_table(card):
+    """The (M, 16) coat transmittance table through the kernel's general
+    path, on random indices and on gather_params' own, bit-equal."""
+    from mitsuba_path_guiding_torch.models import bsdf as bsdf_mod
+
+    desc = cornell_box()
+    desc["shapes"][5]["bsdf"] = {"type": "roughcoating", "alpha": 0.1,
+                                 "bsdf": desc["shapes"][5]["bsdf"]}
+    desc["shapes"][6]["bsdf"] = {"type": "coating", "bsdf": {"type": "diffuse"}}
+    mats = build_scene(desc, device="cuda").mats
+    table = mats.coat_trans
+    assert table.shape[1] == 16 and int((table.amax(dim=1) > 0).sum()) == 2
+    g = torch.Generator(device="cuda").manual_seed(16)
+    for dtype in (torch.int32, torch.int64):
+        idx = torch.randint(-3, table.shape[0] + 3, (65537,), generator=g, device="cuda").to(dtype)
+        before = build.LAUNCHES["gather_rows_t"]
+        got = gather_rows_t(table, idx)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["gather_rows_t"] == before + 1
+        assert torch.equal(got, gather_rows_t_plain(table, idx))
+    mid = torch.randint(0, table.shape[0], (65536,), generator=g, device="cuda").to(torch.int32)
+    p = bsdf_mod.gather_params(mats, mid, types=bsdf_mod.types_present(mats))
+    assert torch.equal(p.tcoat, gather_rows_t_plain(table, mid))
+
+
+@pytest.mark.parametrize("cfg,fused", [
+    ({}, 1),
+    ({"sampler": "sobol"}, 0),
+    ({"sampler": "stratified"}, 0),
+    ({"qmc_bounces": 2}, 0),
+])
+def test_fused_gate_needs_independent_sampler_without_sobol_bounces(card, cfg, fused):
+    """trace_fused draws its own threefry stream: a wave with another
+    sampler or with Sobol' bounce dimensions takes the wavefront trace."""
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig, render_wave
+
+    pix = torch.arange(64 * 64, device="cuda")
+    build.reset_launches()
+    _, L, _ = render_wave(card, RenderConfig(width=64, height=64, **cfg), pix,
+                          torch.zeros_like(pix))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["trace_fused"] == fused
+    assert (build.LAUNCHES["intersect_tiled"] > 0) == (fused == 0)
+    assert bool(torch.isfinite(L).all())

@@ -1,6 +1,7 @@
 """The port's scene compiler and pinhole camera agree with the JAX package:
-the same scene description compiles to equal arrays, and primary rays
-agree within 1e-6."""
+the same scene description compiles to equal arrays (the coats and the HK
+slab with their transmittance tables, the sun and sky emitters and every
+sensor kind included), and primary rays agree within 1e-6."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -44,6 +45,21 @@ def _tallbox(mod, bsdf):
     return sc
 
 
+def _sunsky(etype, **kw):
+    return lambda m: {"sensor": {"type": "perspective", "fov": 60.0},
+                      "shapes": [{"type": "rectangle", "bsdf": {"type": "diffuse"}}],
+                      "emitters": [{"type": etype, "elevation": 35.0, "azimuth": 180.0,
+                                    "turbidity": 3.0, **kw}]}
+
+
+def _sensor(**kw):
+    def make(m):
+        sc = m.cornell_box()
+        sc["sensor"] = {**sc["sensor"], **kw}
+        return sc
+    return make
+
+
 RECIPES = {
     "cornell_box": lambda m: m.cornell_box(),
     "bounce_lamp_room": lambda m: m.bounce_lamp_room(),
@@ -57,6 +73,25 @@ RECIPES = {
         "type": "blendbsdf", "weight": 0.4,
         "bsdfs": [{"type": "diffuse", "reflectance": [0.7, 0.2, 0.2]},
                   {"type": "roughconductor", "material": "Au", "alpha": 0.2}]}),
+    "cornell_coating": lambda m: _tallbox(m, {"type": "coating", "sigma_a": 0.3,
+                                              "bsdf": {"type": "roughplastic", "alpha": 0.2}}),
+    "cornell_roughcoating": lambda m: _tallbox(m, {"type": "roughcoating", "alpha": 0.25,
+                                                   "int_ior": 1.7, "thickness": 0.3}),
+    "cornell_hk": lambda m: _tallbox(m, {"type": "hk", "sigma_t": [2.0, 1.0, 0.5],
+                                         "albedo": 0.7, "g": -0.2}),
+    "sky": _sunsky("sky"),
+    "sun": _sunsky("sun", sun_scale=2.0),
+    "sunsky": _sunsky("sunsky"),
+    "sunsky_preetham": _sunsky("sunsky", model="preetham", sun_direction=[0.2, 1.0, -0.4],
+                               resolution=32, scale=0.5),
+    "thinlens": _sensor(type="thinlens", aperture_radius=0.1, focus_distance=3.7),
+    "perspective_rdist": _sensor(type="perspective_rdist", kc=[0.1, 0.02]),
+    "orthographic": _sensor(type="orthographic", ortho_width=1.2),
+    "spherical": _sensor(type="spherical"),
+    "telecentric": _sensor(type="telecentric", ortho_width=1.0, aperture_radius=0.05),
+    "irradiancemeter": _sensor(type="irradiancemeter"),
+    "radiancemeter": _sensor(type="radiancemeter"),
+    "fluencemeter": _sensor(type="fluencemeter"),
 }
 
 
@@ -80,7 +115,8 @@ def test_scene_descriptions_are_copies():
 
 def test_converted_scene_equals_compiled_scene():
     # nested material rows and the environment tables come across too
-    for name in ("cornell_box", "cornell_blend", "cornell_mask", "furnace"):
+    for name in ("cornell_box", "cornell_blend", "cornell_mask", "furnace", "cornell_roughcoating",
+                 "sunsky", "thinlens", "perspective_rdist", "fluencemeter"):
         ref = j_build_scene(RECIPES[name](jscenes))
         conv = scene_from_numpy(to_numpy_tree(ref), device="cpu")
         _compare(conv, ref, f"converted {name}")
@@ -105,9 +141,10 @@ def test_generate_rays(name, w, h):
 
 
 @pytest.mark.parametrize("desc,match", [
-    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "hk"}}],
-      "emitters": []}, "Queue 1 item 5"),
-    ({"shapes": [{"type": "rectangle"}], "emitters": [{"type": "sunsky"}]}, "Queue 1 item 5"),
+    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "bumpmap"}}],
+      "emitters": []}, "Queue 1 item 9"),
+    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "diffuse", "texture": "t.png"}}],
+      "emitters": [{"type": "sunsky"}]}, "Queue 1 item 9"),
     ({"shapes": [{"type": "rectangle"}], "medium": {"sigma_s": 1.0}}, "Queue 1 item 9"),
 ])
 def test_unported_features_raise(desc, match):
@@ -116,11 +153,14 @@ def test_unported_features_raise(desc, match):
 
 
 @pytest.mark.parametrize("desc,match", [
-    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "coating"}}]}, "microfacet_tables"),
-    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "roughcoating"}}]}, "microfacet_tables"),
-    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "hk"}}]}, "microfacet_tables"),
-    ({"shapes": [{"type": "rectangle"}], "emitters": [{"type": "sky"}]}, "sunsky"),
-    ({"shapes": [{"type": "rectangle"}], "emitters": [{"type": "sun"}]}, "sunsky"),
+    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "normalmap"}}]}, "textures"),
+    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "coating", "bsdf": {
+        "type": "diffuse", "texture": "t.png"}}}]}, "textures"),
+    ({"shapes": [{"type": "rectangle", "subsurface": {"type": "dipole"}}]}, "integrators"),
+    ({"shapes": [{"type": "rectangle"}], "emitters": [{"type": "sky"}],
+      "medium": {"sigma_s": 1.0}}, "volumes"),
+    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "bumpmap", "bsdf": {"type": "hk"}}}]},
+     "textures"),
     ({"shapes": [{"type": "rectangle"}], "emitters": [{"type": "envmap", "filename": "sky.exr"}]},
      "Queue 1 item 9"),
     ({"shapes": [{"type": "rectangle", "bsdf": {"type": "irawan"}}]}, "Queue 1 item 9"),
@@ -131,6 +171,9 @@ def test_next_slices_raise(desc, match):
 
 
 @pytest.mark.parametrize("desc", [
+    {"shapes": [{"type": "rectangle", "bsdf": {"type": "mask", "bsdf": {"type": "coating"}}}],
+     "emitters": [{"type": "constant"}]},
+    {"shapes": [{"type": "rectangle"}], "emitters": [{"type": "sky"}, {"type": "sunsky"}]},
     {"shapes": [{"type": "rectangle", "bsdf": {"type": "velvet"}}]},
     {"shapes": [{"type": "rectangle"}], "emitters": [{"type": "laser"}]},
     {"shapes": [{"type": "rectangle", "bsdf": {"type": "mask", "bsdf": {"type": "mask"}}}],

@@ -1,14 +1,18 @@
-"""Reference image means of the shading-breadth scenes from the JAX package.
+"""Reference image means of the shading-breadth and vocabulary scenes
+from the JAX package.
 
 Renders ``cornell_box(box_material="glass")``, ``cornell_box(box_material=
-"mirror")`` and ``veach_mis()`` unguided at depth 5 (rr_depth 5, NEE on)
-on the CPU, in independent groups of different seeds, and prints one JSON
-line a scene: the image mean, its standard error over the groups and the
-seconds taken.  chip_smoke.py (phase "shading") holds the port's guided
-progressive renders of these scenes to these constants, since the card
-has no JAX.
+"mirror")``, ``veach_mis()`` and the scenes of chip_smoke.py's
+``vocabulary_descs`` (the coated, rough-coated and HK Cornell boxes, the
+sky, sun and sunsky planes, the Cornell box through the orthographic,
+spherical, thin-lens and telecentric sensors) unguided at depth 5
+(rr_depth 5, NEE on) on the CPU, in independent groups of different
+seeds, and prints one JSON line a scene: the image mean, its standard
+error over the groups and the seconds taken.  chip_smoke.py (phases
+"shading" and "vocabulary") holds the port's renders of these scenes to
+these constants, since the card has no JAX.
 
-  JAX_PLATFORMS=cpu python tools/shading_reference_means.py [--res 128] [--spp 8] [--groups 8]
+  JAX_PLATFORMS=cpu python tools/shading_reference_means.py [--res 128] [--spp 8] [--groups 8] [--scenes NAME ...]
 
 The defaults (128x128, 8 groups of 8 spp) give chip_smoke.py's constants.
 """
@@ -22,15 +26,21 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 
-SCENES = ("cornell_glass", "cornell_mirror", "veach_mis")
+from chip_smoke import VOCAB_BSDFS, VOCAB_SENSORS, vocabulary_descs  # noqa: E402
+
+VOCABULARY = (tuple(VOCAB_BSDFS) + ("sky", "sun", "sunsky")
+              + tuple(f"cornell_{k}" for k in VOCAB_SENSORS))
+SCENES = ("cornell_glass", "cornell_mirror", "veach_mis") + VOCABULARY
 
 
 def describe(name):
-    from mitsuba_path_guiding_tpu.scene.scenes import cornell_box, veach_mis
+    from mitsuba_path_guiding_tpu.scene import scenes
 
     if name == "veach_mis":
-        return veach_mis()
-    return cornell_box(box_material=name.split("_")[1])
+        return scenes.veach_mis()
+    if name in VOCABULARY:
+        return vocabulary_descs(scenes)[name]
+    return scenes.cornell_box(box_material=name.split("_")[1])
 
 
 def main(argv=None):
