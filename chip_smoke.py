@@ -127,6 +127,28 @@ Phases:
      mean held to the Cornell reference, each sampler's relMSE against a
      512-spp independent image printed beside the independent sampler's
      at equal spp.  Every render prints its Mrays/s and its launches.
+  13. "volumes" (slice 7): intersect_tiled and the BVH bit-equal to their
+     plain versions, closest and any-hit, on a volbox wave's first medium
+     events (origins in mid-air, HG-sampled directions) and their NEE
+     shadow rays, gather_rows_t bit-equal on those hits' shading rows;
+     then the volbox at the CLI's defaults (256x256, guided progressive 4
+     spp x 4, depth 5) with guided distance sampling on and off, the grid
+     box likewise, the volbox through the BVH, each mean held to the JAX
+     package's CPU mean (VOLUME_REFERENCE, tools/volume_reference_means.py),
+     the volbox renders' relMSE against a 64-spp unguided card image
+     (printed, no bar); bench.py's volumetric recipe (256x256, depth 8,
+     8 waves of 4 spp) with its Mrays/s; the Rayleigh, Kajiya-Kay,
+     microflake and mixture phases at 128x128 x 16 spp; render_scanned
+     (render itself) repeating bit for bit at 128x128; the firefly clamp (every sample at or
+     below it, the image at or below the unclamped one); the host syncs a
+     wave of the Cornell, volbox and grid-box waves (torch's sync debug
+     mode; printed, no bar).  A volume bounce is two queries and three
+     gathers.
+  14. "splat": the film's splat (core.math.scatter_add_rows, an order
+     fixed by the data) against the same splat through index_add_ on
+     Cornell's fused and wavefront waves and through the Gaussian filter,
+     each beside the wave's own time; the ordered splat repeats bit for
+     bit.
 
 Each main-path route runs with the launch counts set to 0 just before it
 and read just after it, and is held to the kernels it must launch: the
@@ -2208,11 +2230,14 @@ def phase_furnace(scene, name, use_nee, card):
           "mrays_per_s": rays / dt / 1e6})
 
 
-def phase_reference_progressive(scene, name, width, height, card):
+def phase_reference_progressive(scene, name, width, height, card, ref=None, accel="auto",
+                                **pcfg):
     """ProgressiveRenderer at width x height, depth 5, 4 spp x 4, guided: the
     image finite, non-black, its mean within max(3%, 4 standard errors) of
-    the JAX reference (SHADING_REFERENCE; the card's standard error from
-    the four progressions' own means), and the grid with valid cells."""
+    the JAX reference (``ref`` = (mean, se), else SHADING_REFERENCE; the
+    card's standard error from the four progressions' own means), and the
+    grid with valid cells.  ``accel`` is the route, ``pcfg`` more
+    ProgressiveConfig fields.  Returns the image."""
     import torch
 
     from mitsuba_path_guiding_torch.integrators.progressive import (
@@ -2221,11 +2246,11 @@ def phase_reference_progressive(scene, name, width, height, card):
     )
     from mitsuba_path_guiding_torch.integrators.render import RenderConfig
 
-    ref, ref_se = SHADING_REFERENCE[name]
+    ref, ref_se = SHADING_REFERENCE[name] if ref is None else ref
     cfg = ProgressiveConfig(render=RenderConfig(width=width, height=height, spp=0,
-                                                max_depth=DEPTH),
+                                                max_depth=DEPTH, accel=accel),
                             samples_per_progression=4, n_progressions=4, guiding=True,
-                            grid_res=16, n_lobes=8)
+                            grid_res=16, n_lobes=8, **pcfg)
     renderer = ProgressiveRenderer(scene, cfg)
     cum = []
     run = renderer.run_progression
@@ -2256,7 +2281,8 @@ def phase_reference_progressive(scene, name, width, height, card):
           "seconds": round(dt, 3), "mean": mean, "reference_mean": ref, "reference_se": ref_se,
           "rel_err": rel, "rel_tol": tol, "se_card": se_card, "progression_means": own,
           "valid_cells": n_valid, "spp": renderer.sample_counter,
-          "mrays_per_s": 2 * segs / dt / 1e6})
+          "mrays_per_s": 2 * segs / dt / 1e6, "accel": accel, **pcfg})
+    return img
 
 
 def phase_mask(scene, removed_mean, accel, card):
@@ -2565,6 +2591,410 @@ def run_vocabulary(vs, cornell, card):
     return counts
 
 
+
+# ---------------------------------------------------------------------------
+# volumes: homogeneous and grid media, every phase family, guided distance
+# sampling, render_scanned and the firefly clamp
+# ---------------------------------------------------------------------------
+
+VOL_PHASES = {
+    "rayleigh": {"phase": "rayleigh"},
+    "kkay": {"phase": "kkay", "orientation": [0.3, 0.5, 0.81], "ks": 0.4, "kd": 0.2,
+             "exponent": 4.0},
+    "microflake": {"phase": "microflake", "orientation": [0.0, 0.0, 1.0], "stddev": 0.25},
+    "mixture": {"phase": "mixture", "phase_weights": [0.5, 0.3, 0.2],
+                "phase_components": [{"type": "hg", "g": 0.6}, {"type": "rayleigh"},
+                                     {"type": "hg", "g": -0.4}]},
+}
+
+
+def volume_descs(mod):
+    """The volumes phase's scene descriptions from ``mod``'s scenes (the
+    port's here, the JAX package's in tools/volume_reference_means.py):
+    the CLI's ``volbox`` (volumetric_box(), HG g 0.3), the grid box
+    (heterogeneous_box(), a 32^3 cloud) and volumetric_box(sigma_s=0.6,
+    sigma_a=0.1) with each phase family but HG."""
+    descs = {"volbox": mod.volumetric_box(), "grid_box": mod.heterogeneous_box()}
+    for kind, patch in VOL_PHASES.items():
+        sc = mod.volumetric_box(sigma_s=0.6, sigma_a=0.1)
+        sc["medium"].update(patch)
+        descs[f"volbox_{kind}"] = sc
+    return descs
+
+
+# JAX package CPU means (unguided, rr_depth = max_depth, 128x128, 8 groups
+# of 8 spp: mean, standard error) of volume_descs' scenes by
+# tools/volume_reference_means.py; "volbox_d8" is the volbox at depth 8,
+# the rest depth 5; one run of 47.2 s
+VOLUME_REFERENCE = {
+    "volbox": (0.040754490066319704, 0.0001345337379296268),
+    "grid_box": (0.1146809533238411, 0.00019487206616611736),
+    "volbox_rayleigh": (0.026597939897328615, 0.00021774932968299783),
+    "volbox_kkay": (0.014301253017038107, 0.0001831388342475459),
+    "volbox_microflake": (0.08057150989770889, 0.00037912446575555847),
+    "volbox_mixture": (0.03137351805344224, 0.00012581882219315986),
+    "volbox_d8": (0.04627908393740654, 0.00014091131329908887),
+}
+VOL_W = VOL_H = 256               # the CLI's default resolution
+VOL_SMALL = 128                   # the phase-family, scanned and clamp renders
+VOL_PHASE_SPP = 16                # 4 groups of 4 spp
+VOL_BENCH_DEPTH = 8               # bench.py's volumetric recipe: depth 8,
+VOL_BENCH_SPP_WAVE = 4            # 4 spp a wave (262144 lanes),
+VOL_BENCH_WAVES = 8               # 8 waves
+VOL_RELMSE_REF_SPP = 64           # the unguided card image the guided renders are read against
+VOL_CLAMP = 0.5                   # max_component_value of the clamp check
+VOL_SYNC_WAVES = 2                # waves whose host syncs are counted, after one warm-up
+
+
+def volume_scenes():
+    from mitsuba_path_guiding_torch.scene import scenes
+    from mitsuba_path_guiding_torch.scene.builder import build_scene
+
+    return {name: build_scene(desc, device=DEVICE) for name, desc in volume_descs(scenes).items()}
+
+
+def volume_event_rays(scene):
+    """A volbox camera wave's first medium events, as trace_vol samples
+    them (its bounce-0 uniforms, the channel's exponential distance), and
+    the rays leaving them: origins in mid-air with no surface offset, in
+    HG-sampled directions (tmax unbounded) and toward NEE samples of the
+    light (tmax = distance (1 - 1e-3), as trace_vol's shadow rays)."""
+    import torch
+
+    from mitsuba_path_guiding_torch.accel.traverse import intersect_pallas
+    from mitsuba_path_guiding_torch.core.rng import bounce_uniform
+    from mitsuba_path_guiding_torch.models.emitter import kinds_present, sample_direct
+    from mitsuba_path_guiding_torch.models.phase import phase_sample
+
+    o, d, rkeys = camera_rays(scene, 1, 0)
+    hit = intersect_pallas(scene.geo, o, d)
+    t_surf = torch.where(hit.valid, hit.t, 3.0e37)
+    med = scene.medium
+    sigma_t = med.sigma_a + med.sigma_s
+    u = bounce_uniform(rkeys, 0, 12)
+    ch = torch.clamp((u[..., 9] * 3.0).to(torch.int64), 0, 2)
+    t_med = -torch.log(torch.clamp_min(1.0 - u[..., 10], 1e-12)) / torch.clamp_min(sigma_t[ch],
+                                                                                   1e-12)
+    ev = t_med < t_surf
+    p = (o + t_med[..., None] * d)[ev]
+    wo, _ = phase_sample(-d[ev], med.phase_g, u[ev][..., 3:5])
+    ds = sample_direct(scene.emitters, scene.geo, p, u[ev][..., 0:3],
+                       kinds=kinds_present(scene.emitters))
+    t_sh = torch.where(ds.distance >= 3.0e37, 3.0e37, ds.distance * (1.0 - 1e-3))
+    inf = torch.full((p.shape[0],), 3.0e37, device=p.device)
+    return {"scatter": (p, wo, inf), "shadow": (p, ds.direction, t_sh)}
+
+
+def phase_volume_kernel_checks(vs, card):
+    """On a volbox wave's medium-event rays (volume_event_rays):
+    intersect_tiled against tiled_plain and the BVH kernel against
+    bvh_plain, closest hit and any-hit, every output bit equal on every
+    lane; gather_rows_t bit-equal on the shading rows of their hits, timed
+    as gather_call times it."""
+    import torch
+
+    from mitsuba_path_guiding_torch.ops.intersect_bvh import bvh_cuda, bvh_plain
+
+    sc = vs["volbox"]
+    geo = sc.geo
+    sets = volume_event_rays(sc)
+    res = {}
+    for label, (o, d, tmax) in sets.items():
+        check(o.shape[0] > 10000, f"volbox {label}: only {o.shape[0]} medium events")
+        res[f"intersect_tiled_volbox_{label}"] = tiled_check(geo, o, d, tmax, geo.p0.shape[0],
+                                                             f"volbox {label}")
+        for any_hit in (False, True):
+            got = bvh_cuda(sc.bvh, o, d, tmax, any_hit)
+            want = bvh_plain(sc.bvh, o, d, tmax, any_hit)
+            torch.cuda.synchronize()
+            differ = [int((_bits(a) != _bits(b)).sum()) for a, b in zip(got, want)]
+            check(not any(differ), f"bvh volbox {label} any_hit={any_hit}: lanes differing by "
+                                   f"output {differ}")
+            res[f"bvh_volbox_{label}_{'any' if any_hit else 'closest'}"] = {
+                "rays": o.shape[0], "bit_equal": True,
+                "hit_share": float((got[1] >= 0).float().mean())}
+    o, d, tmax = sets["scatter"]
+    prim = bvh_cuda(sc.bvh, o, d, tmax, False)[1]
+    res["gather_rows_t_volbox_shading"] = gather_call(geo.shade_packed,
+                                                      prim.clamp_min(0).to(torch.int32))
+    emit({"phase": "volume_kernel_checks", "card": card, **res})
+    return res
+
+
+def syncs_per_wave(fn, waves=VOL_SYNC_WAVES):
+    """Host syncs of fn() (one wave), counted by torch's sync debug mode
+    over ``waves`` calls after a warm-up call: (the mean a call, the mean
+    a call by the port's source line that asked for them)."""
+    import collections
+    import warnings
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(waves):
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    sites = collections.Counter(f"{os.path.relpath(w.filename, root)}:{w.lineno}" for w in syncs)
+    return len(syncs) / waves, {k: n / waves for k, n in sites.most_common()}
+
+
+def phase_volume_syncs(vs, cornell, card):
+    """Host syncs a wave (syncs_per_wave) of a guided progressive wave of
+    Cornell (the wavefront), the volbox and the grid box at 256x256, and
+    of an unguided volbox render_wave."""
+    import torch
+
+    from mitsuba_path_guiding_torch.integrators.progressive import (
+        ProgressiveConfig,
+        ProgressiveRenderer,
+    )
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig, render_wave
+
+    cfg = RenderConfig(width=VOL_W, height=VOL_H, spp=0, max_depth=DEPTH)
+    pix = torch.arange(VOL_W * VOL_H, device=DEVICE)
+    sidx = torch.zeros_like(pix)
+    res, sites = {}, {}
+    for name, sc in (("cornell_wavefront", cornell), ("volbox", vs["volbox"]),
+                     ("grid_box", vs["grid_box"])):
+        ren = ProgressiveRenderer(sc, ProgressiveConfig(render=cfg, grid_res=16, n_lobes=8))
+        res[f"{name}_guided"], sites[f"{name}_guided"] = syncs_per_wave(
+            lambda: ren._wave(pix, sidx))
+    res["volbox_unguided_render_wave"], sites["volbox_unguided_render_wave"] = syncs_per_wave(
+        lambda: render_wave(vs["volbox"], cfg, pix, sidx))
+    emit({"phase": "volume_syncs_per_wave", "card": card, "resolution": f"{VOL_W}x{VOL_H}",
+          "depth": DEPTH, "waves_counted": VOL_SYNC_WAVES, "syncs_per_wave": res,
+          "by_source_line": sites})
+    return res
+
+
+def phase_volume_bench(scene, card):
+    """bench.py's volumetric recipe through render_wave: the volbox at
+    256x256, depth 8 (rr_depth 8), unguided, waves of 4 spp (262144 lanes),
+    8 timed waves after one warm-up wave; Mrays/s = 2 sum(n_bounces) / s;
+    the image mean held to the JAX reference (its standard error from the
+    waves' means)."""
+    import torch
+
+    from mitsuba_path_guiding_torch.film.film import Film, develop, new_film, splat
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig, render_wave
+
+    cfg = RenderConfig(width=VOL_W, height=VOL_H, spp=0, max_depth=VOL_BENCH_DEPTH,
+                       rr_depth=VOL_BENCH_DEPTH)
+    n_pix = VOL_W * VOL_H
+    pix = torch.arange(n_pix, device=DEVICE).repeat(VOL_BENCH_SPP_WAVE)
+    spp_idx = torch.arange(VOL_BENCH_SPP_WAVE, device=DEVICE).repeat_interleave(n_pix)
+    render_wave(scene, cfg, pix, spp_idx + 1000)  # warm-up, not splatted
+    rgbw = new_film(VOL_W, VOL_H, device=DEVICE).rgb_weight
+    segs, means = [], []
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for w in range(VOL_BENCH_WAVES):
+        film_xy, L, aux = render_wave(scene, cfg, pix, spp_idx + w * VOL_BENCH_SPP_WAVE)
+        rgbw = splat(rgbw, film_xy, L, VOL_W, VOL_H)
+        segs.append(aux.n_bounces.sum())
+        means.append(L.mean())
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    img = develop(Film(rgb_weight=rgbw, width=VOL_W, height=VOL_H))
+    n_segs = int(sum(int(x) for x in segs))
+    means = [float(m) for m in means]
+    mean = float(img.mean())
+    se = statistics.stdev(means) / len(means) ** 0.5
+    ref, ref_se = VOLUME_REFERENCE["volbox_d8"]
+    check(bool(torch.isfinite(img).all()) and mean > 0.0, "volbox bench: image not finite or black")
+    tol = max(MEAN_TOL, 4.0 * (ref_se**2 + se**2) ** 0.5 / ref)
+    rel = abs(mean - ref) / ref
+    check(rel < tol, f"volbox bench: mean {mean} vs reference {ref} (tol {tol})")
+    rec = {"phase": "volbox_bench", "card": card, "resolution": f"{VOL_W}x{VOL_H}",
+           "depth": VOL_BENCH_DEPTH, "lanes_per_wave": pix.numel(), "waves": VOL_BENCH_WAVES,
+           "seconds": round(dt, 4), "segments": n_segs, "mrays_per_s": 2 * n_segs / dt / 1e6,
+           "mean": mean, "se": se, "reference_mean": ref, "reference_se": ref_se,
+           "rel_err": rel, "rel_tol": tol}
+    emit(rec)
+    return rec
+
+
+def run_volumes(vs, cornell, card):
+    """The volumes phase's renders, each between its own launch-count
+    reset and read and held to the kernels it must launch: a volume bounce
+    is a closest-hit and a shadow query (tiled, or the BVH with
+    accel="bvh") and three gathers (shading, material and emitter rows).
+    Returns their launch counts by route."""
+    import torch
+
+    from mitsuba_path_guiding_torch.integrators import render as rmod
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig, render, render_scanned
+
+    def route(n_waves, depth=DEPTH, bvh=False):
+        return {**NONE_LAUNCHED, "intersect_bvh" if bvh else "intersect_tiled": 2 * depth * n_waves,
+                "gather_rows_t": 3 * depth * n_waves}
+
+    counts, imgs = {}, {}
+    prog_waves = 16  # 256x256 is one wave a sample: 4 spp x 4 progressions
+    ref = {k: VOLUME_REFERENCE[k] for k in VOLUME_REFERENCE}
+    # (a) the CLI's defaults, guided distance sampling on and off; (b) the
+    # grid box; (d) the volbox through the BVH
+    for name, scene_name, kw in (
+            ("volbox_guided", "volbox", {"guide_distance": True}),
+            ("volbox_guided_no_distance", "volbox", {"guide_distance": False}),
+            ("grid_box_guided", "grid_box", {"guide_distance": True}),
+            ("volbox_guided_bvh", "volbox", {"guide_distance": True, "accel": "bvh"})):
+        imgs[name], counts[name] = drive(name, lambda: phase_reference_progressive(
+            vs[scene_name], name, VOL_W, VOL_H, card, ref=ref[scene_name], **kw),
+            route(prog_waves, bvh=kw.get("accel") == "bvh"))
+    ref_cfg = RenderConfig(width=VOL_W, height=VOL_H, spp=VOL_RELMSE_REF_SPP, max_depth=DEPTH,
+                           seed=99)
+    ref_img, counts["volbox_reference"] = drive(
+        "volbox_reference", lambda: render_scanned(vs["volbox"], ref_cfg),
+        route(VOL_RELMSE_REF_SPP))
+    emit({"phase": "volbox_relmse", "card": card, "spp": 16,
+          "reference_spp": VOL_RELMSE_REF_SPP,
+          "relmse_guide_distance_on": relmse(imgs["volbox_guided"], ref_img),
+          "relmse_guide_distance_off": relmse(imgs["volbox_guided_no_distance"], ref_img)})
+    # (c) bench.py's volumetric recipe
+    bench, counts["volbox_bench"] = drive(
+        "volbox_bench", lambda: phase_volume_bench(vs["volbox"], card),
+        route(VOL_BENCH_WAVES + 1, depth=VOL_BENCH_DEPTH))
+    # (e) each phase family but HG, render() in 4 groups of 4 spp
+    cfg = RenderConfig(width=VOL_SMALL, height=VOL_SMALL, spp=VOL_PHASE_SPP // VOCAB_GROUPS,
+                       max_depth=DEPTH)
+    for kind in VOL_PHASES:
+        name = f"volbox_{kind}"
+        (_, _, rec), counts[name] = drive(
+            name, lambda: render_groups(vs[name], name, cfg, card, ref[name]),
+            route(VOL_PHASE_SPP))
+        emit(rec)
+    # (f) render_scanned is render (the reference's one-dispatch scan of
+    # render's waves), and render repeats bit for bit (the film's splat
+    # adds in an order fixed by the data); (g) the clamp, every sample's
+    # radiance at or below it, the image at or below the unclamped one
+    check(render_scanned is render, "render_scanned: not render")
+    small = RenderConfig(width=VOL_SMALL, height=VOL_SMALL, spp=4, max_depth=DEPTH, seed=5)
+    (img_r, img_s), counts["volbox_scanned"] = drive(
+        "volbox_scanned", lambda: (render(vs["volbox"], small), render(vs["volbox"], small)),
+        route(2 * small.spp))
+    check(torch.equal(img_r, img_s), "render: the volbox image differs from call to call")
+    real, peaks = rmod.render_wave, []
+
+    def peaked(*a, **kw):
+        out = real(*a, **kw)
+        peaks.append(out[1].max())
+        return out
+
+    rmod.render_wave = peaked
+    try:
+        clamped, counts["volbox_clamp"] = drive(
+            "volbox_clamp", lambda: render_scanned(
+                vs["volbox"], small._replace(max_component_value=VOL_CLAMP)), route(small.spp))
+        render_scanned(vs["volbox"], small)
+        peaks_free = [float(x) for x in peaks[small.spp:]]
+        peaks = [float(x) for x in peaks[:small.spp]]
+    finally:
+        rmod.render_wave = real
+    check(max(peaks) <= VOL_CLAMP, f"clamp: a sample's radiance {max(peaks)} > {VOL_CLAMP}")
+    check(max(peaks_free) > VOL_CLAMP, "clamp: no unclamped sample exceeds the clamp")
+    check(bool((clamped <= img_r).all()), "clamp: the clamped image exceeds the unclamped one")
+    emit({"phase": "volbox_scanned_clamp", "card": card, "resolution": f"{VOL_SMALL}x{VOL_SMALL}",
+          "spp": small.spp, "render_repeats_bit_equal": True, "clamp": VOL_CLAMP,
+          "max_sample_clamped": max(peaks), "max_sample_unclamped": max(peaks_free),
+          "mean_clamped": float(clamped.mean()), "mean_unclamped": float(img_r.mean())})
+    syncs = phase_volume_syncs(vs, cornell, card)
+    torch.cuda.synchronize()
+    return counts, bench, syncs
+
+# ---------------------------------------------------------------------------
+# the film's splat: the accumulation in an order fixed by the data against
+# float atomics, on real waves
+# ---------------------------------------------------------------------------
+
+SPLAT_REPS = 5   # wall-clock repeats of a wave
+
+
+def wall_ms(fn, reps=SPLAT_REPS):
+    """The median wall time of fn() with the card drained before and after
+    each call (host and card together, as a render pays them)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_splat_cost(scene, card):
+    """The film's splat (film.splat, whose core.math.scatter_add_rows takes
+    index_put_'s accumulation on the card: a stable sort by pixel, each
+    pixel's rows added in row order) against the same splat through
+    index_add_ (float atomics, in the order the threads arrive), on
+    Cornell waves as render() makes them: a 256x256 wave through the fused
+    route, the first 131072-pixel wave (one pixel_batch) of a 512x512
+    render through the fused route, a 256x256 wavefront wave (the trivial
+    guide, as render gives a scene the fused kernel cannot take) and the
+    256x256 fused wave through the Gaussian filter (16 footprint rows a
+    sample).  Each splat's card time (cuda_ms) and wall time (wall_ms)
+    beside the wave's own wall time; the ordered splat repeats bit for
+    bit."""
+    import torch
+
+    from mitsuba_path_guiding_torch.film import film as fmod
+    from mitsuba_path_guiding_torch.guiding.sampler import make_guide_fn
+    from mitsuba_path_guiding_torch.guiding.trivial import trivial_grid
+    from mitsuba_path_guiding_torch.integrators.render import PIXEL_BATCH, RenderConfig, render_wave
+    from mitsuba_path_guiding_torch.models.bsdf import types_present
+
+    ordered = fmod.scatter_add_rows
+
+    def atomics(acc, idx, rows):
+        return acc.index_add_(0, idx, rows)
+
+    trivial = (make_guide_fn(0.0, types_present(scene.mats)), trivial_grid(DEVICE))
+    waves = {"fused_256x256": (W, H, W * H, None, "box"),
+             "fused_512x512_batch": (2 * W, 2 * H, PIXEL_BATCH, None, "box"),
+             "wavefront_256x256": (W, H, W * H, trivial, "box"),
+             "fused_256x256_gaussian": (W, H, W * H, None, "gaussian")}
+    res = {}
+    for name, (w, h, n, guide, filt) in waves.items():
+        cfg = RenderConfig(width=w, height=h, spp=1, max_depth=DEPTH)
+        pix = torch.arange(n, device=DEVICE)
+        sidx = torch.zeros_like(pix)
+        gkw = {} if guide is None else {"guide": guide[0], "guide_state": guide[1]}
+        wave_ms = wall_ms(lambda: render_wave(scene, cfg, pix, sidx, **gkw))
+        film_xy, L, _ = render_wave(scene, cfg, pix, sidx, **gkw)
+        acc = fmod.new_film(w, h, device=DEVICE).rgb_weight
+
+        def splat_once():
+            return fmod.splat(acc.zero_(), film_xy, L, w, h, filt)
+
+        rec = {"lanes": n, "filter": filt, "wave_ms": wave_ms}
+        first = splat_once().clone()
+        check(all(torch.equal(splat_once(), first) for _ in range(3)),
+              f"splat {name}: the ordered accumulation differs from call to call")
+        for label, fn in (("ordered", ordered), ("index_add", atomics)):
+            fmod.scatter_add_rows = fn
+            try:
+                rec[f"{label}_ms"] = cuda_ms(splat_once)
+                rec[f"{label}_wall_ms"] = wall_ms(splat_once)
+            finally:
+                fmod.scatter_add_rows = ordered
+        rec["ordered_share_of_wave"] = rec["ordered_wall_ms"] / (wave_ms + rec["ordered_wall_ms"])
+        res[name] = rec
+    emit({"phase": "splat_cost", "card": card, "waves": res})
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -2677,12 +3107,18 @@ def main(argv=None):
     vocab = vocabulary_scenes()
     vocab_checks = phase_vocabulary_kernel_checks(vocab, card)
     c_vocab = run_vocabulary(vocab, scene, card)
+    # volumes: the kernel checks on medium-event rays, then the renders
+    vols = volume_scenes()
+    vol_checks = phase_volume_kernel_checks(vols, card)
+    c_vol, _, _ = run_volumes(vols, scene, card)
+    # the film's splat against index_add_, outside every route's counts
+    phase_splat_cost(scene, card)
     routes = {"progressive": c_prog, "frozen_render": c_frozen, "unguided_render": c_render,
               "progressive_adaptive": c_adaptive, "guiding_gain_bounce_lamp": c_bounce,
               "guiding_gain_door_room": c_door_gain,
               "door_room_progressive": c_door, "door_room_plk": c_plk, **interior["launches"],
               "door_room_twolevel": door_tl["launches"], "door_room_sorted_blocklist": c_sorted,
-              "door_room_bvh": c_bvh, **c_shading, **c_vocab}
+              "door_room_bvh": c_bvh, **c_shading, **c_vocab, **c_vol}
     launches = {k: {r: c[k] for r, c in routes.items()} for k in c_prog}
 
     entries = phase_timings(scene, veach, tables, grid, checks, launches, card)
@@ -2691,7 +3127,8 @@ def main(argv=None):
     new_entries, gather_calls = phase_new_timings(interior, door_tl, door, launches, card)
     entries[0]["calls"].update(gather_calls)
     entries[0]["calls"].update({"coat_table_random": vocab_checks["gather_rows_t_coat_random"],
-                                "coat_table_wave": vocab_checks["gather_rows_t_coat_wave"]})
+                                "coat_table_wave": vocab_checks["gather_rows_t_coat_wave"],
+                                "volbox_shading_rows": vol_checks["gather_rows_t_volbox_shading"]})
     entries += new_entries
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

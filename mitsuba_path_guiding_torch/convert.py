@@ -5,8 +5,10 @@ plain dictionaries of numpy arrays (nested containers as nested
 dictionaries, ``None`` fields kept), so the same compiled scene and the
 same trained grid can be fed to both packages; a scene's nested material
 rows (BLEND, MASK, COATING), its coat transmittance table, its sun and
-sky emitter rows and environment tables, and its sensor (the host-side
-``kind``, ``kc`` and ``meas_scale``) come across as they are.
+sky emitter rows and environment tables, its sensor (the host-side
+``kind``, ``kc`` and ``meas_scale``) and its medium (every ``MediumData``
+field: the host-side ``enabled``, ``heterogeneous`` and ``phase_kind``,
+the fiber and mixture phases' tables) come across as they are.
 The BVH (given the port's packed layout), blocklist and pair tables come
 across too, and a two-level ``BlockTable`` (``ops/intersect_twolevel.py``)
 through ``block_table_from_numpy``.

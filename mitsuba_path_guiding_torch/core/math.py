@@ -143,3 +143,15 @@ def power_heuristic(pdf_a: torch.Tensor, pdf_b: torch.Tensor) -> torch.Tensor:
     a2 = pdf_a * pdf_a
     w = a2 / torch.clamp_min(a2 + pdf_b * pdf_b, 1e-30)
     return torch.where(pdf_a > 0.0, w, 0.0)
+
+
+def scatter_add_rows(acc: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """acc[idx[i]] += rows[i] in place, in an order fixed by the data: on
+    the CPU ``index_add_`` adds the rows serially, in row order; on the
+    card its float atomics would add rows that share an index in whatever
+    order the threads arrive, so the card takes ``index_put_``'s
+    accumulation, which groups the rows by index with a stable sort and
+    adds each index's rows in turn."""
+    if acc.is_cuda:
+        return acc.index_put_((idx,), rows, accumulate=True)
+    return acc.index_add_(0, idx, rows)

@@ -2,9 +2,10 @@
 splatting (port of the reference's film/film.py).
 
 One (H*W, 4) accumulator (filtered RGB sum + filter weight) updated by
-scatter-add over pixel ids with ``index_add_``: the box filter adds each
-sample to its own pixel, the other filters to the (2R) x (2R) pixels of
-its footprint.  The accumulator is updated in place: the caller owns it,
+scatter-add over pixel ids (``core.math.scatter_add_rows``, in an order
+fixed by the data, so a render repeats bit for bit on the card too): the
+box filter adds each sample to its own pixel, the other filters to the
+(2R) x (2R) pixels of its footprint.  The accumulator is updated in place: the caller owns it,
 and every splat returns it.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mitsuba_path_guiding_torch.core.math import scatter_add_rows
 from mitsuba_path_guiding_torch.core.spectrum import srgb_encode_np
 from mitsuba_path_guiding_torch.film.rfilter import get_filter
 
@@ -47,7 +49,7 @@ def splat(rgb_weight, film_xy, values, width: int, height: int,
         py = torch.clamp(torch.floor(film_xy[..., 1]).to(torch.int64), 0, height - 1)
         pid = py * width + px
         upd = torch.cat([values * sample_weight[..., None], sample_weight[..., None]], dim=-1)
-        return rgb_weight.index_add_(0, pid, upd)
+        return scatter_add_rows(rgb_weight, pid, upd)
     cx = torch.floor(film_xy[..., 0] - 0.5).to(torch.int64)
     cy = torch.floor(film_xy[..., 1] - 0.5).to(torch.int64)
     idxs, updates = [], []
@@ -61,7 +63,7 @@ def splat(rgb_weight, film_xy, values, width: int, height: int,
             w = torch.where(inside, w, 0.0)
             idxs.append(torch.clamp(py, 0, height - 1) * width + torch.clamp(px, 0, width - 1))
             updates.append(torch.cat([values * w[..., None], w[..., None]], dim=-1))
-    return rgb_weight.index_add_(0, torch.cat(idxs), torch.cat(updates))
+    return scatter_add_rows(rgb_weight, torch.cat(idxs), torch.cat(updates))
 
 
 def splat_box_aligned(rgb_weight, values, n_pix: int, sample_weight=None):
@@ -172,4 +174,4 @@ def splat_raw(acc, film_xy, values, width: int, height: int):
     the adjoint strategies; acc (H*W, 3), updated in place."""
     px = torch.clamp(torch.floor(film_xy[..., 0]).to(torch.int64), 0, width - 1)
     py = torch.clamp(torch.floor(film_xy[..., 1]).to(torch.int64), 0, height - 1)
-    return acc.index_add_(0, py * width + px, values)
+    return scatter_add_rows(acc, py * width + px, values)

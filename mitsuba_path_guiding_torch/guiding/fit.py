@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mitsuba_path_guiding_torch.core.math import scatter_add_rows
 from mitsuba_path_guiding_torch.core.vmf import mean_cosine_to_kappa
 from mitsuba_path_guiding_torch.guiding.grid import (
     MAX_REFINE_LEVELS,
@@ -33,15 +34,9 @@ KAPPA_FIT_MAX = 5e3
 
 def cell_sums(n_cells: int, cid, payload):
     """(n_cells, W) sums of the (M, W) payload rows by cell id, in an order
-    fixed by the data: on the CPU ``index_add_`` adds the rows serially, in
-    row order; on the card its float atomics would add them in whatever
-    order the threads arrive, so the card takes ``index_put_``'s
-    accumulation, which groups the rows by cell with a stable sort and adds
-    each cell's rows in turn."""
+    fixed by the data (``core.math.scatter_add_rows``)."""
     summed = torch.zeros((n_cells, payload.shape[1]), dtype=payload.dtype, device=payload.device)
-    if payload.is_cuda:
-        return summed.index_put_((cid,), payload, accumulate=True)
-    return summed.index_add_(0, cid, payload)
+    return scatter_add_rows(summed, cid, payload)
 
 
 def accumulate_stats(grid: GuidingGrid, rec, levels: int | None = None):

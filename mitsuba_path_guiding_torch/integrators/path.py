@@ -98,6 +98,48 @@ def _check_supported(scene, accel, textured, bumped, clothed, uniforms, max_dept
                          f"got {tuple(uniforms.shape)}")
 
 
+def route_queries(scene: SceneData, accel: str, use_bvh: bool = False):
+    """The (intersect, occluded) queries of one route, each taking
+    (o, d, tmax); ``trace``'s docstring gives the routing."""
+    geo = scene.geo
+    blocks_route = accel == "twolevel" or (accel == "auto" and scene.blocks is not None)
+    if blocks_route and scene.pairs is not None:
+        kw = dict(cap_factor=PAIR_CAP, engine=PAIR_ENGINE)
+
+        def intersect(o, d, tmax):
+            return intersect_pairs_full(scene.pairs, scene.blocks, o, d, tmax, **kw)
+
+        def occluded(o, d, tmax):
+            return occluded_pairs_full(scene.pairs, scene.blocks, o, d, tmax, **kw)
+    elif blocks_route:
+        def intersect(o, d, tmax):
+            return intersect_twolevel(scene.blocks, o, d, tmax)
+
+        def occluded(o, d, tmax):
+            return occluded_twolevel(scene.blocks, o, d, tmax)
+    elif accel == "bvh" or (accel == "auto" and use_bvh):
+        def intersect(o, d, tmax):
+            return intersect_bvh(geo, scene.bvh, o, d, tmax)
+
+        def occluded(o, d, tmax):
+            return occluded_bvh(geo, scene.bvh, o, d, tmax)
+    elif accel == "brute":
+        def intersect(o, d, tmax):
+            return intersect_brute(geo, o, d, tmax)
+
+        def occluded(o, d, tmax):
+            return occluded_brute(geo, o, d, tmax)
+    else:
+        pack = tri_pack_rows(geo)
+
+        def intersect(o, d, tmax):
+            return intersect_pallas(geo, o, d, tmax, pack=pack)
+
+        def occluded(o, d, tmax):
+            return occluded_pallas(geo, o, d, tmax, pack=pack)
+    return intersect, occluded
+
+
 def trace(
     scene: SceneData,
     ray_o: torch.Tensor,
@@ -139,41 +181,7 @@ def trace(
     bsdf_mod.check_types(mat_types)
     dev = ray_o.device
     geo, mats, em = scene.geo, scene.mats, scene.emitters
-    blocks_route = accel == "twolevel" or (accel == "auto" and scene.blocks is not None)
-    if blocks_route and scene.pairs is not None:
-        kw = dict(cap_factor=PAIR_CAP, engine=PAIR_ENGINE)
-
-        def intersect(o, d, tmax):
-            return intersect_pairs_full(scene.pairs, scene.blocks, o, d, tmax, **kw)
-
-        def occluded(o, d, tmax):
-            return occluded_pairs_full(scene.pairs, scene.blocks, o, d, tmax, **kw)
-    elif blocks_route:
-        def intersect(o, d, tmax):
-            return intersect_twolevel(scene.blocks, o, d, tmax)
-
-        def occluded(o, d, tmax):
-            return occluded_twolevel(scene.blocks, o, d, tmax)
-    elif accel == "bvh" or (accel == "auto" and use_bvh):
-        def intersect(o, d, tmax):
-            return intersect_bvh(geo, scene.bvh, o, d, tmax)
-
-        def occluded(o, d, tmax):
-            return occluded_bvh(geo, scene.bvh, o, d, tmax)
-    elif accel == "brute":
-        def intersect(o, d, tmax):
-            return intersect_brute(geo, o, d, tmax)
-
-        def occluded(o, d, tmax):
-            return occluded_brute(geo, o, d, tmax)
-    else:
-        pack = tri_pack_rows(geo)
-
-        def intersect(o, d, tmax):
-            return intersect_pallas(geo, o, d, tmax, pack=pack)
-
-        def occluded(o, d, tmax):
-            return occluded_pallas(geo, o, d, tmax, pack=pack)
+    intersect, occluded = route_queries(scene, accel, use_bvh)
 
     # null and mask surfaces transmit shadow rays; boolean occlusion where
     # the scene has no transparent material

@@ -10,7 +10,9 @@ waves and makes one EM update of the vMF grid, then, with
 ``refine_threshold`` samples.  Per-pixel sample counters persist across
 progressions, so the random sequences continue, with every sampler of
 ``RenderConfig.sampler``; the film takes ``RenderConfig.filter_name``.
-Media are ROADMAP Queue 1 item 9.
+A scene with a medium runs the volumetric tracer (with guided distance
+sampling when ``guide_distance``), and ``RenderConfig.max_component_value``
+clamps each sample's radiance.
 """
 from __future__ import annotations
 
@@ -30,11 +32,8 @@ from mitsuba_path_guiding_torch.guiding.fit import (
 from mitsuba_path_guiding_torch.guiding.grid import GuidingGrid, make_grid
 from mitsuba_path_guiding_torch.guiding.sampler import make_guide_fn
 from mitsuba_path_guiding_torch.integrators.path import trace
-from mitsuba_path_guiding_torch.integrators.render import (
-    PIXEL_BATCH,
-    RenderConfig,
-    wave_keys_and_jitter,
-)
+from mitsuba_path_guiding_torch.integrators.render import RenderConfig, wave_keys_and_jitter
+from mitsuba_path_guiding_torch.integrators.volpath import trace_vol
 from mitsuba_path_guiding_torch.models.sensor import generate_rays
 from mitsuba_path_guiding_torch.scene.types import SceneData
 from mitsuba_path_guiding_torch.utils.logger import get_logger
@@ -49,6 +48,9 @@ class ProgressiveConfig:
     guiding: bool = True
     guide_alpha: float = 0.5          # share of directions drawn from the mixture
     parallax: bool = True             # parallax-aware lobe reprojection
+    # guided distance sampling in media: radiance-weighted collision
+    # distances, one-sample MIS'd with the analytic sampler
+    guide_distance: bool = True
     grid_res: int = 16
     n_lobes: int = 8
     # adaptive spatial refinement between progressions; capacity_factor
@@ -62,8 +64,6 @@ class ProgressiveRenderer:
     """Host-side loop, device-side compute."""
 
     def __init__(self, scene: SceneData, cfg: ProgressiveConfig):
-        if scene.medium.enabled:
-            raise NotImplementedError("volume path tracing: ROADMAP Queue 1 item 9")
         from mitsuba_path_guiding_torch.models.bsdf import types_present
         from mitsuba_path_guiding_torch.models.emitter import kinds_present
         from mitsuba_path_guiding_torch.utils.stats import StatsRegistry
@@ -90,11 +90,19 @@ class ProgressiveRenderer:
         _, rkeys, u_cam, u_pos = wave_keys_and_jitter(r, pixel_id, sample_idx)
         o, d, film_xy = generate_rays(self.scene.sensor, r.width, r.height, pixel_id, u_pos,
                                       u_cam[..., 2:4], kind=self.scene.sensor.kind)
-        L, aux, rec = trace(
-            self.scene, o, d, rkeys, max_depth=r.max_depth, rr_depth=r.rr_depth,
-            use_nee=r.use_nee, accel=r.accel, guide=self.guide_fn, guide_state=self.grid, record_paths=self.grid is not None,
-            em_kinds=self.em_kinds, mat_types=self.mat_types,
-        )
+        kw = dict(max_depth=r.max_depth, rr_depth=r.rr_depth, use_nee=r.use_nee, accel=r.accel,
+                  guide=self.guide_fn, guide_state=self.grid,
+                  record_paths=self.grid is not None, em_kinds=self.em_kinds,
+                  mat_types=self.mat_types)
+        if self.scene.medium.enabled:
+            med = self.scene.medium
+            L, aux, rec = trace_vol(
+                self.scene, o, d, rkeys, hetero=med.heterogeneous, phase_kind=med.phase_kind,
+                guide_distance=self.cfg.guide_distance and self.guide_fn is not None, **kw)
+        else:
+            L, aux, rec = trace(self.scene, o, d, rkeys, **kw)
+        if r.max_component_value > 0.0:
+            L = torch.clamp_max(L, r.max_component_value)
         return film_xy, L, aux, rec
 
     def run_progression(self):
@@ -106,8 +114,8 @@ class ProgressiveRenderer:
         records = []
         seg_total = torch.zeros((), dtype=torch.int64, device=self.device)
         lane_total = 0
-        for batch_start in range(0, n_pix, PIXEL_BATCH):
-            pix = all_pixels[batch_start: batch_start + PIXEL_BATCH]
+        for batch_start in range(0, n_pix, r.pixel_batch):
+            pix = all_pixels[batch_start: batch_start + r.pixel_batch]
             for s in range(cfg.samples_per_progression):
                 sidx = torch.full_like(pix, self.sample_counter + s)
                 film_xy, L, aux, rec = self._wave(pix, sidx)

@@ -2,11 +2,18 @@
 reference's integrators/render.py ``RenderConfig``, ``wave_keys_and_jitter``,
 ``camera_jitter``, ``render_wave`` and ``render``).
 
-On the card, unguided waves with NEE and the independent sampler, without
-Sobol' bounce dimensions, of a supported scene (diffuse materials, area
-lights, at most 2048 triangles) take the fused megakernel
-(``ops.fused_path.trace_fused``), as the reference does on the TPU; every
-other wave runs the wavefront ``integrators.path.trace``.
+A scene with a medium runs the volumetric tracer
+``integrators.volpath.trace_vol``, unguided with BSDF sampling as in the
+reference.  Otherwise, on the card, unguided waves with NEE and the
+independent sampler, without Sobol' bounce dimensions, of a supported
+scene (diffuse materials, area lights, at most 2048 triangles) take the
+fused megakernel (``ops.fused_path.trace_fused``), as the reference does
+on the TPU; every other wave runs the wavefront ``integrators.path.trace``.
+``max_component_value`` > 0 clamps every radiance component of a sample
+(the firefly clamp).  ``render`` reads the scene's emitter kinds and BSDF
+types and makes the unguided wave's trivial guide once, before its waves.
+``render_scanned`` (the reference's one-dispatch ``lax.scan`` of the same
+waves in the same splat order) is ``render`` itself here.
 
 Samplers (``RenderConfig.sampler``) set the camera jitter: ``independent``,
 ``stratified``, and the low-discrepancy ``halton``, ``hammersley``,
@@ -24,6 +31,7 @@ from mitsuba_path_guiding_torch.core import qmc, rng
 from mitsuba_path_guiding_torch.core.rng import TAG_CAMERA
 from mitsuba_path_guiding_torch.film.film import Film, develop, new_film, splat
 from mitsuba_path_guiding_torch.integrators.path import trace
+from mitsuba_path_guiding_torch.integrators.volpath import trace_vol
 from mitsuba_path_guiding_torch.models.sensor import generate_rays
 from mitsuba_path_guiding_torch.scene.types import SceneData
 
@@ -62,6 +70,8 @@ class RenderConfig(NamedTuple):
     sampler: str = "independent"  # camera jitter, one of SAMPLERS
     qmc_bounces: int = 0  # > 0: Sobol' dimensions for the first bounces
     filter_name: str = "box"  # reconstruction filter (film/rfilter.py)
+    max_component_value: float = 0.0  # firefly clamp; 0 disables it
+    pixel_batch: int = PIXEL_BATCH     # most pixels in one wave
 
 
 def camera_jitter(cfg, sample_idx, u_cam, u_pix=None):
@@ -103,31 +113,57 @@ def wave_keys_and_jitter(cfg, pixel_id, sample_idx):
     return pkeys, rkeys, u_cam, u_pos
 
 
-def render_wave(scene: SceneData, cfg: RenderConfig, pixel_id, sample_idx,
-                guide=None, guide_state=None, em_kinds=None):
-    """Trace one (pixels x 1 sample) wave; returns (film_xy, L, aux)."""
-    from mitsuba_path_guiding_torch.models.bsdf import types_present
-    from mitsuba_path_guiding_torch.models.emitter import kinds_present
+def _fused_gate(scene: SceneData, cfg: RenderConfig, guide, device):
+    """The fused kernel's tables when a wave takes it (unguided, no
+    medium, NEE, the independent sampler without Sobol' bounces, on the
+    card, a supported scene), else None."""
+    if (guide is None and not scene.medium.enabled and cfg.use_nee
+            and cfg.sampler == "independent" and cfg.qmc_bounces == 0
+            and device.type == "cuda"):
+        return _fused_tables_for(scene)
+    return None
 
-    if scene.medium.enabled:
-        raise NotImplementedError("volume path tracing: ROADMAP Queue 1 item 9")
-    if em_kinds is None:
-        em_kinds = kinds_present(scene.emitters)
-    mat_types = types_present(scene.mats)
-    fused_tables = None
-    if (guide is None and cfg.use_nee and cfg.sampler == "independent"
-            and cfg.qmc_bounces == 0 and pixel_id.is_cuda):
-        fused_tables = _fused_tables_for(scene)
-    if guide is None:
+
+def _unguided_wavefront(scene: SceneData, cfg: RenderConfig, guide, guide_state, mat_types,
+                        device):
+    """(guide, guide_state) of a wave: an unguided wave that takes the
+    wavefront gets the guided code with selection probability 0 (the
+    trivial guide); the fused kernel and the volumetric tracer (which
+    samples the BSDF itself) take none."""
+    if guide is None and not scene.medium.enabled and _fused_gate(
+            scene, cfg, None, device) is None:
         from mitsuba_path_guiding_torch.guiding.sampler import make_guide_fn
         from mitsuba_path_guiding_torch.guiding.trivial import trivial_grid
 
-        guide = make_guide_fn(0.0, mat_types)
-        guide_state = trivial_grid(pixel_id.device)
+        return make_guide_fn(0.0, mat_types), trivial_grid(device)
+    return guide, guide_state
+
+
+def render_wave(scene: SceneData, cfg: RenderConfig, pixel_id, sample_idx,
+                guide=None, guide_state=None, em_kinds=None, mat_types=None):
+    """Trace one (pixels x 1 sample) wave; returns (film_xy, L, aux).
+    ``em_kinds`` and ``mat_types`` (host reads of the scene) are computed
+    when not given."""
+    from mitsuba_path_guiding_torch.models.bsdf import types_present
+    from mitsuba_path_guiding_torch.models.emitter import kinds_present
+
+    if em_kinds is None:
+        em_kinds = kinds_present(scene.emitters)
+    if mat_types is None:
+        mat_types = types_present(scene.mats)
+    fused_tables = _fused_gate(scene, cfg, guide, pixel_id.device)
+    guide, guide_state = _unguided_wavefront(scene, cfg, guide, guide_state, mat_types,
+                                             pixel_id.device)
     pkeys, rkeys, u_cam, u_pos = wave_keys_and_jitter(cfg, pixel_id, sample_idx)
     o, d, film_xy = generate_rays(scene.sensor, cfg.width, cfg.height, pixel_id, u_pos,
                                   u_lens=u_cam[..., 2:4], kind=scene.sensor.kind)
-    if fused_tables is not None:
+    if scene.medium.enabled:
+        L, aux, _ = trace_vol(scene, o, d, rkeys, max_depth=cfg.max_depth, rr_depth=cfg.rr_depth,
+                              use_nee=cfg.use_nee, guide=guide, guide_state=guide_state,
+                              em_kinds=em_kinds, mat_types=mat_types,
+                              hetero=scene.medium.heterogeneous,
+                              phase_kind=scene.medium.phase_kind, accel=cfg.accel)
+    elif fused_tables is not None:
         from mitsuba_path_guiding_torch.ops.fused_path import trace_fused
 
         L, aux, _ = trace_fused(fused_tables, o, d, rkeys, max_depth=cfg.max_depth,
@@ -141,24 +177,38 @@ def render_wave(scene: SceneData, cfg: RenderConfig, pixel_id, sample_idx,
                           use_nee=cfg.use_nee, guide=guide, guide_state=guide_state,
                           em_kinds=em_kinds, mat_types=mat_types, uniforms=uniforms,
                           accel=cfg.accel)
+    if cfg.max_component_value > 0.0:
+        L = torch.clamp_max(L, cfg.max_component_value)
     return film_xy, L, aux
 
 
 def render(scene: SceneData, cfg: RenderConfig, guide=None, guide_state=None):
     """Full render: returns the (H, W, 3) image on the scene's device (a
     measurement probe's image carries its ``meas_scale``)."""
+    from mitsuba_path_guiding_torch.models.bsdf import types_present
+    from mitsuba_path_guiding_torch.models.emitter import kinds_present
+
     dev = scene.geo.p0.device
+    em_kinds = kinds_present(scene.emitters)
+    mat_types = types_present(scene.mats)
+    guide, guide_state = _unguided_wavefront(scene, cfg, guide, guide_state, mat_types, dev)
     film = new_film(cfg.width, cfg.height, device=dev)
     rgbw = film.rgb_weight
     n_pix = cfg.width * cfg.height
     all_pixels = torch.arange(n_pix, dtype=torch.int64, device=dev)
-    for batch_start in range(0, n_pix, PIXEL_BATCH):
-        pix = all_pixels[batch_start: batch_start + PIXEL_BATCH]
+    for batch_start in range(0, n_pix, cfg.pixel_batch):
+        pix = all_pixels[batch_start: batch_start + cfg.pixel_batch]
         for s in range(cfg.spp):
             sidx = torch.full_like(pix, s)
-            film_xy, L, _ = render_wave(scene, cfg, pix, sidx, guide, guide_state)
+            film_xy, L, _ = render_wave(scene, cfg, pix, sidx, guide, guide_state, em_kinds,
+                                        mat_types)
             rgbw = splat(rgbw, film_xy, L, cfg.width, cfg.height, cfg.filter_name)
     img = develop(Film(rgb_weight=rgbw, width=cfg.width, height=cfg.height))
     if scene.sensor.meas_scale is not None:
         img = img * scene.sensor.meas_scale
     return img
+
+
+# The reference's render_scanned runs render's waves as one lax.scan, in
+# the same splat order (the same image); an eager loop is that already.
+render_scanned = render

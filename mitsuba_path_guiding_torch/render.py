@@ -1,10 +1,12 @@
 """Command-line renderer of the port (the reference's render.py for its
 built-in scenes: ``cornell``, ``furnace`` (a diffuse sphere in a constant
-environment, the white-furnace check) and ``veach`` (Veach's MIS plates);
-``volbox`` raises until volumes are ported).
+environment, the white-furnace check), ``veach`` (Veach's MIS plates) and
+``volbox`` (the Cornell box filled with a homogeneous scattering medium,
+rendered by the volumetric tracer with guided distance sampling).
 
   python -m mitsuba_path_guiding_torch.render cornell -o out.exr
   python -m mitsuba_path_guiding_torch.render veach -o out.npy -s 64 -G --device cpu
+  python -m mitsuba_path_guiding_torch.render volbox -o vol.npy -r 32x32 -s 4 --device cpu
 
   -o FILE      output (exr/pfm/png/npy; default <scene>.exr)
   -s N         samples per pixel (default 16)
@@ -54,10 +56,8 @@ def main(argv=None):
     from mitsuba_path_guiding_torch.scene import scenes as builtin
     from mitsuba_path_guiding_torch.scene.builder import build_scene
 
-    if args.scene == "volbox":
-        raise NotImplementedError("the volumetric box: ROADMAP Queue 1 item 9 (volumes)")
     builtins = {"cornell": builtin.cornell_box, "furnace": builtin.furnace,
-                "veach": builtin.veach_mis}
+                "veach": builtin.veach_mis, "volbox": builtin.volumetric_box}
 
     width, height = (int(x) for x in args.resolution.lower().split("x"))
     out = args.output or f"{args.scene}.exr"

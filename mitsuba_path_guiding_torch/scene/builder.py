@@ -10,7 +10,8 @@ transmittance tables, ``area`` emitters on shapes, the ``constant``,
 ``collimated``, ``sky``, ``sun`` and ``sunsky`` emitters, and every
 sensor kind of the reference (perspective, thin lens and radially
 distorted perspective, orthographic, spherical, telecentric and the
-three measurement probes).  Every scene carries its
+three measurement probes), and participating media (homogeneous or
+grid, every phase family of ``models/phase.py``).  Every scene carries its
 BVH (built by the native builder, so a compile needs g++; its depth is
 checked against the traversal stack); from 16384 triangles on it also
 carries the blocklist and pair tables of the big-scene intersectors.  The
@@ -31,6 +32,13 @@ from mitsuba_path_guiding_torch.core.device import resolve_device
 from mitsuba_path_guiding_torch.core.spectrum import LUM_WEIGHTS_NP
 from mitsuba_path_guiding_torch.models.envmap import build_env_tables, constant_env_tables
 from mitsuba_path_guiding_torch.models.microfacet_tables import N_COS, coat_transmittance_table
+from mitsuba_path_guiding_torch.models.phase import (
+    MIX_HG,
+    MIX_RAYLEIGH,
+    PhaseKind,
+    kkay_normalization,
+    microflake_tables,
+)
 from mitsuba_path_guiding_torch.models.sunsky import (
     hosek_sky_image,
     preetham_sky_image,
@@ -51,6 +59,7 @@ from mitsuba_path_guiding_torch.scene.types import (
     Sensor,
     SensorKind,
 )
+from mitsuba_path_guiding_torch.scene.volume import load_volume_spec
 
 # From this triangle count on, the scene carries the pair and blocklist
 # tables of the big-scene intersectors, as in the reference.
@@ -218,9 +227,99 @@ def _to_world(spec):
     return np.asarray(m, dtype=np.float64)
 
 
-def _check_supported(desc: dict):
-    if desc.get("medium") is not None:
-        _not_ported("a participating medium", "Queue 1 item 9 (volumes)")
+def _compile_medium(med: dict | None, t) -> MediumData:
+    """Medium dict -> MediumData, as the reference compiles it; ``t``
+    makes a tensor on the scene's device.
+
+    Homogeneous: {"sigma_a": rgb, "sigma_s": rgb, "g": float}, with
+    "scale" multiplying both and "phase" one of "hg" (the default),
+    "isotropic", "rayleigh", "kkay" ("orientation", "ks", "kd",
+    "exponent"), "microflake" ("orientation", "stddev") or "mixture"
+    ("phase_components" of {"type": "hg" | "isotropic" | "rayleigh",
+    "g": float}, "phase_weights").  A grid medium adds "density", a volume
+    spec of ``scene/volume.py`` ``load_volume_spec``, and optionally
+    "bounds", its world AABB."""
+    ones = np.ones((1, 1, 1), dtype=np.float32)
+    eye = np.eye(4, dtype=np.float32)
+    if med is None:
+        return MediumData(
+            sigma_a=t(np.zeros(3, np.float32)), sigma_s=t(np.zeros(3, np.float32)),
+            phase_g=t(np.float32(0.0)), enabled=False, density=t(ones),
+            world_to_grid=t(eye), majorant=t(np.float32(0.0)), heterogeneous=False,
+            phase_kind=0)
+    scale_f = float(med.get("scale", 1.0))
+    sigma_a = np.asarray(med.get("sigma_a", [0.0] * 3), dtype=np.float32) * scale_f
+    sigma_s = np.asarray(med.get("sigma_s", [0.0] * 3), dtype=np.float32) * scale_f
+    phase_name = med.get("phase", "hg")
+    pk = {
+        "rayleigh": PhaseKind.RAYLEIGH,
+        "kkay": PhaseKind.KKAY,
+        "microflake": PhaseKind.MICROFLAKE,
+        "mixture": PhaseKind.MIXTURE,
+        "mixturephase": PhaseKind.MIXTURE,
+    }.get(phase_name, PhaseKind.HG)
+    g = 0.0 if phase_name in ("isotropic", "rayleigh") else float(med.get("g", 0.0))
+    extra = {}
+    if pk == PhaseKind.MIXTURE:
+        comps = med.get("phase_components", [])
+        ws = np.asarray(med.get("phase_weights", [1.0] * len(comps)), dtype=np.float32)
+        if len(comps) == 0 or len(ws) != len(comps):
+            raise ValueError("mixture phase needs matching weights/components")
+        if np.any(ws < 0.0) or ws.sum() <= 0.0:
+            raise ValueError("invalid mixture phase weights")
+        ws = ws / ws.sum()
+        gs, kinds = [], []
+        for c in comps:
+            ct = c.get("type", "hg") if isinstance(c, dict) else str(c)
+            if ct == "rayleigh":
+                gs.append(0.0)
+                kinds.append(MIX_RAYLEIGH)
+            elif ct == "isotropic":
+                gs.append(0.0)
+                kinds.append(MIX_HG)
+            elif ct == "hg":
+                gs.append(float(c.get("g", 0.0)) if isinstance(c, dict) else 0.0)
+                kinds.append(MIX_HG)
+            else:
+                raise ValueError(f"unsupported mixture phase component '{ct}'")
+        extra["mix_weights"] = t(ws)
+        extra["mix_g"] = t(np.asarray(gs, dtype=np.float32))
+        extra["mix_kinds"] = t(np.asarray(kinds, dtype=np.int32), torch.int32)
+    if pk in (PhaseKind.KKAY, PhaseKind.MICROFLAKE):
+        axis = np.asarray(med.get("orientation", [0.0, 0.0, 1.0]), dtype=np.float32)
+        axis = axis / max(np.linalg.norm(axis), 1e-9)
+        extra["orientation"] = t(axis)
+        if pk == PhaseKind.KKAY:
+            e = float(med.get("exponent", 4.0))
+            extra["phase_aux"] = t(np.array(
+                [float(med.get("ks", 0.4)), float(med.get("kd", 0.2)), e, kkay_normalization(e)],
+                dtype=np.float32))
+        else:
+            aux, table = microflake_tables(float(med.get("stddev", 0.3)))
+            extra["phase_aux"] = t(aux)
+            extra["sigt_table"] = t(table)
+    dens_spec = med.get("density", None)
+    if dens_spec is None:
+        return MediumData(
+            sigma_a=t(sigma_a), sigma_s=t(sigma_s), phase_g=t(np.float32(g)), enabled=True,
+            density=t(ones), world_to_grid=t(eye),
+            majorant=t(np.float32(np.max(sigma_a + sigma_s))), heterogeneous=False,
+            phase_kind=pk, **extra)
+    grid, aabb = load_volume_spec(dens_spec)
+    if "bounds" in med:
+        aabb = np.asarray(med["bounds"], dtype=np.float32).reshape(2, 3)
+    if aabb is None:
+        aabb = np.array([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]], dtype=np.float32)
+    lo, hi = aabb[0], aabb[1]
+    extent = np.maximum(hi - lo, 1e-8)
+    w2g = np.eye(4, dtype=np.float32)
+    w2g[:3, :3] = np.diag(1.0 / extent)
+    w2g[:3, 3] = -lo / extent
+    majorant = float(grid.max()) * float(np.max(sigma_a + sigma_s))
+    return MediumData(
+        sigma_a=t(sigma_a), sigma_s=t(sigma_s), phase_g=t(np.float32(g)), enabled=True,
+        density=t(grid.astype(np.float32)), world_to_grid=t(w2g),
+        majorant=t(np.float32(majorant)), heterogeneous=True, phase_kind=pk, **extra)
 
 
 def _compile_emitters(especs, add_emitter):
@@ -314,7 +413,6 @@ def build_scene(desc: dict, device=None) -> SceneData:
     shapes = desc.get("shapes", [])
     if not shapes:
         raise ValueError("scene has no shapes")
-    _check_supported(desc)
 
     mat_rows: list[dict] = []
     mat_cache: dict[str, int] = {}
@@ -554,12 +652,7 @@ def build_scene(desc: dict, device=None) -> SceneData:
         kc=None if kc is None else t(np.asarray(kc, dtype=np.float32)),
         meas_scale=t(np.float32(meas[skind])) if skind in meas else None,
     )
-    medium = MediumData(
-        sigma_a=t(np.zeros(3, np.float32)), sigma_s=t(np.zeros(3, np.float32)),
-        phase_g=t(np.float32(0.0)), enabled=False,
-        density=t(np.ones((1, 1, 1), np.float32)), world_to_grid=t(np.eye(4, dtype=np.float32)),
-        majorant=t(np.float32(0.0)), heterogeneous=False, phase_kind=0,
-    )
+    medium = _compile_medium(desc.get("medium"), t)
 
     p0h, e1h, e2h = h["p0"], h["e1"], h["e2"]
     v1 = p0h + e1h

@@ -136,18 +136,31 @@ class Sensor(NamedTuple):
 
 
 class MediumData(NamedTuple):
-    """Participating-medium parameters; this slice only builds the
-    disabled medium (``enabled=False``)."""
+    """Participating-medium parameters (one global medium).  Homogeneous
+    media take the closed forms of ``integrators/volpath.py``, grid media
+    the tracking loops of ``models/medium.py``; sigma_t(x) = density(x) *
+    (sigma_a + sigma_s), the density the constant (1, 1, 1) grid for a
+    homogeneous medium.  ``enabled``, ``heterogeneous`` and ``phase_kind``
+    are host values: a wave branches on them without reading the card."""
 
-    sigma_a: torch.Tensor
-    sigma_s: torch.Tensor
-    phase_g: torch.Tensor
+    sigma_a: torch.Tensor        # (3,), any "scale" folded in
+    sigma_s: torch.Tensor        # (3,)
+    phase_g: torch.Tensor        # () HG anisotropy; 0 isotropic
     enabled: bool
-    density: torch.Tensor
-    world_to_grid: torch.Tensor
-    majorant: torch.Tensor
+    density: torch.Tensor        # (D, H, W) float32
+    world_to_grid: torch.Tensor  # (4, 4) world point -> [0, 1]^3
+    majorant: torch.Tensor       # () max density * max channel of sigma_t
     heterogeneous: bool
-    phase_kind: int = 0
+    phase_kind: int = 0          # models/phase.py PhaseKind
+    # fiber phases (kkay, microflake); None for the other families
+    orientation: Optional[torch.Tensor] = None  # (3,) fiber axis
+    phase_aux: Optional[torch.Tensor] = None    # (4,) kkay: ks, kd, exponent, norm;
+    #                                             microflake: stddev, norm, erf c1, mean sigma
+    sigt_table: Optional[torch.Tensor] = None   # (64,) microflake sigma_t(cos)
+    # mixture phase; None otherwise
+    mix_weights: Optional[torch.Tensor] = None  # (K,) normalised weights
+    mix_g: Optional[torch.Tensor] = None        # (K,) HG g of each component
+    mix_kinds: Optional[torch.Tensor] = None    # (K,) int32 MIX_HG / MIX_RAYLEIGH
 
 
 class BVH(NamedTuple):

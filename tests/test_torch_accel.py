@@ -14,6 +14,7 @@ from mitsuba_path_guiding_tpu.accel.bvh import build_bvh as j_build_bvh
 from mitsuba_path_guiding_tpu.accel.pairs import build_pair_table as j_build_pair_table
 from mitsuba_path_guiding_tpu.scene.builder import build_scene as j_build_scene
 from mitsuba_path_guiding_tpu.scene.scenes import door_room as j_door_room
+import torch_port_parity  # noqa: F401  (shares the cores among xdist workers)
 
 
 def _soup(seed, t, spread=4.0, size=0.3):

@@ -26,6 +26,7 @@ from mitsuba_path_guiding_torch.ops.intersect_blocklist import (
 from mitsuba_path_guiding_tpu.accel.blocks import build_blocklist as j_build_blocklist
 from mitsuba_path_guiding_tpu.accel.bvh import build_bvh as j_build_bvh
 from mitsuba_path_guiding_tpu.ops import intersect_blocklist as jblk
+import torch_port_parity  # noqa: F401  (shares the cores among xdist workers)
 
 
 def _soup(seed, t, spread=4.0, size=0.3):

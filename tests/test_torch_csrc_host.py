@@ -30,6 +30,7 @@ from mitsuba_path_guiding_torch.ops.intersect_tiled import (
 )
 from mitsuba_path_guiding_torch.scene.builder import build_scene
 from mitsuba_path_guiding_torch.scene.scenes import cornell_box, door_room, veach_mis
+import torch_port_parity  # noqa: F401  (shares the cores among xdist workers)
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "mitsuba_path_guiding_torch", "csrc")

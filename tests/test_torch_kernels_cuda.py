@@ -538,3 +538,41 @@ def test_fused_gate_needs_independent_sampler_without_sobol_bounces(card, cfg, f
     assert build.LAUNCHES["trace_fused"] == fused
     assert (build.LAUNCHES["intersect_tiled"] > 0) == (fused == 0)
     assert bool(torch.isfinite(L).all())
+
+
+@pytest.mark.parametrize("filter_name", ["box", "gaussian"])
+def test_splat_repeats_and_equals_the_cpus(card, filter_name):
+    """The film's scatter-add on the card: samples crowding few pixels
+    (as a pixel's jittered sample rounding into its neighbour does) give
+    the same accumulator from call to call, equal to the CPU's serial
+    ``index_add_`` (the box's unit weights bit for bit; the Gaussian's
+    weights go through ``exp``, whose last bit the card and the CPU may
+    round apart, to rtol 1e-6)."""
+    from mitsuba_path_guiding_torch.film.film import new_film, splat
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    n = 65536
+    xy = torch.rand((n, 2), generator=g, device="cuda") * 8.0
+    vals = torch.rand((n, 3), generator=g, device="cuda")
+    first = splat(new_film(8, 8, device="cuda").rgb_weight, xy, vals, 8, 8, filter_name)
+    for _ in range(3):
+        again = splat(new_film(8, 8, device="cuda").rgb_weight, xy, vals, 8, 8, filter_name)
+        assert torch.equal(again, first)
+    cpu = splat(new_film(8, 8, device="cpu").rgb_weight, xy.cpu(), vals.cpu(), 8, 8, filter_name)
+    if filter_name == "box":
+        assert torch.equal(first.cpu(), cpu)
+    else:
+        torch.testing.assert_close(first.cpu(), cpu, rtol=1e-6, atol=0.0)
+
+
+def test_volume_render_scanned_equals_render(card):
+    """render_scanned and render give the volbox the same image bit for
+    bit on the card, and each repeats from call to call."""
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig, render, render_scanned
+    from mitsuba_path_guiding_torch.scene.scenes import volumetric_box
+
+    sc = build_scene(volumetric_box(), device="cuda")
+    cfg = RenderConfig(width=64, height=64, spp=4, max_depth=5, seed=5)
+    img = render(sc, cfg)
+    assert torch.equal(render(sc, cfg), img)
+    assert torch.equal(render_scanned(sc, cfg), img)

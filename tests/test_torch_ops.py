@@ -23,6 +23,7 @@ from mitsuba_path_guiding_tpu.ops import gather_pallas as jgather
 from mitsuba_path_guiding_tpu.ops import intersect_pallas as jintersect
 from mitsuba_path_guiding_tpu.scene.builder import build_scene as j_build_scene
 from mitsuba_path_guiding_tpu.scene.scenes import cornell_box as j_cornell_box
+import torch_port_parity  # noqa: F401  (shares the cores among xdist workers)
 
 
 @pytest.mark.parametrize("r,c,n", [(36, 32, 4096), (512, 32, 1000), (5, 7, 300)])

@@ -32,6 +32,7 @@ from mitsuba_path_guiding_torch.scene.types import Geometry
 from mitsuba_path_guiding_tpu.accel.bvh import build_bvh as j_build_bvh
 from mitsuba_path_guiding_tpu.accel.pairs import build_pair_table as j_build_pair_table
 from mitsuba_path_guiding_tpu.ops import intersect_pairs as jpairs
+import torch_port_parity  # noqa: F401  (shares the cores among xdist workers)
 
 INF = 3.0e38
 N_RAYS = 2048

@@ -123,9 +123,8 @@ def test_accumulate_and_update_match_reference(wave):
     _assert_grid_close(update_grid(gt, *(t(x) for x in sj)), jfit.update_grid(jgrid, *sj))
 
 
-def test_progressive_matches_reference_and_unguided():
-    jscene = j_build_scene(j_cornell_box())
-    scene = build_scene(cornell_box(), device="cpu")
+def test_progressive_matches_reference_and_unguided(wave):
+    jscene, scene = wave[:2]
     kw = dict(samples_per_progression=2, n_progressions=2, guiding=True, grid_res=4, n_lobes=8)
     jr = jprog.ProgressiveRenderer(jscene, jprog.ProgressiveConfig(
         render=jrender.RenderConfig(width=16, height=16, spp=0, max_depth=5), **kw))
@@ -141,9 +140,8 @@ def test_progressive_matches_reference_and_unguided():
     assert abs(img_t.mean() - img_u.mean()) / img_u.mean() < 0.05
 
 
-def test_unguided_render_matches_reference():
-    jscene = j_build_scene(j_cornell_box())
-    scene = build_scene(cornell_box(), device="cpu")
+def test_unguided_render_matches_reference(wave):
+    jscene, scene = wave[:2]
     img_j = np.asarray(jrender.render(jscene, jrender.RenderConfig(width=16, height=16, spp=2)))
     img_t = render(scene, RenderConfig(width=16, height=16, spp=2)).numpy()
     assert frac_close(img_t.reshape(-1, 3), img_j.reshape(-1, 3), rtol=1e-4) >= 0.99

@@ -10,6 +10,7 @@ from mitsuba_path_guiding_tpu.integrators.render import RenderConfig as JRenderC
 from mitsuba_path_guiding_tpu.integrators.render import wave_keys_and_jitter as j_wave
 from mitsuba_path_guiding_torch.core import rng as trng
 from mitsuba_path_guiding_torch.integrators.render import RenderConfig, wave_keys_and_jitter
+import torch_port_parity  # noqa: F401  (shares the cores among xdist workers)
 
 N = 100_000
 

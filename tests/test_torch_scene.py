@@ -145,7 +145,9 @@ def test_generate_rays(name, w, h):
       "emitters": []}, "Queue 1 item 9"),
     ({"shapes": [{"type": "rectangle", "bsdf": {"type": "diffuse", "texture": "t.png"}}],
       "emitters": [{"type": "sunsky"}]}, "Queue 1 item 9"),
-    ({"shapes": [{"type": "rectangle"}], "medium": {"sigma_s": 1.0}}, "Queue 1 item 9"),
+    ({"shapes": [{"type": "rectangle"}], "emitters": [{"type": "constant"}], "medium": {
+        "sigma_s": [1.0] * 3, "density": {"type": "vdbvolume", "filename": "cloud.vdb"}}},
+     "Queue 1 item 9"),
 ])
 def test_unported_features_raise(desc, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -158,7 +160,8 @@ def test_unported_features_raise(desc, match):
         "type": "diffuse", "texture": "t.png"}}}]}, "textures"),
     ({"shapes": [{"type": "rectangle", "subsurface": {"type": "dipole"}}]}, "integrators"),
     ({"shapes": [{"type": "rectangle"}], "emitters": [{"type": "sky"}],
-      "medium": {"sigma_s": 1.0}}, "volumes"),
+      "medium": {"sigma_s": [1.0] * 3, "density": {"type": "vdbvolume", "filename": "c.vdb"}}},
+     "the loaders"),
     ({"shapes": [{"type": "rectangle", "bsdf": {"type": "bumpmap", "bsdf": {"type": "hk"}}}]},
      "textures"),
     ({"shapes": [{"type": "rectangle"}], "emitters": [{"type": "envmap", "filename": "sky.exr"}]},

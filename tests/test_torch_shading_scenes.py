@@ -42,5 +42,8 @@ def test_cli_renders_veach_on_the_cpu(tmp_path):
                  "-G", "--device", "cpu"]) == 0
     img = np.load(out)
     assert img.shape == (16, 16, 3) and np.isfinite(img).all() and img.mean() > 0.0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        main(["volbox", "-o", str(tmp_path / "v.npy"), "--device", "cpu"])
+    # the volumetric box renders too (tests/test_torch_volpath.py checks it)
+    vol = tmp_path / "v.npy"
+    assert main(["volbox", "-o", str(vol), "-s", "1", "-p", "1", "-d", "2", "-r", "8x8",
+                 "--device", "cpu"]) == 0
+    assert np.isfinite(np.load(vol)).all()

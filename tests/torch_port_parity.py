@@ -1,7 +1,24 @@
 """Helpers shared by the tests/test_torch_*.py parity tests: hand the JAX
-package's containers to the PyTorch port as numpy."""
+package's containers to the PyTorch port as numpy.  Importing it also
+gives torch's intra-op thread pool one xdist worker's share of the cores
+(every port test file imports it)."""
+import os
+
 import numpy as np
 import torch
+
+
+def share_cores():
+    """Under pytest-xdist, cap torch's intra-op threads at the cores over
+    the workers: pools as wide as the machine in every worker make their
+    threads wait on each other, and a small eager op then takes orders of
+    magnitude longer than alone."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+    if workers > 1:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+
+
+share_cores()
 
 
 def to_numpy_tree(x):
