@@ -149,6 +149,24 @@ Phases:
      Cornell's fused and wavefront waves and through the Gaussian filter,
      each beside the wave's own time; the ordered splat repeats bit for
      bit.
+  15. "textures" (slice 8): gather_rows_t bit-equal on the (T, 9)
+     vertex-colour table of a curvature-coloured sphere (the kernel's
+     general path) and timed on a camera wave's hits; intersect_tiled
+     bit-equal on the checkerboard Cornell box's camera wave; then at
+     256x256, depth 5, guided 4 spp x 4: the Cornell box with a
+     checkerboard floor, a bitmap under scale, a bitmap read from a .pfm
+     written at run time, normal- and bump-mapped walls, a wireframe box
+     and the curvature-coloured sphere, an irawan back wall, and a sphere
+     under an envmap read from a .pfm; through render() in 4 groups of 4
+     spp: the checkerboard box unguided (no trace_fused), the JAX
+     package's test_mipmap.py floor with cone filtering and its
+     test_cloth.py irawan plane (the weave's inner std above 0.01); each
+     mean within max(3%, 4 standard errors) of the JAX package's CPU mean
+     (TEXTURE_REFERENCE, tools/texture_reference_means.py); then the
+     CLI's cornell at 256x256, 16 spp with --denoise --aovs: the neural
+     denoiser ran, its card output equals the CPU's on the same buffers
+     (rtol 1e-4, atol 1e-6), its relMSE against a 256-spp image is below
+     the noisy image's, and its time.
 
 Each main-path route runs with the launch counts set to 0 just before it
 and read just after it, and is held to the kernels it must launch: the
@@ -169,7 +187,9 @@ query and three small-table gathers a bounce, and the door_room gain
 waves to one BVH launch a query and the door_room gathers (1200 and 400);
 the vocabulary's wavefront renders to two tiled launches a bounce and
 three gathers (five with a coat: its nested rows and its coat-table
-row), its independent-sampler Cornell renders to one trace_fused a wave.
+row), its independent-sampler Cornell renders to one trace_fused a wave;
+the textures' renders to two tiled launches a bounce and three gathers
+(four with vertex colours) and no trace_fused.
 """
 from __future__ import annotations
 
@@ -2995,6 +3015,311 @@ def phase_splat_cost(scene, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# textures, woven cloth and the denoiser
+# ---------------------------------------------------------------------------
+
+TEX_WHITE = [0.725, 0.71, 0.68]
+TEX_SPP = 16                      # guided 4 spp x 4, or render() in 4 groups of 4
+DENOISE_SPP = 16                  # the CLI's cornell with --denoise --aovs
+DENOISE_REF_SPP = 256             # the unguided image the denoised one is read against
+DENOISE_RTOL, DENOISE_ATOL = 1e-4, 1e-6
+CLOTH_STD_BAR = 0.01              # the weave's structure (the JAX package's test_cloth.py)
+
+
+def smooth_image(h, w, seed):
+    """A smooth colour image in [0.1, 0.8] (seeded sinusoids), numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(h) / h, np.arange(w) / w, indexing="ij")
+    fx, fy = rng.integers(1, 4, 3), rng.integers(1, 4, 3)
+    ph = rng.uniform(0.0, 2.0 * np.pi, 3)
+    img = 0.45 + 0.35 * np.sin(2.0 * np.pi * (fx * xx[..., None] + fy * yy[..., None]) + ph)
+    return img.astype(np.float32)
+
+
+def write_pfm(path, img):
+    """A little-endian colour PFM (bottom row first), numpy only."""
+    import numpy as np
+
+    img = np.asarray(img, np.float32)
+    h, w, _ = img.shape
+    with open(path, "wb") as f:
+        f.write(b"PF\n" + f"{w} {h}\n".encode() + b"-1.0\n")
+        f.write(np.ascontiguousarray(img[::-1]).astype("<f4").tobytes())
+
+
+def texture_descs(mod, directory):
+    """The textures phase's scene descriptions, from ``mod``'s scenes and
+    transforms (the port's here, the JAX package's in
+    tools/texture_reference_means.py); the bitmap and the envmap read from
+    files are written into ``directory`` first.
+    - cornell_checker: the Cornell box with a checkerboard floor;
+    - cornell_bitmap_scale: an inline image under ``scale`` on the back wall;
+    - cornell_bitmap_pfm: a bitmap read from a .pfm on the back wall;
+    - cornell_bump: a normal-mapped left wall and a bump-mapped right wall;
+    - cornell_vcol_wire: a wireframe tall box and a curvature-coloured
+      sphere (3968 triangles) for the short box;
+    - cornell_cloth: an irawan back wall at 4 x 4 repeats;
+    - cloth: the JAX package's test_cloth.py irawan plane at 4 x 4 repeats
+      under a point light (a lone plane: no path finds light after its
+      first bounce, so a guide has nothing to fit);
+    - floor_cone: the JAX package's test_mipmap.py checker floor (32 x 32
+      checks) under a constant sky, rendered with cone filtering;
+    - envmap_file: a diffuse sphere on a floor under an envmap read from a
+      .pfm."""
+    import numpy as np
+
+    os.makedirs(directory, exist_ok=True)
+    descs = {}
+    sc = mod.cornell_box()
+    sc["shapes"][0]["bsdf"] = {"type": "diffuse", "texture": {
+        "type": "checkerboard", "uscale": 4, "vscale": 4, "color0": TEX_WHITE,
+        "color1": [0.15, 0.15, 0.15]}}
+    descs["cornell_checker"] = sc
+    sc = mod.cornell_box()
+    sc["shapes"][2]["bsdf"] = {"type": "diffuse", "texture": {
+        "type": "scale", "scale": [0.9, 0.8, 0.7],
+        "texture": {"type": "bitmap", "image": smooth_image(64, 64, 1)}}}
+    descs["cornell_bitmap_scale"] = sc
+    wall = os.path.join(directory, "wall.pfm")
+    write_pfm(wall, smooth_image(48, 80, 2))
+    sc = mod.cornell_box()
+    sc["shapes"][2]["bsdf"] = {"type": "diffuse", "texture": {"type": "bitmap", "filename": wall}}
+    descs["cornell_bitmap_pfm"] = sc
+    sc = mod.cornell_box()
+    tilt = smooth_image(32, 32, 3) - 0.45  # normals within ~25 degrees of +z
+    nmap = np.concatenate([tilt[..., :2], np.ones((32, 32, 1), np.float32)], axis=-1)
+    nmap = nmap / np.linalg.norm(nmap, axis=-1, keepdims=True)
+    sc["shapes"][3]["bsdf"] = {"type": "normalmap", "bsdf": sc["shapes"][3]["bsdf"],
+                               "texture": {"type": "bitmap", "image": (nmap + 1.0) * 0.5}}
+    sc["shapes"][4]["bsdf"] = {"type": "bumpmap", "scale": 0.02, "bsdf": sc["shapes"][4]["bsdf"],
+                               "texture": {"type": "gridtexture", "uscale": 6, "vscale": 6,
+                                           "line_width": 0.08}}
+    descs["cornell_bump"] = sc
+    sc = mod.cornell_box()
+    sc["shapes"][5]["bsdf"] = {"type": "diffuse", "texture": {
+        "type": "wireframe", "interior_color": TEX_WHITE, "edge_color": [0.05] * 3,
+        "line_width": 0.06}}
+    sc["shapes"][6] = {"type": "sphere", "center": [0.4, 0.3, -0.1], "radius": 0.3,
+                       "bsdf": {"type": "diffuse", "texture": {"type": "curvature",
+                                                               "curvature": "mean",
+                                                               "scale": 0.3}}}
+    descs["cornell_vcol_wire"] = sc
+    sc = mod.cornell_box()
+    sc["shapes"][2]["bsdf"] = {"type": "irawan", "repeatU": 4, "repeatV": 4}
+    descs["cornell_cloth"] = sc
+    descs["cloth"] = {
+        "sensor": {"type": "orthographic", "to_world": mod.look_at([0, 0, -2], [0, 0, 0])},
+        "shapes": [{"type": "rectangle", "bsdf": {"type": "irawan", "repeatU": 4,
+                                                  "repeatV": 4}}],
+        "emitters": [{"type": "point", "position": [1.0, 1.0, -2.0], "intensity": [6.0] * 3}]}
+    descs["floor_cone"] = {
+        "sensor": {"type": "perspective", "fov": 60.0,
+                   "to_world": mod.look_at([0, 1.0, -3], [0, 0, 2])},
+        "shapes": [{"type": "rectangle",
+                    "to_world": np.array([[8, 0, 0, 0], [0, 0, 8, 0], [0, -8, 0, 0],
+                                          [0, 0, 0, 1.0]]),
+                    "bsdf": {"type": "diffuse", "texture": {"type": "checkerboard",
+                                                            "uscale": 32, "vscale": 32}}}],
+        "emitters": [{"type": "constant", "radiance": [1.0] * 3}]}
+    sky = os.path.join(directory, "sky.pfm")
+    yy = (np.arange(32)[:, None, None] + 0.5) / 32.0
+    write_pfm(sky, (np.broadcast_to(1.5 - yy, (32, 64, 1)) * np.array([0.6, 0.8, 1.0])
+                    + 0.5 * smooth_image(32, 64, 4)).astype(np.float32))
+    descs["envmap_file"] = {
+        "sensor": {"type": "perspective", "fov": 45.0,
+                   "to_world": mod.look_at([0, 1.2, -4.0], [0, 0.4, 0])},
+        "shapes": [{"type": "sphere", "center": [0, 0.6, 0], "radius": 0.6,
+                    "bsdf": {"type": "diffuse", "reflectance": [0.6] * 3}},
+                   {"type": "rectangle",
+                    "to_world": np.array([[3, 0, 0, 0], [0, 0, 3, 0], [0, -3, 0, 0],
+                                          [0, 0, 0, 1.0]]),
+                    "bsdf": {"type": "diffuse", "reflectance": [0.5] * 3}}],
+        "emitters": [{"type": "envmap", "filename": sky}]}
+    return descs
+
+
+# JAX package CPU means (unguided, NEE on, depth 5, 8 groups of 8 spp at
+# 128x128, floor_cone at 256x256 with its cone filtering: mean, standard
+# error) of texture_descs' scenes by tools/texture_reference_means.py; one
+# run of 263.4 s, and cornell_cloth alone in 15.4 s
+TEXTURE_REFERENCE = {
+    "cornell_checker": (0.10810944996774197, 0.00020442452009166806),
+    "cornell_bitmap_scale": (0.10504979733377695, 0.00020878874376788632),
+    "cornell_bitmap_pfm": (0.10730080679059029, 0.00020812713602419062),
+    "cornell_bump": (0.11337464489042759, 0.00020476509278906585),
+    "cornell_vcol_wire": (0.11294289864599705, 0.00020235430483095184),
+    "cornell_cloth": (0.10984980780631304, 0.0002030225247632445),
+    "cloth": (0.13927694968879223, 2.3656341364291162e-05),
+    "floor_cone": (0.5851100087165833, 2.1437744388925322e-05),
+    "envmap_file": (0.7477866113185883, 0.00015865794279946698),
+}
+
+
+def texture_dir():
+    """Where the textures phase writes its files: build/chip_smoke/ in the
+    checkout."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+
+
+def texture_scenes():
+    from mitsuba_path_guiding_torch.scene import scenes
+    from mitsuba_path_guiding_torch.scene.builder import build_scene
+
+    return {name: build_scene(desc, device=DEVICE)
+            for name, desc in texture_descs(scenes, texture_dir()).items()}
+
+
+def phase_texture_kernel_checks(ts, card):
+    """gather_rows_t on the curvature-coloured scene's (T, 9) vertex-colour
+    table (3968 + 30 rows: the kernel's general path), bit-equal to its
+    plain version on rows out of range too, then timed (gather_call) on
+    the hit triangles of a camera wave; intersect_tiled bit-equal on the
+    checkerboard Cornell box's camera wave."""
+    import torch
+
+    from mitsuba_path_guiding_torch.accel.traverse import intersect_pallas
+    from mitsuba_path_guiding_torch.ops.gather import gather_rows_t, gather_rows_t_plain
+
+    sc = ts["cornell_vcol_wire"]
+    table = sc.geo.vcol
+    check(table is not None and tuple(table.shape[1:]) == (9,) and table.shape[0] > 512,
+          f"vertex-colour table {None if table is None else tuple(table.shape)}: expected "
+          f"(T > 512, 9)")
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    idx = torch.randint(-3, table.shape[0] + 3, (W * H,), generator=gen, device=DEVICE)
+    check(torch.equal(gather_rows_t(table, idx), gather_rows_t_plain(table, idx)),
+          "gather_rows_t vertex-colour table, rows out of range: not bit-equal")
+    o, d, _ = camera_rays(sc, 1, 0)
+    hit = intersect_pallas(sc.geo, o, d)
+    wave_call = gather_call(table, hit.prim.clamp_min(0).to(torch.int32))
+    chk = ts["cornell_checker"]
+    o, d, _ = camera_rays(chk, 1, 0)
+    tmax = torch.full((o.shape[0],), 3.0e37, device=DEVICE)
+    tiled = tiled_check(chk.geo, o, d, tmax, chk.geo.p0.shape[0], "checker Cornell camera")
+    res = {"gather_rows_t_vcol_wave": wave_call, "intersect_tiled_checker_camera": tiled}
+    emit({"phase": "texture_kernel_checks", "card": card, **res})
+    return res
+
+
+def phase_denoise(ref, card):
+    """The CLI's cornell at 256x256, 16 spp with --denoise --aovs on the
+    card (guided, 4 spp a progression; the feature buffers are 4 spp, once
+    for the denoiser and once for the AOV files).  The denoiser's inputs
+    and output are caught at film.neural_denoise.denoise_neural: the
+    neural path ran (the weights loaded, the output not the a-trous
+    base's), the card's output equals the port's CPU denoiser on the same
+    buffers (rtol 1e-4, atol 1e-6), its relMSE against ``ref`` (a 256-spp
+    unguided render) is below the noisy image's, and its time."""
+    import numpy as np
+    import torch
+
+    from mitsuba_path_guiding_torch import render as cli
+    from mitsuba_path_guiding_torch.film import denoise as dmod
+    from mitsuba_path_guiding_torch.film import neural_denoise as nmod
+
+    out = os.path.join(texture_dir(), "cornell_denoised.npy")
+    real, caught = nmod.denoise_neural, {}
+
+    def spy(color, albedo, normal, depth):
+        img = real(color, albedo, normal, depth)
+        caught.update(inputs=(color, albedo, normal, depth), out=img)
+        return img
+
+    nmod.denoise_neural = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rc = cli.main(["cornell", "-o", out, "-r", f"{W}x{H}", "-s", str(DENOISE_SPP),
+                       "--denoise", "--aovs"] + ([] if DEVICE == "cuda" else ["--device", DEVICE]))
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+    finally:
+        nmod.denoise_neural = real
+    check(rc == 0 and "out" in caught, "CLI --denoise: no denoiser call")
+    stem = os.path.splitext(out)[0]
+    for name in ("albedo", "normal", "depth"):
+        check(os.path.exists(f"{stem}_{name}.npy"), f"CLI --aovs: no {name} file")
+    color, albedo, normal, depth = caught["inputs"]
+    den = caught["out"]
+    check(color.is_cuda and den.is_cuda, "denoiser: not on the card")
+    check(nmod.load_net(color.device) is not None, "denoiser: the neural weights did not load")
+    base = dmod.denoise_hdr(color, albedo, normal, depth)
+    check(not torch.equal(den, base), "denoiser: the output is the a-trous base (no net)")
+    written = np.load(out)
+    check(np.array_equal(written, den.cpu().numpy()), "CLI: the written image is not the denoised")
+    cpu = real(*(x.cpu() for x in caught["inputs"]))
+    rel = ((den.cpu() - cpu).abs() / cpu.abs().clamp_min(DENOISE_ATOL / DENOISE_RTOL)).max()
+    check(torch.allclose(den.cpu(), cpu, rtol=DENOISE_RTOL, atol=DENOISE_ATOL),
+          f"denoiser: the card differs from the CPU (max rel {float(rel)})")
+    ms = cuda_ms(lambda: real(color, albedo, normal, depth), reps=5)
+    r_noisy, r_den = relmse(color, ref), relmse(den, ref)
+    check(r_den < r_noisy, f"denoiser: relMSE {r_den} not below the noisy image's {r_noisy}")
+    rec = {"phase": "cli_denoise", "card": card, "resolution": f"{W}x{H}", "spp": DENOISE_SPP,
+           "cli_seconds": round(dt, 3), "neural": True, "denoise_ms": ms,
+           "card_vs_cpu_max_rel": float(rel), "rtol": DENOISE_RTOL, "atol": DENOISE_ATOL,
+           "reference_spp": DENOISE_REF_SPP, "relmse_noisy": r_noisy, "relmse_denoised": r_den,
+           "relmse_ratio": r_den / r_noisy, "mean_noisy": float(color.mean()),
+           "mean_denoised": float(den.mean())}
+    emit(rec)
+    return rec
+
+
+def run_textures(ts, cornell, card):
+    """The textures phase's renders, each between its own launch-count
+    reset and read, held to the kernels it must launch: a textured bounce
+    is two tiled queries and three gathers (shading, material and emitter
+    rows; the texture's ids and tiling ride the material row's gather),
+    with vertex colours a fourth on the (T, 9) colour table; the scenes
+    with the 3968-triangle sphere gather from tables of more than 512 rows
+    (the shading table, and the colour table).  No
+    textured render launches trace_fused.  Returns their launch counts."""
+    import torch
+
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig, render
+    from mitsuba_path_guiding_torch.ops.fused_path import fused_supported
+
+    def wavefront(n_waves, gathers=3, large=0):
+        return {**NONE_LAUNCHED, "intersect_tiled": 2 * DEPTH * n_waves,
+                "gather_rows_t": gathers * DEPTH * n_waves,
+                "gather_rows_t_large": large * DEPTH * n_waves}
+
+    counts = {}
+    check(not fused_supported(ts["cornell_checker"]), "the fused gate takes a textured scene")
+    for name in ("cornell_checker", "cornell_bitmap_scale", "cornell_bitmap_pfm", "cornell_bump",
+                 "cornell_vcol_wire", "cornell_cloth", "envmap_file"):
+        # the sphere's 3968 triangles make the shading table (and the
+        # vertex-colour table) a large one
+        vcol = name == "cornell_vcol_wire"
+        large = 2 if vcol else 1 if name == "envmap_file" else 0
+        _, counts[name] = drive(name, lambda: phase_reference_progressive(
+            ts[name], name, W, H, card, ref=TEXTURE_REFERENCE[name]),
+            wavefront(TEX_SPP, gathers=4 if vcol else 3, large=large))
+    # unguided render() in 4 groups of 4 spp: the checkerboard box (the
+    # fused gate must refuse it), the floor with its cone filtering, and
+    # the cloth plane, as the JAX package's test renders it
+    cfg = RenderConfig(width=W, height=H, spp=TEX_SPP // VOCAB_GROUPS, max_depth=DEPTH)
+    for name, scene_name in (("cornell_checker_unguided", "cornell_checker"),
+                             ("floor_cone", "floor_cone"), ("cloth", "cloth")):
+        (img, _, rec), counts[name] = drive(
+            name, lambda: render_groups(ts[scene_name], name, cfg, card,
+                                        TEXTURE_REFERENCE[scene_name]), wavefront(TEX_SPP))
+        emit(rec)
+    std = float(img[W // 4:-W // 4, H // 4:-H // 4].mean(-1).std())
+    check(std > CLOTH_STD_BAR, f"cloth: no weave structure (std {std})")
+    emit({"phase": "cloth_weave", "card": card, "inner_std": std, "bar": CLOTH_STD_BAR})
+    # the CLI's --denoise --aovs: 4 progressions of 4 waves, then 4 waves of
+    # feature buffers for the denoiser and 4 for the AOV files
+    ref = render(cornell, RenderConfig(width=W, height=H, spp=DENOISE_REF_SPP, max_depth=DEPTH,
+                                       seed=99))
+    _, counts["cli_denoise"] = drive("cli_denoise", lambda: phase_denoise(ref, card),
+                                     wavefront(DENOISE_SPP + 8))
+    torch.cuda.synchronize()
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -3113,12 +3438,17 @@ def main(argv=None):
     c_vol, _, _ = run_volumes(vols, scene, card)
     # the film's splat against index_add_, outside every route's counts
     phase_splat_cost(scene, card)
+    # textures, cloth and the denoiser: the kernel checks at the new
+    # tables, then the renders and the CLI's --denoise
+    texs = texture_scenes()
+    tex_checks = phase_texture_kernel_checks(texs, card)
+    c_tex = run_textures(texs, scene, card)
     routes = {"progressive": c_prog, "frozen_render": c_frozen, "unguided_render": c_render,
               "progressive_adaptive": c_adaptive, "guiding_gain_bounce_lamp": c_bounce,
               "guiding_gain_door_room": c_door_gain,
               "door_room_progressive": c_door, "door_room_plk": c_plk, **interior["launches"],
               "door_room_twolevel": door_tl["launches"], "door_room_sorted_blocklist": c_sorted,
-              "door_room_bvh": c_bvh, **c_shading, **c_vocab, **c_vol}
+              "door_room_bvh": c_bvh, **c_shading, **c_vocab, **c_vol, **c_tex}
     launches = {k: {r: c[k] for r, c in routes.items()} for k in c_prog}
 
     entries = phase_timings(scene, veach, tables, grid, checks, launches, card)
@@ -3128,7 +3458,8 @@ def main(argv=None):
     entries[0]["calls"].update(gather_calls)
     entries[0]["calls"].update({"coat_table_random": vocab_checks["gather_rows_t_coat_random"],
                                 "coat_table_wave": vocab_checks["gather_rows_t_coat_wave"],
-                                "volbox_shading_rows": vol_checks["gather_rows_t_volbox_shading"]})
+                                "volbox_shading_rows": vol_checks["gather_rows_t_volbox_shading"],
+                                "vertex_colour_table_wave": tex_checks["gather_rows_t_vcol_wave"]})
     entries += new_entries
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

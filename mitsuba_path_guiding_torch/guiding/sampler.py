@@ -42,12 +42,15 @@ def make_guide_fn(alpha: float = 0.5, mat_types=bsdf_mod.PORTED_TYPES, product: 
     ``parallax`` re-aims each lobe at its virtual source from the shading
     point; ``product`` then multiplies the mixture by a cosine lobe about
     the shading normal.  ``min_rough`` > 0 guides only the diffuse-class
-    families (DIFFUSE, ROUGH_DIFFUSE, DIFFTRANS) and materials at least that rough (the raw ``alpha``
-    column): a coarse cache cannot out-sample a narrow BSDF lobe.
+    families (DIFFUSE, ROUGH_DIFFUSE, DIFFTRANS, CLOTH) and materials at
+    least that rough (the raw ``alpha`` column): a coarse cache cannot
+    out-sample a narrow BSDF lobe.
 
     The callback and its ``pdf_at`` take an optional ``params``: the lane's
     material row from ``bsdf.gather_params``, gathered once per bounce by
-    the caller; without it they gather it themselves."""
+    the caller (with the texture and the cloth record applied); without
+    it they gather it themselves, the callback with its ``tex`` and
+    ``cloth_aux``."""
     bsdf_mod.check_types(mat_types)
     walk = MAX_REFINE_LEVELS if levels is None else levels
 
@@ -61,13 +64,14 @@ def make_guide_fn(alpha: float = 0.5, mat_types=bsdf_mod.PORTED_TYPES, product: 
         usable = params[-1] & ~_is_delta(mp.type)
         if min_rough > 0.0:
             diffuseish = ((mp.type == BSDFType.DIFFUSE) | (mp.type == BSDFType.ROUGH_DIFFUSE)
-                          | (mp.type == BSDFType.DIFFTRANS))
+                          | (mp.type == BSDFType.DIFFTRANS) | (mp.type == BSDFType.CLOTH))
             usable = usable & (diffuseish | (mats.alpha[mid.long()] >= min_rough))
         return params, torch.where(usable, alpha * a_scale, 0.0)
 
     def guide(grid: GuidingGrid, mats, mid, p, frame, wi_local, u3, u_sel,
               u_lobe, tex=None, cloth_aux=None, params=None):
-        mp = bsdf_mod.gather_params(mats, mid, tex, types=mat_types) if params is None else params
+        mp = (bsdf_mod.gather_params(mats, mid, tex, types=mat_types, cloth_aux=cloth_aux)
+              if params is None else params)
         gparams, a = _params_and_alpha(grid, mats, mid, p, frame, mp)
         bs = bsdf_mod.sample_p(mp, wi_local, u3, types=mat_types)
         d_guided = _mixture_sample(gparams, u_lobe, u3[..., 0:2])

@@ -19,8 +19,14 @@ state of the last real vertex while its distance accumulates.
 Explicit ``uniforms`` (9 * max_depth, N), dim-major, replace the
 counter-based draws bounce by bounce: the hook of the Sobol' bounce
 dimensions (``RenderConfig.qmc_bounces``) and of primary-sample-space
-mutations.  Not ported here (they raise): textures, bump maps and cloth
-(ROADMAP Queue 1 item 9).
+mutations.
+
+Textures (``textured``), bump and normal maps (``bumped``) and cloth
+(``clothed``) read the UV tiling, the texture ids and the wireframe's
+fields from the bounce's material-row gather, and with vertex colours
+gather the (T, 9) colour table too; the atlas itself is indexed per lane
+(``models/texture.py``).  ``cone_angle`` > 0 filters the reflectance
+texture trilinearly between mip levels by a ray-cone footprint.
 """
 from __future__ import annotations
 
@@ -47,6 +53,8 @@ from mitsuba_path_guiding_torch.core.rng import bounce_uniform
 from mitsuba_path_guiding_torch.core.spectrum import luminance
 from mitsuba_path_guiding_torch.models import bsdf as bsdf_mod
 from mitsuba_path_guiding_torch.models import emitter as em_mod
+from mitsuba_path_guiding_torch.models.cloth import decode_record
+from mitsuba_path_guiding_torch.models.texture import sample_atlas, sample_atlas_nearest
 from mitsuba_path_guiding_torch.ops.gather import gather_rows_t
 from mitsuba_path_guiding_torch.scene.types import BSDFType, SceneData
 
@@ -86,16 +94,70 @@ def _offset_ray(p, ng, d):
     return p + ng * s * 1e-4
 
 
-def _check_supported(scene, accel, textured, bumped, clothed, uniforms, max_depth, n, cone_angle):
+def _check_supported(scene, accel, uniforms, max_depth, n):
     if accel not in ("auto", "pallas", "brute", "bvh", "twolevel"):
         raise ValueError(f"unknown accel '{accel}'")
     if accel == "twolevel" and scene.blocks is None:
         raise ValueError("accel='twolevel' needs block tables (16384 triangles or more)")
-    if textured or bumped or clothed or cone_angle > 0.0:
-        raise NotImplementedError("textures, bump maps and cloth: ROADMAP Queue 1 item 9")
     if uniforms is not None and tuple(uniforms.shape) != (9 * max_depth, n):
         raise ValueError(f"uniforms must be (9 * max_depth, N) = {(9 * max_depth, n)}, "
                          f"got {tuple(uniforms.shape)}")
+
+
+def _surface_textures(scene, row, mrow, hit, prim, ns, ng, dist, prev_delta, textured, bumped,
+                      clothed, cone_angle):
+    """The texture lookups at a wave's hits: (shading normal, reflectance
+    override (rgb, mask) or None, cloth record or None).  ``row`` and
+    ``mrow`` are the hits' shading and material rows (32, N); the
+    material row gives the UV tiling (25:27), the texture ids (14; 19,
+    the bump slot) and the wireframe's colours and width (21:25)."""
+    b0 = 1.0 - hit.u - hit.v
+    uv = torch.stack([
+        (b0 * row[12] + hit.u * row[14] + hit.v * row[16]) * mrow[25],
+        (b0 * row[13] + hit.u * row[15] + hit.v * row[17]) * mrow[26],
+    ], dim=-1)
+    atlas, sizes = scene.textures, scene.texture_sizes
+    tex = cloth_aux = None
+    if textured:
+        tid = mrow[14].to(torch.int32)
+        lod = None
+        if cone_angle > 0.0:
+            # ray-cone footprint: distance x cone x (UV per world unit) x
+            # texels per UV; diffuse and glossy scatters widen the cone
+            cone_eff = torch.where(prev_delta, cone_angle, 0.15)
+            t_id = torch.clamp_min(tid, 0).long()
+            res = torch.maximum(sizes[t_id, 0], sizes[t_id, 1])
+            lod = torch.log2(torch.clamp_min(dist * cone_eff * row[26] * res, 1.0))
+        val = sample_atlas(atlas, sizes, tid, uv, lod=lod)
+        if scene.geo.vcol is not None:
+            # the interpolated vertex colours (curvature maps are baked to
+            # vertex colours at build time)
+            vrow = gather_rows_t(scene.geo.vcol, prim)  # (9, N)
+            vc = torch.stack([b0 * vrow[k] + hit.u * vrow[k + 3] + hit.v * vrow[k + 6]
+                              for k in range(3)], dim=-1)
+            val = torch.where((tid == -3)[..., None], vc, val)
+        # wireframe: a barycentric edge distance under the line width takes
+        # the edge colour
+        edge = torch.minimum(torch.minimum(b0, hit.u), hit.v) < mrow[24]
+        wire_val = torch.where(edge[..., None], mrow[21:24].T, mrow[1:4].T)
+        val = torch.where((tid == -4)[..., None], wire_val, val)
+        tex = (val, (tid >= 0) | (tid <= -3))
+    btid = mrow[19].to(torch.int32)
+    if clothed:
+        # a CLOTH row's bump slot holds its yarn-record map: one nearest
+        # fetch gives the lane's record for the band-gated integrand
+        cloth_aux = decode_record(sample_atlas_nearest(atlas, sizes, btid, uv))
+    if bumped:
+        # the normal map perturbs the shading frame (height maps became
+        # normal maps at build time); a CLOTH row's bump slot is data
+        n_t = sample_atlas(atlas, sizes, btid, uv) * 2.0 - 1.0
+        ns_b = normalize(Frame.from_normal(ns).to_world(normalize(n_t)))
+        ns_b = torch.where(dot(ns_b, ng)[..., None] < 0.0, -ns_b, ns_b)
+        apply_b = btid >= 0
+        if clothed:
+            apply_b = apply_b & (mrow[0] != float(int(BSDFType.CLOTH)))
+        ns = torch.where(apply_b[..., None], ns_b, ns)
+    return ns, tex, cloth_aux
 
 
 def route_queries(scene: SceneData, accel: str, use_bvh: bool = False):
@@ -175,9 +237,14 @@ def trace(
     - "pallas", or "auto" otherwise: the tiled intersector;
     - "brute": the dense oracle.
     Shadow rays through NULL and MASK surfaces march with the route's
-    closest-hit query."""
+    closest-hit query.
+
+    ``textured``, ``bumped`` and ``clothed`` (host reads of the scene:
+    ``integrators.render`` ``_textured``, ``_has_bump``, ``_has_cloth``)
+    turn on the reflectance override, the normal-map frame and the cloth's
+    yarn records; ``cone_angle`` > 0 the mip filtering."""
     n = ray_o.shape[0]
-    _check_supported(scene, accel, textured, bumped, clothed, uniforms, max_depth, n, cone_angle)
+    _check_supported(scene, accel, uniforms, max_depth, n)
     bsdf_mod.check_types(mat_types)
     dev = ray_o.device
     geo, mats, em = scene.geo, scene.mats, scene.emitters
@@ -248,7 +315,16 @@ def trace(
         ns = torch.where(dot(ns, ng)[..., None] < 0.0, -ns, ns)
         mid = row[18].to(torch.int32)
         is_emitter = row[19] >= 0.0
-        mp = bsdf_mod.gather_params(mats, mid, types=mat_types)
+        tex = cloth_aux = mrow = None
+        if textured or bumped or clothed:
+            # the material-row gather of gather_params, made here: it also
+            # serves the textures' fields
+            mrow = gather_rows_t(mats.packed, mid)  # (32, N)
+            ns, tex, cloth_aux = _surface_textures(
+                scene, row, mrow, hit, prim, ns, ng, t_hit + t_acc, prev_delta, textured, bumped,
+                clothed, cone_angle)
+        mp_raw = bsdf_mod.gather_params(mats, mid, types=mat_types, row=mrow)
+        mp = bsdf_mod.apply_texture(mp_raw, tex, cloth_aux)
 
         # emissive hit with MIS against NEE
         cos_l = dot(ng, -d)
@@ -272,7 +348,7 @@ def trace(
 
         first = act & (aux.depth_t == 0.0)
         aux = PathAux(
-            albedo=torch.where(first[..., None], bsdf_mod.albedo_p(mp), aux.albedo),
+            albedo=torch.where(first[..., None], bsdf_mod.albedo_p(mp_raw), aux.albedo),
             normal=torch.where(first[..., None], ns, aux.normal),
             depth_t=torch.where(first, hit.t, aux.depth_t),
             n_bounces=aux.n_bounces + act.to(torch.int32),
@@ -307,7 +383,7 @@ def trace(
         else:
             wo_world, next_pdf, next_weight, next_delta = guide(
                 guide_state, mats, mid, p, frame, wi_local, u[..., 3:6],
-                u[..., 6], u[..., 7], None, None, params=mp)
+                u[..., 6], u[..., 7], tex, cloth_aux, params=mp)
 
         T_new = T * next_weight
         cont = act & (torch.amax(torch.abs(T_new), dim=-1) > 0.0) & (next_pdf > 0.0)

@@ -32,7 +32,11 @@ from mitsuba_path_guiding_torch.guiding.fit import (
 from mitsuba_path_guiding_torch.guiding.grid import GuidingGrid, make_grid
 from mitsuba_path_guiding_torch.guiding.sampler import make_guide_fn
 from mitsuba_path_guiding_torch.integrators.path import trace
-from mitsuba_path_guiding_torch.integrators.render import RenderConfig, wave_keys_and_jitter
+from mitsuba_path_guiding_torch.integrators.render import (
+    RenderConfig,
+    texture_flags,
+    wave_keys_and_jitter,
+)
 from mitsuba_path_guiding_torch.integrators.volpath import trace_vol
 from mitsuba_path_guiding_torch.models.sensor import generate_rays
 from mitsuba_path_guiding_torch.scene.types import SceneData
@@ -81,18 +85,24 @@ class ProgressiveRenderer:
                 capacity=(cfg.capacity_factor if cfg.adaptive_refine else 1) * cfg.grid_res**3)
         self.em_kinds = kinds_present(scene.emitters)
         self.mat_types = types_present(scene.mats)
+        self.tex_flags = texture_flags(scene)
         self.guide_fn = (make_guide_fn(cfg.guide_alpha, mat_types=self.mat_types,
                                        parallax=cfg.parallax) if cfg.guiding else None)
         self.stats = StatsRegistry()
 
-    def _wave(self, pixel_id, sample_idx):
+    def _wave(self, pixel_id, sample_idx, train: bool = True):
+        """One wave: (film_xy, L, aux, records), the records (for the
+        grid's fit) only when ``train`` and guiding is on.  Textures,
+        bump maps and cloth are on as the scene needs them; no mip
+        filtering (no cone angle), as in the reference's progressive
+        renderer."""
         r = self.cfg.render
         _, rkeys, u_cam, u_pos = wave_keys_and_jitter(r, pixel_id, sample_idx)
         o, d, film_xy = generate_rays(self.scene.sensor, r.width, r.height, pixel_id, u_pos,
                                       u_cam[..., 2:4], kind=self.scene.sensor.kind)
         kw = dict(max_depth=r.max_depth, rr_depth=r.rr_depth, use_nee=r.use_nee, accel=r.accel,
                   guide=self.guide_fn, guide_state=self.grid,
-                  record_paths=self.grid is not None, em_kinds=self.em_kinds,
+                  record_paths=train and self.grid is not None, em_kinds=self.em_kinds,
                   mat_types=self.mat_types)
         if self.scene.medium.enabled:
             med = self.scene.medium
@@ -100,7 +110,7 @@ class ProgressiveRenderer:
                 self.scene, o, d, rkeys, hetero=med.heterogeneous, phase_kind=med.phase_kind,
                 guide_distance=self.cfg.guide_distance and self.guide_fn is not None, **kw)
         else:
-            L, aux, rec = trace(self.scene, o, d, rkeys, **kw)
+            L, aux, rec = trace(self.scene, o, d, rkeys, **kw, **self.tex_flags)
         if r.max_component_value > 0.0:
             L = torch.clamp_max(L, r.max_component_value)
         return film_xy, L, aux, rec

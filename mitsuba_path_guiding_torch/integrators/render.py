@@ -10,8 +10,13 @@ scene (diffuse materials, area lights, at most 2048 triangles) take the
 fused megakernel (``ops.fused_path.trace_fused``), as the reference does
 on the TPU; every other wave runs the wavefront ``integrators.path.trace``.
 ``max_component_value`` > 0 clamps every radiance component of a sample
-(the firefly clamp).  ``render`` reads the scene's emitter kinds and BSDF
-types and makes the unguided wave's trivial guide once, before its waves.
+(the firefly clamp).  A scene with textures, vertex colours, bump or
+normal maps or cloth (``texture_flags``) turns those on in ``trace``, and
+a perspective camera over a textured scene filters its textures through
+mip levels by the ray cone of a pixel (``cone_angle``); the volumetric
+tracer applies no textures, as in the reference.  ``render`` reads the
+scene's emitter kinds, BSDF types and texture flags and makes the
+unguided wave's trivial guide once, before its waves.
 ``render_scanned`` (the reference's one-dispatch ``lax.scan`` of the same
 waves in the same splat order) is ``render`` itself here.
 
@@ -33,7 +38,7 @@ from mitsuba_path_guiding_torch.film.film import Film, develop, new_film, splat
 from mitsuba_path_guiding_torch.integrators.path import trace
 from mitsuba_path_guiding_torch.integrators.volpath import trace_vol
 from mitsuba_path_guiding_torch.models.sensor import generate_rays
-from mitsuba_path_guiding_torch.scene.types import SceneData
+from mitsuba_path_guiding_torch.scene.types import BSDFType, SceneData
 
 # Most pixels in one wave; a larger image renders in several.
 PIXEL_BATCH = 1 << 17
@@ -56,6 +61,39 @@ def _fused_tables_for(scene):
         tables = build_fused_tables(scene) if fused_supported(scene) else None
         _FUSED_TABLE_CACHE[k] = (scene.geo.p0, tables)
     return _FUSED_TABLE_CACHE[k][1]
+
+
+def _textured(scene) -> bool:
+    """A reflectance override is present: a material with an atlas texture
+    or a geometry-driven one (-3 vertex colours or curvature, -4
+    wireframe), or vertex colours.  The reference tests the atlas's shape,
+    which its placeholder atlas (2 rows) passes too, so it runs the
+    override, to no effect, on every scene."""
+    return scene.geo.vcol is not None or bool((scene.mats.texture_id != -1).any())
+
+
+def _has_bump(scene) -> bool:
+    return bool((scene.mats.packed[:, 19] >= 0).any())
+
+
+def _has_cloth(scene) -> bool:
+    return bool((scene.mats.type == BSDFType.CLOTH).any())
+
+
+def _cone_angle(scene, cfg) -> float:
+    """The primary ray's footprint half-angle, about fov_x / width, for a
+    perspective camera over a textured scene (the reference's value); else
+    0 (no mip filtering)."""
+    if _textured(scene) and int(scene.sensor.kind) == 0:
+        return 2.0 * float(scene.sensor.tan_half_fov_x) / cfg.width
+    return 0.0
+
+
+def texture_flags(scene) -> dict:
+    """``trace``'s ``textured``, ``bumped`` and ``clothed`` of a scene (host
+    reads, made once a render)."""
+    return {"textured": _textured(scene), "bumped": _has_bump(scene),
+            "clothed": _has_cloth(scene)}
 
 
 class RenderConfig(NamedTuple):
@@ -140,10 +178,10 @@ def _unguided_wavefront(scene: SceneData, cfg: RenderConfig, guide, guide_state,
 
 
 def render_wave(scene: SceneData, cfg: RenderConfig, pixel_id, sample_idx,
-                guide=None, guide_state=None, em_kinds=None, mat_types=None):
+                guide=None, guide_state=None, em_kinds=None, mat_types=None, tex_flags=None):
     """Trace one (pixels x 1 sample) wave; returns (film_xy, L, aux).
-    ``em_kinds`` and ``mat_types`` (host reads of the scene) are computed
-    when not given."""
+    ``em_kinds``, ``mat_types`` and ``tex_flags`` (``texture_flags``; host
+    reads of the scene) are computed when not given."""
     from mitsuba_path_guiding_torch.models.bsdf import types_present
     from mitsuba_path_guiding_torch.models.emitter import kinds_present
 
@@ -151,6 +189,8 @@ def render_wave(scene: SceneData, cfg: RenderConfig, pixel_id, sample_idx,
         em_kinds = kinds_present(scene.emitters)
     if mat_types is None:
         mat_types = types_present(scene.mats)
+    if tex_flags is None:
+        tex_flags = texture_flags(scene)
     fused_tables = _fused_gate(scene, cfg, guide, pixel_id.device)
     guide, guide_state = _unguided_wavefront(scene, cfg, guide, guide_state, mat_types,
                                              pixel_id.device)
@@ -176,7 +216,9 @@ def render_wave(scene: SceneData, cfg: RenderConfig, pixel_id, sample_idx,
         L, aux, _ = trace(scene, o, d, rkeys, max_depth=cfg.max_depth, rr_depth=cfg.rr_depth,
                           use_nee=cfg.use_nee, guide=guide, guide_state=guide_state,
                           em_kinds=em_kinds, mat_types=mat_types, uniforms=uniforms,
-                          accel=cfg.accel)
+                          accel=cfg.accel,
+                          cone_angle=_cone_angle(scene, cfg) if tex_flags["textured"] else 0.0,
+                          **tex_flags)
     if cfg.max_component_value > 0.0:
         L = torch.clamp_max(L, cfg.max_component_value)
     return film_xy, L, aux
@@ -191,6 +233,7 @@ def render(scene: SceneData, cfg: RenderConfig, guide=None, guide_state=None):
     dev = scene.geo.p0.device
     em_kinds = kinds_present(scene.emitters)
     mat_types = types_present(scene.mats)
+    tex_flags = texture_flags(scene)
     guide, guide_state = _unguided_wavefront(scene, cfg, guide, guide_state, mat_types, dev)
     film = new_film(cfg.width, cfg.height, device=dev)
     rgbw = film.rgb_weight
@@ -201,7 +244,7 @@ def render(scene: SceneData, cfg: RenderConfig, guide=None, guide_state=None):
         for s in range(cfg.spp):
             sidx = torch.full_like(pix, s)
             film_xy, L, _ = render_wave(scene, cfg, pix, sidx, guide, guide_state, em_kinds,
-                                        mat_types)
+                                        mat_types, tex_flags)
             rgbw = splat(rgbw, film_xy, L, cfg.width, cfg.height, cfg.filter_name)
     img = develop(Film(rgb_weight=rgbw, width=cfg.width, height=cfg.height))
     if scene.sensor.meas_scale is not None:

@@ -22,7 +22,9 @@ shading row of every hit through ``ops.gather.gather_rows_t``.  Queries
 route as ``trace``'s do: "auto" takes the tiled intersector at 16384
 triangles or fewer and the BVH above, "bvh" the BVH and "brute" the dense
 oracle, for shadow rays too; NULL or MASK scenes march shadow rays with
-the wave's closest-hit query.
+the wave's closest-hit query.  Textures and bump maps are not applied
+and CLOTH rows shade with their uv-averaged Ward fit, as in the
+reference, whose ``trace_vol`` fetches no texture either.
 """
 from __future__ import annotations
 

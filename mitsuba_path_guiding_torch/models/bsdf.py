@@ -15,10 +15,17 @@ families present.
 Ported families: DIFFUSE, ROUGH_DIFFUSE (Oren-Nayar), CONDUCTOR,
 ROUGH_CONDUCTOR (GGX, visible normals), DIELECTRIC, ROUGH_DIELECTRIC,
 THINDIELECTRIC, PLASTIC, ROUGH_PLASTIC, PHONG, WARD, DIFFTRANS, NULL, HK
-(the Hanrahan-Krueger slab), and the one-level wrappers BLEND
+(the Hanrahan-Krueger slab), CLOTH (the Irawan-Marschner woven cloth:
+the band-gated filament/staple specular integrand at the lane's yarn
+record, ``cloth_aux``, or without one the uv-averaged Ward fit; sampled
+from the cosine hemisphere), and the one-level wrappers BLEND
 (``blendbsdf`` / ``mixturebsdf``), MASK and COATING (a dielectric layer
 over its nested row; ``roughcoating`` is a COATING row with alpha > 0).
-CLOTH raises (ROADMAP Queue 1 item 9).
+
+A texture overrides the reflectance (``apply_texture``): ``tex`` = (rgb
+(N, 3), mask (N,)) replaces ``refl`` where the mask is set, in the lane's
+own row and in its nested rows, as the reference does; the albedo AOV is
+read from the untextured row, as in the reference.
 
 Every entry point takes either ``(mats, mid)`` or, through the ``*_p``
 variants, the lane's material row already gathered by ``gather_params``:
@@ -69,7 +76,7 @@ from mitsuba_path_guiding_torch.scene.types import BSDFType, Materials
 T = BSDFType
 PORTED_TYPES = (T.DIFFUSE, T.CONDUCTOR, T.DIELECTRIC, T.ROUGH_CONDUCTOR, T.PLASTIC,
                 T.ROUGH_DIELECTRIC, T.NULL, T.ROUGH_PLASTIC, T.ROUGH_DIFFUSE, T.PHONG, T.MASK,
-                T.WARD, T.DIFFTRANS, T.BLEND, T.COATING, T.HK, T.THINDIELECTRIC)
+                T.WARD, T.DIFFTRANS, T.BLEND, T.COATING, T.HK, T.THINDIELECTRIC, T.CLOTH)
 NESTED_TYPES = (T.BLEND, T.MASK, T.COATING)
 
 
@@ -93,17 +100,19 @@ class _P(NamedTuple):
     sub_a: torch.Tensor    # int32 nested material row (-1 none)
     sub_b: torch.Tensor
     weight: torch.Tensor   # blend factor / mask opacity / coat or slab thickness
+    extra: torch.Tensor    # (N, 5) packed columns 27:32 (the cloth's geometry)
     tcoat: Optional[torch.Tensor] = None  # (16, N) coat transmittance row, see gather_params
     nested: Optional[tuple] = None  # (_P of sub_a, _P of sub_b), see gather_params
+    cloth_aux: Optional[tuple] = None  # the lane's yarn record (weft, u, v, ks scale)
 
-    N_OWN = 10  # the per-lane fields of the row itself, before tcoat and nested
+    N_OWN = 11  # the per-lane fields of the row itself, before tcoat and nested
 
 
 def check_types(types) -> None:
     missing = sorted(set(types) - set(PORTED_TYPES))
     if missing:
         raise NotImplementedError(
-            f"BSDF families {missing} are not ported yet: ROADMAP Queue 1 item 9 (CLOTH)")
+            f"BSDF families {missing} are not ported")
 
 
 def types_present(mats: Materials):
@@ -126,18 +135,36 @@ def _row_params(row) -> _P:
     return _P(type=row[0].to(torch.int32), refl=v3(1), spec=v3(4), eta=v3(7), k=v3(10),
               alpha=torch.clamp_min(row[13], ALPHA_MIN),
               alpha_v=torch.clamp_min(row[15], ALPHA_MIN),
-              sub_a=row[16].to(torch.int32), sub_b=row[17].to(torch.int32), weight=row[18])
+              sub_a=row[16].to(torch.int32), sub_b=row[17].to(torch.int32), weight=row[18],
+              extra=row[27:32].T)
 
 
-def gather_params(mats: Materials, mid: torch.Tensor, tex=None, *, types) -> _P:
-    """One packed material-row gather per lane (``Materials.packed``);
-    when BLEND, MASK or COATING is among ``types``, one more for both
-    nested rows of every lane (sub_a and sub_b, clamped to row 0 where
-    absent); and with COATING, the lane's coat transmittance row (a table
-    of 16 columns) where the table exists."""
+def apply_texture(p: _P, tex=None, cloth_aux=None) -> _P:
+    """``p`` with the texture's reflectance override (tex = (rgb (N, 3),
+    mask (N,)), in the lane's row and its nested rows) and the lane's
+    cloth yarn record."""
     if tex is not None:
-        raise NotImplementedError("textured reflectance: ROADMAP Queue 1 item 9")
-    p = _row_params(gather_rows_t(mats.packed, mid))  # (32, N)
+        t_rgb, t_mask = tex
+
+        def over(q):
+            return q._replace(refl=torch.where(t_mask[..., None], t_rgb, q.refl))
+
+        p = over(p)
+        if p.nested is not None:
+            p = p._replace(nested=tuple(over(q) for q in p.nested))
+    return p._replace(cloth_aux=cloth_aux) if cloth_aux is not None else p
+
+
+def gather_params(mats: Materials, mid: torch.Tensor, tex=None, *, types, cloth_aux=None,
+                  row=None) -> _P:
+    """One packed material-row gather per lane (``Materials.packed``; or
+    ``row``, that gather's (32, N) result when the caller made it); when
+    BLEND, MASK or COATING is among ``types``, one more for both nested
+    rows of every lane (sub_a and sub_b, clamped to row 0 where absent);
+    and with COATING, the lane's coat transmittance row (a table of 16
+    columns) where the table exists.  ``tex`` and ``cloth_aux`` go through
+    ``apply_texture``."""
+    p = _row_params(gather_rows_t(mats.packed, mid) if row is None else row)  # (32, N)
     if _has_nested(types):
         n = mid.shape[0]
         sub = torch.cat([torch.clamp_min(p.sub_a, 0), torch.clamp_min(p.sub_b, 0)])
@@ -145,7 +172,7 @@ def gather_params(mats: Materials, mid: torch.Tensor, tex=None, *, types) -> _P:
         p = p._replace(nested=(_row_params(rows[:, :n]), _row_params(rows[:, n:])))
     if T.COATING in types and mats.coat_trans is not None:
         p = p._replace(tcoat=gather_rows_t(mats.coat_trans, mid))  # (16, N)
-    return p
+    return apply_texture(p, tex, cloth_aux)
 
 
 def _nested(p: _P):
@@ -406,6 +433,233 @@ def _hk_eval_pdf(p: _P, wi, wo):
     return torch.clamp_min(f, 0.0), torch.clamp_min(pdf, 0.0)
 
 
+# ---------------------------------------------------------------------------
+# woven cloth (Irawan-Marschner).  The weave geometry is baked at build
+# time (models/cloth.py: a kd texture and a yarn-record texture, fetched
+# nearest); the specular integrand below is written once over an ``xp``
+# namespace, so that the build-time Monte Carlo normalization (numpy, in
+# float64) runs the same math as the per-lane eval (torch, ``_TorchXP``).
+# Sampling is the cosine hemisphere.  The validity guards (ss in [0, 1),
+# w sin(umax) < l, kappa >= -1) are enforced at build time.
+# ---------------------------------------------------------------------------
+
+class _TorchXP:
+    """The numpy names the cloth integrand uses, on torch tensors; the
+    first argument of ``maximum``, ``minimum`` and ``clip`` is a tensor,
+    the bounds tensors or Python numbers."""
+
+    sqrt, exp, abs, sin, cos, tan = torch.sqrt, torch.exp, torch.abs, torch.sin, torch.cos, \
+        torch.tan
+    sinh, cosh, zeros_like = torch.sinh, torch.cosh, torch.zeros_like
+    arctan, arctan2, arctanh, arccos = torch.atan, torch.atan2, torch.atanh, torch.acos
+    maximum, minimum = torch.clamp_min, torch.clamp_max
+
+    @staticmethod
+    def clip(x, lo, hi):
+        return torch.clamp_max(torch.clamp_min(x, lo), hi)
+
+    @staticmethod
+    def where(c, a, b):
+        return torch.where(c, a, b)
+
+    @staticmethod
+    def sum(x, axis):
+        return torch.sum(x, dim=axis)
+
+    @staticmethod
+    def stack(xs, axis):
+        return torch.stack(xs, dim=axis)
+
+
+def _cloth_smoothstep(x, xp):
+    x = xp.clip(x, 0.0, 1.0)
+    return x * x * (3.0 - 2.0 * x)
+
+
+def _cloth_von_mises(cos_x, b, xp):
+    """exp(b cos x) / (2 pi I0(b)), Abramowitz-Stegun polynomial I0."""
+    ab = xp.abs(b)
+    t_s = (ab / 3.75) ** 2
+    i0_s = 1.0 + t_s * (3.5156229 + t_s * (3.0899424 + t_s * (1.2067492
+           + t_s * (0.2659732 + t_s * (0.0360768 + t_s * 0.0045813)))))
+    t_l = 3.75 / xp.maximum(ab, 1e-9)
+    i0_l = xp.exp(ab) / xp.sqrt(xp.maximum(ab, 1e-9)) * (
+        0.39894228 + t_l * (0.01328592 + t_l * (0.00225319 + t_l * (
+            -0.00157565 + t_l * (0.00916281 + t_l * (-0.02057706 + t_l * (
+                0.02635537 + t_l * (-0.01647633 + t_l * 0.00392377)))))))
+    )
+    i0 = xp.where(ab <= 3.75, i0_s, i0_l)
+    return xp.exp(b * cos_x) / (2.0 * math.pi * i0)
+
+
+def _cloth_seeliger(c1, c2, xp):
+    c1 = xp.maximum(c1, 0.0)
+    c2 = xp.maximum(c2, 0.0)
+    return xp.where(
+        (c1 > 0) & (c2 > 0),
+        c1 * c2 / (4.0 * math.pi * xp.maximum(c1 + c2, 1e-12)),
+        xp.zeros_like(c1),
+    )
+
+
+def _cloth_radius(u, umax, kappa, w, l, xp):
+    """The yarn spine's radius of curvature: ellipse, hyperbola, parabola
+    or cylinder by the sign of rhat.  Every branch is computed on clamped
+    inputs, so the branches not taken stay finite."""
+    a = 0.5 * w
+    tan_umax = xp.tan(umax)
+    rhat = 1.0 + kappa * (1.0 + 1.0 / xp.maximum(tan_umax, 1e-9))
+    rim = 0.5 * l - a * xp.sin(umax)  # > 0 by the build-time validity check
+    # elliptic (rhat > 0)
+    rh_e = xp.maximum(rhat, 1e-6)
+    tmax_e = xp.arctan(rh_e * tan_umax)
+    bhat_e = rim / xp.maximum(xp.sin(tmax_e), 1e-9)
+    ahat_e = bhat_e / rh_e
+    t_e = xp.arctan(rh_e * xp.tan(u))
+    R_e = (bhat_e ** 2 * xp.cos(t_e) ** 2
+           + ahat_e ** 2 * xp.sin(t_e) ** 2) ** 1.5 / xp.maximum(
+        ahat_e * bhat_e, 1e-12)
+    # hyperbolic (rhat < 0)
+    rh_h = xp.minimum(rhat, -1e-6)
+    tmax_h = -xp.arctanh(xp.clip(rh_h * tan_umax, -0.999999, 0.999999))
+    sh = xp.sinh(tmax_h)
+    bhat_h = rim / xp.where(xp.abs(sh) < 1e-9, 1e-9, sh)
+    ahat_h = bhat_h / rh_h
+    t_h = -xp.arctanh(xp.clip(rh_h * xp.tan(u), -0.999999, 0.999999))
+    den_h = ahat_h * bhat_h
+    R_h = -(bhat_h ** 2 * xp.cosh(t_h) ** 2
+            + ahat_h ** 2 * xp.sinh(t_h) ** 2) ** 1.5 / xp.where(
+        xp.abs(den_h) < 1e-12, -1e-12, den_h)
+    # parabolic (rhat == 0)
+    ahat_p = rim / xp.maximum(2.0 * tan_umax, 1e-9)
+    R_p = 2.0 * ahat_p * (1.0 + xp.tan(u) ** 2) ** 1.5
+    # straight spine (rhat == 1): constant R
+    R_c = rim / xp.maximum(xp.sin(umax), 1e-9) + xp.zeros_like(u)
+    return xp.where(
+        xp.abs(rhat - 1.0) < 1e-9, R_c,
+        xp.where(rhat > 0.0, R_e, xp.where(rhat < 0.0, R_h, R_p)),
+    )
+
+
+def _cloth_filament(u, v, oi, orr, alpha, beta, ss, umax, kappa, w, l, h_width, xp):
+    """The filament-yarn (psi = 0) specular integrand, gated to the
+    highlight band |y(u(v)) - y(u)| < delta_y / 2."""
+    hs = oi + orr
+    sum_len = xp.sqrt(xp.maximum(xp.sum(hs * hs, axis=-1), 1e-18))
+    h = hs / sum_len[..., None]
+    u_of_v = xp.arctan2(h[..., 1], xp.maximum(h[..., 2], 1e-12))
+    in_range = xp.abs(u_of_v) < umax
+    # the normal at the reflection locus (u_of_v, v)
+    nx = xp.sin(v)
+    ny = xp.sin(u_of_v) * xp.cos(v)
+    nz = xp.cos(u_of_v) * xp.cos(v)
+    nl = xp.sqrt(xp.maximum(nx * nx + ny * ny + nz * nz, 1e-18))
+    n_i = (nx * oi[..., 0] + ny * oi[..., 1] + nz * oi[..., 2]) / nl
+    n_r = (nx * orr[..., 0] + ny * orr[..., 1] + nz * orr[..., 2]) / nl
+    a = 0.5 * w
+    R = _cloth_radius(
+        xp.minimum(xp.abs(u_of_v), (1.0 - ss) * umax),
+        (1.0 - ss) * umax, kappa, w, l, xp)
+    # t = (0, cos u_of_v, -sin u_of_v); (t x h)_x = cos(u) h_z + sin(u) h_y
+    tchx = xp.cos(u_of_v) * h[..., 2] + xp.sin(u_of_v) * h[..., 1]
+    Gu = a * (R + a * xp.cos(v)) / xp.maximum(sum_len * xp.abs(tchx), 1e-12)
+    fc = alpha + _cloth_von_mises(-xp.sum(oi * orr, axis=-1), beta, xp)
+    A = _cloth_seeliger(n_i, n_r, xp)
+    ss_fac = 1.0 - _cloth_smoothstep(
+        (xp.abs(u_of_v) - (1.0 - ss) * umax) / xp.maximum(ss * umax, 1e-9), xp)
+    A = xp.where(ss > 0.0, A * ss_fac, A)
+    fs = Gu * fc * A * math.pi * l
+    delta_y = l * h_width
+    y_scale = 0.5 * l / xp.maximum(umax, 1e-6)
+    y_of_v = xp.clip(u_of_v * y_scale, 0.5 * (delta_y - l), 0.5 * (l - delta_y))
+    on_band = xp.abs(y_of_v - u * y_scale) < 0.5 * delta_y
+    return xp.where(in_range & on_band, fs / delta_y, xp.zeros_like(fs))
+
+
+def _cloth_staple(u, v, oi, orr, alpha, beta, psi, umax, kappa, w, l, h_width, xp):
+    """The staple-yarn (psi != 0) integrand: the reflection locus is v(u)."""
+    hs = oi + orr
+    sum_len = xp.sqrt(xp.maximum(xp.sum(hs * hs, axis=-1), 1e-18))
+    h = hs / sum_len[..., None]
+    hx, hy, hz = h[..., 0], h[..., 1], h[..., 2]
+    D = (hy * xp.cos(u) - hz * xp.sin(u)) / (
+        xp.sqrt(xp.maximum(hx ** 2 + (hy * xp.sin(u) + hz * xp.cos(u)) ** 2, 1e-18))
+        * xp.where(xp.abs(xp.tan(psi)) < 1e-6, 1e-6, xp.tan(psi)))
+    v_of_u = xp.arctan2(-hy * xp.sin(u) - hz * xp.cos(u), hx) + xp.arccos(xp.clip(D, -1.0, 1.0))
+    in_range = (xp.abs(D) < 1.0) & (xp.abs(v_of_u) < math.pi / 2.0)
+    nx = xp.sin(v_of_u)
+    ny = xp.sin(u) * xp.cos(v_of_u)
+    nz = xp.cos(u) * xp.cos(v_of_u)
+    nl = xp.sqrt(xp.maximum(nx * nx + ny * ny + nz * nz, 1e-18))
+    n_i = (nx * oi[..., 0] + ny * oi[..., 1] + nz * oi[..., 2]) / nl
+    n_r = (nx * orr[..., 0] + ny * orr[..., 1] + nz * orr[..., 2]) / nl
+    n_h = (nx * hx + ny * hy + nz * hz) / nl
+    a = 0.5 * w
+    R = _cloth_radius(xp.abs(u), umax, kappa, w, l, xp)
+    Gv = a * (R + a * xp.cos(v_of_u)) / xp.maximum(
+        sum_len * xp.maximum(n_h, 1e-9) * xp.abs(xp.sin(psi)), 1e-12)
+    fc = alpha + _cloth_von_mises(-xp.sum(oi * orr, axis=-1), beta, xp)
+    A = _cloth_seeliger(n_i, n_r, xp)
+    fs = Gv * fc * A * 2.0 * w * umax
+    delta_x = w * h_width
+    x_of_u = xp.clip(v_of_u * w / math.pi, 0.5 * (delta_x - w), 0.5 * (w - delta_x))
+    on_band = xp.abs(x_of_u - v * w / math.pi) < 0.5 * delta_x
+    return xp.where(in_range & on_band, fs / delta_x, xp.zeros_like(fs))
+
+
+def cloth_spec_raw(wi, wo, weft, u, v, alpha, beta, ss, psi, umax, kappa,
+                   w, l, h_width, area_warp, area_weft, xp=_TorchXP):
+    """The unnormalized Irawan specular (the area-weighted integrand) at a
+    yarn record (weft, u, v) for local directions wi, wo (+z the base
+    shading normal); weft lanes turn a quarter about z into the yarn's
+    frame.  ``xp`` is numpy for the build-time normalization, else torch."""
+    wfm = weft[..., None]
+    oi = xp.where(wfm, xp.stack([-wi[..., 1], wi[..., 0], wi[..., 2]], axis=-1), wi)
+    orr = xp.where(wfm, xp.stack([-wo[..., 1], wo[..., 0], wo[..., 2]], axis=-1), wo)
+    fil = _cloth_filament(u, v, oi, orr, alpha, beta, ss, umax, kappa, w, l, h_width, xp)
+    stp = _cloth_staple(u, v, oi, orr, alpha, beta, psi, umax, kappa, w, l, h_width, xp)
+    integ = xp.where(xp.abs(psi) > 1e-7, stp, fil)
+    return integ * xp.where(weft, area_weft, area_warp)
+
+
+def _cloth_scalars(p: _P):
+    """The repurposed CLOTH columns (scene/types.py)."""
+    return dict(
+        vm_alpha=p.eta[..., 0], beta=p.eta[..., 1], ss=p.eta[..., 2],
+        psi=p.k[..., 0], umax=p.k[..., 1], kappa=p.k[..., 2],
+        h_width=p.weight, a_fb=p.alpha, norm=p.alpha_v,
+        w=p.extra[..., 0], l=p.extra[..., 1],
+        area_warp=p.extra[..., 2], area_weft=p.extra[..., 3], fb_scale=p.extra[..., 4],
+    )
+
+
+def _cloth_eval_pdf(p: _P, wi, wo, aux=None):
+    """f*cos and pdf of CLOTH lanes.  With the lane's yarn record ``aux``
+    = (weft, u, v, ks scale) the band-gated integrand runs; without it,
+    the build-time uv-averaged isotropic Ward fit (energy-matched by
+    fb_scale).  The pdf is the cosine hemisphere's either way."""
+    c = _cloth_scalars(p)
+    ci, co = cos_theta(wi), cos_theta(wo)
+    up = (ci > 1e-6) & (co > 1e-6)
+    if aux is not None:
+        weft, u_p, v_p, ks_s = aux
+        raw = cloth_spec_raw(wi, wo, weft, u_p, v_p, c["vm_alpha"], c["beta"], c["ss"],
+                             c["psi"], c["umax"], c["kappa"], c["w"], c["l"], c["h_width"],
+                             c["area_warp"], c["area_weft"])
+        spec_s = raw * c["norm"] * ks_s
+    else:
+        m = normalize(wi + wo)
+        a2 = torch.clamp_min(c["a_fb"] * c["a_fb"], 1e-6)
+        ct2 = torch.clamp_min(m[..., 2] * m[..., 2], 1e-8)
+        tan2 = (m[..., 0] ** 2 + m[..., 1] ** 2) / ct2
+        ward = torch.exp(-tan2 / a2) / (
+            4.0 * math.pi * a2 * torch.sqrt(torch.clamp_min(ci * co, 1e-8)))
+        spec_s = ward * c["fb_scale"]
+    f = (p.refl * INV_PI + p.spec * spec_s[..., None]) * torch.clamp_min(co, 0.0)[..., None]
+    pdf = square_to_cosine_hemisphere_pdf(wo)
+    return torch.where(up[..., None], f, 0.0), torch.where(up, pdf, 0.0)
+
+
 _SMOOTH_EVALS = {
     T.HK: _hk_eval_pdf,
     T.DIFFUSE: _diffuse_eval_pdf,
@@ -511,11 +765,18 @@ def eval_pdf_p(p: _P, wi, wo, types=PORTED_TYPES):
     parameters; 0 for delta lobes.  BLEND lanes mix their nested lobes by
     weight; MASK lanes scale the nested lobe by the opacity (the
     pass-through is a delta lobe); COATING lanes take the coat over their
-    nested lobe (``_coating_f_pdf``)."""
+    nested lobe (``_coating_f_pdf``); CLOTH lanes their integrand at
+    ``p.cloth_aux``.  Nested rows evaluate the smooth families without
+    CLOTH, as in the reference."""
     check_types(types)
     wi2, s = _flip_two_sided(p, wi)
     wo2 = _flip_z(wo, s)
     f, pdf = _eval_smooth(p, wi2, wo2, types)
+    if T.CLOTH in types:
+        f_cl, pdf_cl = _cloth_eval_pdf(p, wi2, wo2, p.cloth_aux)
+        is_cl = p.type == T.CLOTH
+        f = torch.where(is_cl[..., None], f_cl, f)
+        pdf = torch.where(is_cl, pdf_cl, pdf)
     if _has_blend_mask(types):
         pa, pb = _nested(p)
         fa, pdfa = _eval_smooth(pa, wi2, wo2, types)
@@ -560,8 +821,9 @@ def albedo_p(p: _P) -> torch.Tensor:
     return a
 
 
-def _sample_families(p: _P, wi, u2, ul, types) -> BSDFSample:
-    """Sample the plain families on the wavefront, select by type."""
+def _sample_families(p: _P, wi, u2, ul, types, cloth_aux=None) -> BSDFSample:
+    """Sample the plain families on the wavefront, select by type; CLOTH
+    lanes weigh their cosine sample with the integrand at ``cloth_aux``."""
     def has(*ts):
         return any(t in types for t in ts)
 
@@ -581,7 +843,8 @@ def _sample_families(p: _P, wi, u2, ul, types) -> BSDFSample:
         is_delta = torch.where(sel, delta_c, is_delta)
 
     eta_s = p.eta[..., 0]
-    if has(T.DIFFUSE, T.ROUGH_DIFFUSE, T.PLASTIC, T.ROUGH_PLASTIC, T.PHONG, T.WARD, T.DIFFTRANS):
+    if has(T.DIFFUSE, T.ROUGH_DIFFUSE, T.PLASTIC, T.ROUGH_PLASTIC, T.PHONG, T.WARD, T.DIFFTRANS,
+           T.CLOTH):
         wo_cos = square_to_cosine_hemisphere(u2)
         pdf_cos = square_to_cosine_hemisphere_pdf(wo_cos)
     if has(T.CONDUCTOR, T.PLASTIC):
@@ -589,6 +852,11 @@ def _sample_families(p: _P, wi, u2, ul, types) -> BSDFSample:
 
     if has(T.DIFFUSE):
         put(p.type == T.DIFFUSE, wo_cos, p.refl, pdf_cos, no)
+
+    if has(T.CLOTH):
+        f_cl, _ = _cloth_eval_pdf(p, wi2, wo_cos, cloth_aux)
+        w_cl = f_cl / torch.clamp_min(pdf_cos, 1e-9)[..., None]
+        put(p.type == T.CLOTH, wo_cos, w_cl, pdf_cos, no)
 
     if has(T.ROUGH_DIFFUSE):
         f_on, _ = _orennayar_eval_pdf(p, wi2, wo_cos)
@@ -829,7 +1097,7 @@ def sample_p(p: _P, wi, u, types=PORTED_TYPES) -> BSDFSample:
     u2 = u[..., 0:2]
     ul = u[..., 2]
     if not _has_blend_mask(types):
-        res = _sample_families(p, wi, u2, ul, types)
+        res = _sample_families(p, wi, u2, ul, types, p.cloth_aux)
         return _coat_sample(p, wi, u2, ul, types, res) if T.COATING in types else res
 
     pa, pb = _nested(p)
@@ -848,7 +1116,7 @@ def sample_p(p: _P, wi, u, types=PORTED_TYPES) -> BSDFSample:
         torch.clamp(torch.where(pick_b, ul / denom_b, (ul - w_sel) / denom_b), 0.0, 1.0 - 1e-7),
         torch.where(is_mask, torch.clamp(ul / torch.clamp_min(w_sel, 1e-9), 0.0, 1.0 - 1e-7),
                     ul))
-    res = _sample_families(p_eff, wi, u2, ul_eff, types)
+    res = _sample_families(p_eff, wi, u2, ul_eff, types, p.cloth_aux)
 
     wo = torch.where(mask_pass[..., None], -wi, res.wo)
     weight = torch.where(mask_pass[..., None], 1.0, res.weight)
@@ -872,11 +1140,12 @@ def sample_p(p: _P, wi, u, types=PORTED_TYPES) -> BSDFSample:
 
 
 def eval_pdf(mats: Materials, mid, wi, wo, types=PORTED_TYPES, tex=None, cloth_aux=None):
-    return eval_pdf_p(gather_params(mats, mid, tex, types=types), wi, wo, types)
+    return eval_pdf_p(gather_params(mats, mid, tex, types=types, cloth_aux=cloth_aux), wi, wo,
+                      types)
 
 
 def sample(mats: Materials, mid, wi, u, types=PORTED_TYPES, tex=None, cloth_aux=None) -> BSDFSample:
-    return sample_p(gather_params(mats, mid, tex, types=types), wi, u, types)
+    return sample_p(gather_params(mats, mid, tex, types=types, cloth_aux=cloth_aux), wi, u, types)
 
 
 def albedo(mats: Materials, mid, types=PORTED_TYPES):

@@ -89,11 +89,18 @@ def _pack_shade_rows(scene: SceneData, t_pad):
 
 
 def fused_supported(scene: SceneData) -> bool:
-    """Host-side gate: diffuse materials, area emitters, no medium, at most
-    2048 triangles and 32 emitters."""
+    """Host-side gate: diffuse materials without a texture, a bump map or
+    vertex colours, area emitters, no medium, at most 2048 triangles and
+    32 emitters.  The kernel shades with the material row's reflectance
+    alone, so a textured scene takes the wavefront (the reference's gate
+    checks the material types only: on a TPU it would drop the texture)."""
     if scene.medium is not None and bool(scene.medium.enabled):
         return False
     if set(scene.mats.type.cpu().tolist()) - {int(BSDFType.DIFFUSE)}:
+        return False
+    if scene.geo.vcol is not None or bool((scene.mats.texture_id != -1).any()):
+        return False
+    if bool((scene.mats.packed[:, 19] >= 0).any()):
         return False
     if set(scene.emitters.kind.cpu().tolist()) - {int(EmitterKind.AREA)}:
         return False

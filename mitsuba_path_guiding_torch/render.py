@@ -7,6 +7,7 @@ rendered by the volumetric tracer with guided distance sampling).
   python -m mitsuba_path_guiding_torch.render cornell -o out.exr
   python -m mitsuba_path_guiding_torch.render veach -o out.npy -s 64 -G --device cpu
   python -m mitsuba_path_guiding_torch.render volbox -o vol.npy -r 32x32 -s 4 --device cpu
+  python -m mitsuba_path_guiding_torch.render cornell -o c.exr -s 16 --denoise --aovs
 
   -o FILE      output (exr/pfm/png/npy; default <scene>.exr)
   -s N         samples per pixel (default 16)
@@ -16,6 +17,9 @@ rendered by the volumetric tracer with guided distance sampling).
   -p N         samples per progression (default 4)
   -t SEC       time budget
   --seed N     random seed
+  --denoise    denoise the image (the neural denoiser over 4 spp of
+               albedo, normal and depth feature buffers)
+  --aovs       also write the feature buffers, <output>_{albedo,normal,depth}.npy
   --device D   cuda (default) or cpu
 
 The default is the guided progressive render on the card; without a card
@@ -41,6 +45,8 @@ def main(argv=None):
     ap.add_argument("-p", "--pass-size", type=int, default=4)
     ap.add_argument("-t", "--time-budget", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--denoise", action="store_true")
+    ap.add_argument("--aovs", action="store_true", help="also write albedo/normal/depth AOVs")
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
 
@@ -76,8 +82,23 @@ def main(argv=None):
     img = renderer.render().cpu().numpy()
     log(f"render time: {time.time() - t0:.1f}s")
     log(renderer.stats.report())
+    if args.denoise:
+        from mitsuba_path_guiding_torch.film.denoise import denoise_with_aux
+
+        img, _ = denoise_with_aux(renderer, img)
+        log("denoised")
     write_image(out, img)
     log(f"wrote {out}  (mean {img.mean():.4f})")
+    if args.aovs:
+        import os
+
+        from mitsuba_path_guiding_torch.film.denoise import render_aovs
+
+        aovs = render_aovs(renderer)
+        stem = os.path.splitext(out)[0]
+        for name, buf in aovs.items():
+            write_image(f"{stem}_{name}.npy", buf)
+        log(f"wrote AOVs: {', '.join(aovs)}")
     return 0
 
 

@@ -1,24 +1,30 @@
 """Scene compiler: dict scene description -> flat SceneData tensors.
 
-Port of the reference's scene/builder.py ``build_scene`` for the port's
-subset: triangle shapes (with shape groups and instances flattened), the
-analytic BSDF families (``blendbsdf``, ``mixturebsdf``, ``mask``,
-``coating`` and ``roughcoating`` with one level of nested rows, interned
-before their parent as the reference does, and ``hk``), the coat
-transmittance tables, ``area`` emitters on shapes, the ``constant``,
-``envmap`` (inline ``image``), ``point``, ``directional``, ``spot``,
-``collimated``, ``sky``, ``sun`` and ``sunsky`` emitters, and every
-sensor kind of the reference (perspective, thin lens and radially
-distorted perspective, orthographic, spherical, telecentric and the
-three measurement probes), and participating media (homogeneous or
-grid, every phase family of ``models/phase.py``).  Every scene carries its
-BVH (built by the native builder, so a compile needs g++; its depth is
-checked against the traversal stack); from 16384 triangles on it also
-carries the blocklist and pair tables of the big-scene intersectors.  The
-arrays are computed host-side in numpy with the reference's exact
-arithmetic, so a compiled scene is equal to the JAX build array for
-array.  Anything else raises ``NotImplementedError`` naming the ROADMAP
-item that brings it.
+Port of the reference's scene/builder.py ``build_scene``: triangle shapes
+(with shape groups and instances flattened), the analytic BSDF families
+(``blendbsdf``, ``mixturebsdf``, ``mask``, ``coating`` and
+``roughcoating`` with one level of nested rows, interned before their
+parent as the reference does, and ``hk``), ``irawan`` woven cloth (its
+weave tile baked into a kd texture and a yarn-record texture,
+``models/cloth.py``), the ``bumpmap`` and ``normalmap`` wrappers (a
+height map becomes a normal map on the host), reflectance textures
+(``bitmap`` from an inline ``image`` or a ``filename``, ``scale``,
+``checkerboard``, ``gridtexture``, ``vertexcolors``, ``curvature`` and
+``wireframe``) in one atlas with mip levels (``models/texture.py``), the
+coat transmittance tables, ``area`` emitters on shapes, the
+``constant``, ``envmap`` (an inline ``image`` or a ``filename``),
+``point``, ``directional``, ``spot``, ``collimated``, ``sky``, ``sun``
+and ``sunsky`` emitters, and every sensor kind of the reference
+(perspective, thin lens and radially distorted perspective,
+orthographic, spherical, telecentric and the three measurement probes),
+and participating media (homogeneous or grid, every phase family of
+``models/phase.py``).  Every scene carries its BVH (built by the native
+builder, so a compile needs g++; its depth is checked against the
+traversal stack); from 16384 triangles on it also carries the blocklist
+and pair tables of the big-scene intersectors.  The arrays are computed
+host-side in numpy with the reference's exact arithmetic, so a compiled
+scene is equal to the JAX build array for array.  Subsurface scattering
+raises ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from mitsuba_path_guiding_torch.accel.bvh import build_bvh, pack_bvh, to_device
 from mitsuba_path_guiding_torch.accel.pairs import build_pair_table
 from mitsuba_path_guiding_torch.core.device import resolve_device
 from mitsuba_path_guiding_torch.core.spectrum import LUM_WEIGHTS_NP
+from mitsuba_path_guiding_torch.models.cloth import PLAIN_WEAVE, compile_cloth, parse_weave
 from mitsuba_path_guiding_torch.models.envmap import build_env_tables, constant_env_tables
 from mitsuba_path_guiding_torch.models.microfacet_tables import N_COS, coat_transmittance_table
 from mitsuba_path_guiding_torch.models.phase import (
@@ -45,8 +52,9 @@ from mitsuba_path_guiding_torch.models.sunsky import (
     preetham_sun_irradiance,
     sun_direction_from_angles,
 )
+from mitsuba_path_guiding_torch.models.texture import build_atlas_np, rasterize_procedural
 from mitsuba_path_guiding_torch.ops.intersect_bvh import STACK_SIZE
-from mitsuba_path_guiding_torch.scene.shapes import SHAPE_BUILDERS
+from mitsuba_path_guiding_torch.scene.shapes import SHAPE_BUILDERS, curvature_colors
 from mitsuba_path_guiding_torch.scene.transforms import look_at, scale, translate
 from mitsuba_path_guiding_torch.scene.types import (
     BSDFType,
@@ -60,6 +68,7 @@ from mitsuba_path_guiding_torch.scene.types import (
     SensorKind,
 )
 from mitsuba_path_guiding_torch.scene.volume import load_volume_spec
+from mitsuba_path_guiding_torch.util import _read
 
 # From this triangle count on, the scene carries the pair and blocklist
 # tables of the big-scene intersectors, as in the reference.
@@ -88,14 +97,6 @@ _BSDF_TYPES = {
     # a COATING row with alpha > 0: a GGX lobe off the coat interface
     "roughcoating": BSDFType.COATING,
 }
-# families the reference compiles that the port does not yet, by the
-# ROADMAP item that brings them
-_LATER_BSDFS = {
-    "irawan": "Queue 1 item 9 (textures and cloth)",
-    "bumpmap": "Queue 1 item 9 (textures)",
-    "normalmap": "Queue 1 item 9 (textures)",
-}
-
 # named conductor IOR presets (the reference's, RGB-averaged)
 _CONDUCTOR_IOR = {
     "Au": ([0.143, 0.375, 1.442], [3.983, 2.386, 1.603]),
@@ -130,19 +131,67 @@ def _rgb(x, default):
     return np.full(3, float(x)) if x.ndim == 0 else x
 
 
-def _compile_bsdf(spec: dict, register_sub=None) -> dict:
-    """One material row.  The nested wrappers (``blendbsdf``,
-    ``mixturebsdf``, ``mask``, ``coating``, ``roughcoating``) register their child lobes through
-    ``register_sub`` (a callable returning the child's row index) and
-    store the indices in sub_a / sub_b; a wrapper inside a wrapper
-    raises, as in the reference."""
+def _compile_bsdf(spec: dict, textures: list | None = None, register_sub=None) -> dict:
+    """One material row.  A ``texture`` sub-dict rasterizes into
+    ``textures`` (the scene's atlas images) and overrides the reflectance
+    at shading time; ``vertexcolors`` and ``curvature`` select the
+    per-vertex colour table (id -3), ``wireframe`` the edge colour by
+    barycentric distance (id -4).  The nested wrappers (``blendbsdf``,
+    ``mixturebsdf``, ``mask``, ``coating``, ``roughcoating``) register
+    their child lobes through ``register_sub`` (a callable returning the
+    child's row index) and store the indices in sub_a / sub_b; a wrapper
+    inside a wrapper raises, as in the reference.  ``bumpmap`` and
+    ``normalmap`` compile to their child's row plus the bump fields;
+    ``irawan`` to a CLOTH row (columns as in ``scene/types.py``) with its
+    kd texture and, in the bump slot, its yarn-record texture."""
     t = spec.get("type", "diffuse")
-    if t in _LATER_BSDFS:
-        _not_ported(f"bsdf type '{t}'", _LATER_BSDFS[t])
+    if t == "irawan":
+        if register_sub is None:
+            raise ValueError("irawan may not be nested inside another wrapper")
+        if "filename" in spec:
+            with open(spec["filename"]) as fh:
+                text = fh.read()
+        else:
+            text = spec.get("weave", PLAIN_WEAVE)
+        # the other plugin properties resolve $identifier placeholders in
+        # the pattern
+        reserved = {"type", "filename", "weave", "repeatU", "repeatV"}
+        params = {k: v for k, v in spec.items() if k not in reserved}
+        wp = parse_weave(text, params or None)
+        cc = compile_cloth(wp)
+        row = {
+            "type": int(BSDFType.CLOTH),
+            "reflectance": np.asarray(np.mean([y["kd"] for y in wp["yarns"]], axis=0),
+                                      np.float32),
+            "specular": np.asarray(cc["mean_ks"], np.float32),
+            "eta": np.asarray([cc["alpha"], cc["beta"], cc["ss"]], np.float32),
+            "k": np.asarray([cc["psi"], cc["umax"], cc["kappa"]], np.float32),
+            "alpha": cc["a_fb"],
+            "alpha_v": cc["norm"],
+            "weight": cc["h_width"],
+            "texture_id": -1,
+            "cloth_extra": (cc["w"], cc["l"], cc["area_warp"], cc["area_weft"],
+                            cc["fb_scale"]),
+        }
+        if textures is not None:
+            textures.append(cc["kd_img"])
+            row["texture_id"] = len(textures) - 1
+            # the yarn-record map rides the bump slot (fetched nearest,
+            # never a normal perturbation: the tracer skips CLOTH rows)
+            textures.append(cc["aux_img"])
+            row["bump_tex_id"] = len(textures) - 1
+        row["uv_scale"] = (float(spec.get("repeatU", 1.0)), float(spec.get("repeatV", 1.0)))
+        return row
+    if t in ("bumpmap", "normalmap"):
+        if register_sub is None:
+            raise ValueError(f"{t} not allowed here")
+        inner = dict(spec.get("bsdf") or {"type": "diffuse"})
+        row = _compile_bsdf(inner, textures, register_sub)
+        row["bump_tex_id"], row["bump_scale"] = _compile_bump_texture(
+            spec, textures, is_height=(t == "bumpmap"))
+        return row
     if t not in _BSDF_TYPES:
         raise ValueError(f"unknown bsdf type: {t}")
-    if spec.get("texture") is not None:
-        _not_ported("textured reflectance", "Queue 1 item 9 (textures)")
     row = {
         "type": _BSDF_TYPES[t],
         "reflectance": _rgb(spec.get("reflectance", spec.get("diffuse_reflectance")), [0.5, 0.5, 0.5]),
@@ -204,6 +253,23 @@ def _compile_bsdf(spec: dict, register_sub=None) -> dict:
             row["sub_a"] = register_sub(subs[0])
             row["sub_b"] = register_sub(subs[1])
         return row
+    tex = spec.get("texture")
+    if tex is not None and textures is not None:
+        tt = tex.get("type", "bitmap")
+        if tt in ("vertexcolors", "curvature"):
+            # the colours come from the per-vertex table of the shape loop
+            row["texture_id"] = -3
+        elif tt == "wireframe":
+            # the line width is a barycentric fraction, not a world width
+            row["texture_id"] = -4
+            row["reflectance"] = _rgb(tex.get("interior_color", tex.get("interiorColor")),
+                                      [0.5] * 3)
+            row["wire_edge"] = _rgb(tex.get("edge_color", tex.get("edgeColor")), [0.1] * 3)
+            row["wire_lw"] = float(tex.get("line_width", tex.get("lineWidth", 0.05)))
+        else:
+            img = _rasterize_texture(tex, textures)
+            textures.append(img)
+            row["texture_id"] = len(textures) - 1
     if t in ("conductor", "roughconductor"):
         mat = spec.get("material", None)
         if mat is not None or "eta" not in spec:
@@ -214,6 +280,44 @@ def _compile_bsdf(spec: dict, register_sub=None) -> dict:
         ext_ior = float(spec.get("ext_ior", 1.000277))
         row["eta"] = np.full(3, int_ior / ext_ior)
     return row
+
+
+def _rasterize_texture(tex: dict, textures: list) -> np.ndarray:
+    """A texture sub-dict as an image: ``bitmap`` (an inline ``image`` or
+    a ``filename`` read by ``util._read``), ``scale`` (an inner texture, or
+    1, times a scalar or RGB factor) or a procedural pattern."""
+    tt = tex.get("type", "bitmap")
+    if tt == "bitmap":
+        if "image" in tex:
+            return np.asarray(tex["image"], dtype=np.float32)
+        return _read(tex["filename"])
+    if tt == "scale":
+        inner = tex.get("texture")
+        img = (_rasterize_texture(inner, textures) if inner is not None
+               else np.ones((1, 1, 3), np.float32))
+        return (img * _rgb(tex.get("scale"), [1.0] * 3)).astype(np.float32)
+    return rasterize_procedural(tex)
+
+
+def _compile_bump_texture(spec: dict, textures: list | None, is_height: bool):
+    """The ``bumpmap`` / ``normalmap`` texture: (atlas id, scale).  A
+    height map becomes a tangent-space normal map here (finite
+    differences), so shading has one path: a normal-map fetch and a frame
+    perturbation."""
+    tex = spec.get("texture")
+    if tex is None or textures is None:
+        return -1, 1.0
+    img = _rasterize_texture(tex, textures)
+    scale_f = float(spec.get("scale", 1.0))
+    if is_height:
+        h = img.mean(axis=-1) if img.ndim == 3 else img
+        gy, gx = np.gradient(h)
+        H, W = h.shape
+        n = np.stack([-scale_f * gx * W, -scale_f * gy * H, np.ones_like(h)], axis=-1)
+        n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
+        img = ((n + 1.0) * 0.5).astype(np.float32)
+    textures.append(np.asarray(img, dtype=np.float32))
+    return len(textures) - 1, scale_f
 
 
 def _to_world(spec):
@@ -332,9 +436,8 @@ def _compile_emitters(especs, add_emitter):
     for espec in especs:
         t = espec["type"]
         if t == "envmap":
-            if "image" not in espec:
-                _not_ported("an envmap from a file", "Queue 1 item 9 (loaders)")
-            img = np.asarray(espec["image"], dtype=np.float32)
+            img = (np.asarray(espec["image"], dtype=np.float32) if "image" in espec
+                   else _read(espec["filename"]))
             sc_f = float(espec.get("scale", 1.0))
             env_tables = build_env_tables(img, sc_f)
             mean_lum = float((img @ LUM_WEIGHTS_NP).mean()) * sc_f
@@ -416,6 +519,7 @@ def build_scene(desc: dict, device=None) -> SceneData:
 
     mat_rows: list[dict] = []
     mat_cache: dict[str, int] = {}
+    texture_images: list = []
 
     def intern(row):
         key = repr(sorted((k, repr(v)) for k, v in row.items()))
@@ -426,10 +530,10 @@ def build_scene(desc: dict, device=None) -> SceneData:
 
     def register_sub(bspec):
         # nested lobes are plain families: a wrapper here raises
-        return intern(_compile_bsdf(bspec, register_sub=None))
+        return intern(_compile_bsdf(bspec, texture_images, register_sub=None))
 
     def mat_index(bspec):
-        return intern(_compile_bsdf(bspec or {"type": "diffuse"}, register_sub))
+        return intern(_compile_bsdf(bspec or {"type": "diffuse"}, texture_images, register_sub))
 
     tris = {k: [] for k in ("p0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2")}
     tri_mat, tri_emitter = [], []
@@ -465,6 +569,8 @@ def build_scene(desc: dict, device=None) -> SceneData:
             continue
         flat_shapes.append(sh)
 
+    tri_vcol: list = []
+    any_vcol = False
     for sh in flat_shapes:
         if sh.get("subsurface") is not None:
             _not_ported("subsurface scattering", "Queue 1 item 9 (integrators)")
@@ -478,6 +584,24 @@ def build_scene(desc: dict, device=None) -> SceneData:
             tris[k].append(v)
         nf = len(p0)
         tri_mat.extend([mid] * nf)
+        # geometry-driven textures: per-face vertex colours (F, 9)
+        tex_spec = (sh.get("bsdf") or {}).get("texture") or {}
+        ttype = tex_spec.get("type")
+        if ttype == "vertexcolors":
+            fc = mesh.face_colors()
+            if fc is None:
+                fc = np.ones((nf, 9), np.float32)
+            tri_vcol.append(np.asarray(fc, np.float32))
+            any_vcol = True
+        elif ttype == "curvature":
+            cc = curvature_colors(mesh, kind=tex_spec.get("curvature", "mean"),
+                                  scale=float(tex_spec.get("scale", 1.0)))
+            f = mesh.faces
+            fc = np.concatenate([cc[f[:, 0]], cc[f[:, 1]], cc[f[:, 2]]], axis=-1)
+            tri_vcol.append(np.asarray(fc, np.float32))
+            any_vcol = True
+        else:
+            tri_vcol.append(np.zeros((nf, 9), np.float32))
         if "emitter" in sh and sh["emitter"] is not None:
             rad = _rgb(sh["emitter"].get("radiance"), [1.0, 1.0, 1.0])
             lum = float(np.dot(rad, LUM_WEIGHTS_NP))
@@ -551,13 +675,20 @@ def build_scene(desc: dict, device=None) -> SceneData:
     mpk[:, 10:13] = np.stack([m["k"] for m in mat_rows])
     mpk[:, 13] = [m["alpha"] for m in mat_rows]
     mpk[:, 14] = [m["texture_id"] for m in mat_rows]
-    mpk[:, 15] = [m["alpha_v"] for m in mat_rows]
-    mpk[:, 16] = [m["sub_a"] for m in mat_rows]
-    mpk[:, 17] = [m["sub_b"] for m in mat_rows]
-    mpk[:, 18] = [m["weight"] for m in mat_rows]
-    mpk[:, 19] = [m["bump_tex_id"] for m in mat_rows]
-    mpk[:, 20] = [m["bump_scale"] for m in mat_rows]
-    mpk[:, 25:27] = 1.0  # UV tiling factors
+    mpk[:, 15] = [m.get("alpha_v", m["alpha"]) for m in mat_rows]
+    mpk[:, 16] = [m.get("sub_a", -1) for m in mat_rows]
+    mpk[:, 17] = [m.get("sub_b", -1) for m in mat_rows]
+    mpk[:, 18] = [m.get("weight", 0.0) for m in mat_rows]
+    mpk[:, 19] = [m.get("bump_tex_id", -1) for m in mat_rows]
+    mpk[:, 20] = [m.get("bump_scale", 1.0) for m in mat_rows]
+    # the wireframe's edge colour and line width (texture_id -4)
+    mpk[:, 21:24] = np.stack([np.asarray(m.get("wire_edge", (0.0, 0.0, 0.0)), np.float32)
+                              for m in mat_rows])
+    mpk[:, 24] = [m.get("wire_lw", 0.0) for m in mat_rows]
+    # UV tiling factors, applied before the atlas and normal-map fetches
+    mpk[:, 25:27] = [m.get("uv_scale", (1.0, 1.0)) for m in mat_rows]
+    # the cloth's geometry (scene/types.py CLOTH: w, l, areaW, areaF, fb_scale)
+    mpk[:, 27:32] = [m.get("cloth_extra", (0.0,) * 5) for m in mat_rows]
     # the coat interfaces' transmittance over cos(theta): quadrature for a
     # rough interface, the exact smooth Fresnel otherwise
     coat_tab = np.zeros((M, N_COS), np.float32)
@@ -590,7 +721,8 @@ def build_scene(desc: dict, device=None) -> SceneData:
         n0=t(h["n0"]), n1=t(h["n1"]), n2=t(h["n2"]),
         uv0=t(h["uv0"]), uv1=t(h["uv1"]), uv2=t(h["uv2"]),
         mat_id=t(tri_mat_np, torch.int32), emitter_id=t(tri_em_np, torch.int32),
-        shade_packed=t(shade), vcol=None,
+        shade_packed=t(shade),
+        vcol=t(np.concatenate(tri_vcol, axis=0)) if any_vcol else None,
     )
     mats = Materials(
         type=t(np.asarray([m["type"] for m in mat_rows], np.int32), torch.int32),
@@ -660,12 +792,13 @@ def build_scene(desc: dict, device=None) -> SceneData:
     lo = np.minimum(np.minimum(p0h, v1), v2).min(axis=0)
     hi = np.maximum(np.maximum(p0h, v1), v2).max(axis=0)
     pad = 1e-3 * (hi - lo).max() + 1e-6
+    atlas, sizes = build_atlas_np(texture_images)
     return SceneData(
         geo=geo, bvh=bvh, mats=mats, emitters=emitters, sensor=sensor,
         medium=medium,
         aabb_min=t((lo - pad).astype(np.float32)),
         aabb_max=t((hi + pad).astype(np.float32)),
-        textures=t(np.zeros((1, 2, 1, 3), np.float32)),
-        texture_sizes=t(np.ones((1, 2), np.float32)),
+        textures=t(atlas),
+        texture_sizes=t(sizes),
         sss_packed=None, blocks=blocks, pairs=pairs,
     )

@@ -11,7 +11,9 @@ same compiled scene can be handed between the two packages
     25 triangle area, 26 UV density, 27 sss row, rest zero;
   * ``Materials.packed`` (M, 32): 0 type, 1:4 reflectance, 4:7 specular,
     7:10 eta, 10:13 k, 13 alpha, 14 texture_id, 15 alpha_v, 16 sub_a,
-    17 sub_b, 18 weight, 19 bump_tex_id, 20 bump_scale, 21:32 extras;
+    17 sub_b, 18 weight, 19 bump_tex_id, 20 bump_scale, 21:24 the
+    wireframe's edge colour, 24 its line width, 25:27 UV tiling, 27:32
+    the cloth's geometry (``BSDFType.CLOTH``);
   * ``Emitters.packed`` (E, 32): 0 kind, 1 pmf, 2:5 radiance,
     5:8 position, 8:11 axis, 11:13 cutoffs, 13 area, 14:17 p0, 17:20 e1,
     20:23 e2, 23:26 unit normal.
@@ -42,7 +44,13 @@ class BSDFType:
     COATING = 15
     HK = 16
     THINDIELECTRIC = 17
-    CLOTH = 18
+    CLOTH = 18           # woven cloth (irawan): the weave tile is baked into a
+    #                      kd texture (texture_id) and a yarn-record texture
+    #                      (bump_tex_id, fetched nearest, never a normal map);
+    #                      the row's columns are repurposed: eta = (von Mises
+    #                      alpha, beta, ss), k = (psi, umax, kappa), 13 = the
+    #                      Ward fallback's alpha, 15 = the specular norm,
+    #                      18 = hWidth, 27:32 = (w, l, areaW, areaF, fb_scale)
     N_TYPES = 19
 
 
@@ -237,8 +245,8 @@ class SceneData(NamedTuple):
     medium: Optional[MediumData]
     aabb_min: torch.Tensor  # (3,)
     aabb_max: torch.Tensor
-    textures: torch.Tensor       # (NT, TH, TW, 3)
-    texture_sizes: torch.Tensor  # (NT, 2)
+    textures: torch.Tensor       # (NT, 2*TH, TW, 3) atlas with mip levels (models/texture.py)
+    texture_sizes: torch.Tensor  # (NT, 2) each texture's (H, W)
     sss_packed: Optional[torch.Tensor] = None
     blocks: Optional[BlockList] = None  # None below 16384 triangles
     pairs: Optional[PairTable] = None

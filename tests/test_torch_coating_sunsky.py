@@ -445,7 +445,9 @@ def test_port_imports_no_jax():
     # the volume slice's modules are among them
     names = {p.relative_to(ROOT).as_posix() for p in files}
     for mod in ("integrators/volpath.py", "models/medium.py", "models/phase.py",
-                "guiding/distance.py", "scene/volume.py", "scene/builder.py", "render.py"):
+                "guiding/distance.py", "scene/volume.py", "scene/builder.py", "render.py",
+                "models/texture.py", "models/cloth.py", "film/bitmap.py", "film/denoise.py",
+                "film/neural_denoise.py", "util.py"):
         assert f"mitsuba_path_guiding_torch/{mod}" in names, mod
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):

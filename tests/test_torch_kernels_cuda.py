@@ -576,3 +576,77 @@ def test_volume_render_scanned_equals_render(card):
     img = render(sc, cfg)
     assert torch.equal(render(sc, cfg), img)
     assert torch.equal(render_scanned(sc, cfg), img)
+
+
+def _curvature_box():
+    desc = cornell_box()
+    desc["shapes"][6] = {"type": "sphere", "center": [0.4, 0.3, -0.1], "radius": 0.3,
+                         "bsdf": {"type": "diffuse", "texture": {"type": "curvature"}}}
+    return desc
+
+
+def test_gather_rows_t_vertex_colour_table(card):
+    """The (T, 9) vertex-colour table of a curvature-coloured mesh (3968
+    triangles: the kernel's general path), on random indices out of range
+    too and on a camera wave's hit triangles, bit-equal; the tracer's
+    bounce gathers it once."""
+    from mitsuba_path_guiding_torch.core import rng
+    from mitsuba_path_guiding_torch.integrators.path import trace
+    from mitsuba_path_guiding_torch.models.bsdf import types_present
+    from mitsuba_path_guiding_torch.models.emitter import kinds_present
+    from mitsuba_path_guiding_torch.models.sensor import generate_rays
+
+    sc = build_scene(_curvature_box(), device="cuda")
+    table = sc.geo.vcol
+    assert table.shape[0] > 512 and table.shape[1] == 9
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for dtype in (torch.int32, torch.int64):
+        idx = torch.randint(-3, table.shape[0] + 3, (65537,), generator=g, device="cuda").to(dtype)
+        assert torch.equal(gather_rows_t(table, idx), gather_rows_t_plain(table, idx))
+    pix = torch.arange(64 * 64, device="cuda")
+    rkeys = rng.ray_keys(rng.base_key(0, device="cuda"), pix, torch.zeros_like(pix))
+    o, d, _ = generate_rays(sc.sensor, 64, 64, pix, rng.event_uniform(rkeys, rng.TAG_CAMERA, 2))
+    build.reset_launches()
+    L, _, _ = trace(sc, o, d, rkeys, max_depth=2, textured=True,
+                    mat_types=types_present(sc.mats), em_kinds=kinds_present(sc.emitters))
+    torch.cuda.synchronize()
+    # a bounce: shading, material, vertex-colour and emitter rows
+    assert build.LAUNCHES["gather_rows_t"] == 4 * 2
+    assert build.LAUNCHES["gather_rows_t_large"] == 2 * 2 and bool(torch.isfinite(L).all())
+
+
+def test_textured_diffuse_scene_launches_no_trace_fused(card):
+    """An unguided render of a diffuse Cornell box with a checkerboard
+    floor takes the wavefront (the fused kernel would drop the texture),
+    and its image equals the CPU's wavefront render to rtol 1e-4 on >= 99%
+    of pixels."""
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig, render
+
+    desc = cornell_box()
+    desc["shapes"][0]["bsdf"] = {"type": "diffuse", "texture": {"type": "checkerboard"}}
+    cfg = RenderConfig(width=32, height=32, spp=2, max_depth=5)
+    build.reset_launches()
+    img = render(build_scene(desc, device="cuda"), cfg)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["trace_fused"] == 0 and build.LAUNCHES["intersect_tiled"] == 2 * 5 * 2
+    cpu = render(build_scene(desc, device="cpu"), cfg)
+    close = torch.isclose(img.cpu(), cpu, rtol=1e-4, atol=1e-6).all(dim=-1)
+    assert float(close.float().mean()) >= 0.99
+
+
+def test_denoiser_card_equals_cpu(card):
+    """The neural denoiser (cuDNN convolutions with TF32 off) on the card
+    against the CPU on the same buffers, rtol 1e-4 (atol 1e-6), at a size
+    that is not a multiple of 4."""
+    from mitsuba_path_guiding_torch.film.neural_denoise import denoise_neural, load_net
+
+    g = torch.Generator().manual_seed(2)
+    h, w = 62, 90
+    color = torch.rand((h, w, 3), generator=g) ** 3 * 3.0
+    albedo = torch.rand((h, w, 3), generator=g)
+    normal = torch.nn.functional.normalize(torch.randn((h, w, 3), generator=g), dim=-1)
+    depth = torch.rand((h, w), generator=g) * 4.0
+    bufs = (color, albedo, normal, depth)
+    got = denoise_neural(*(b.cuda() for b in bufs))
+    assert load_net(got.device) is not None
+    torch.testing.assert_close(got.cpu(), denoise_neural(*bufs), rtol=1e-4, atol=1e-6)

@@ -141,9 +141,10 @@ def test_generate_rays(name, w, h):
 
 
 @pytest.mark.parametrize("desc,match", [
-    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "bumpmap"}}],
-      "emitters": []}, "Queue 1 item 9"),
-    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "diffuse", "texture": "t.png"}}],
+    ({"shapes": [{"type": "deformable", "bsdf": {"type": "bumpmap"}}],
+      "emitters": [{"type": "constant"}]}, "Queue 1 item 9"),
+    ({"shapes": [{"type": "heightfield", "filename": "h.exr", "bsdf": {
+        "type": "diffuse", "texture": {"type": "checkerboard"}}}],
       "emitters": [{"type": "sunsky"}]}, "Queue 1 item 9"),
     ({"shapes": [{"type": "rectangle"}], "emitters": [{"type": "constant"}], "medium": {
         "sigma_s": [1.0] * 3, "density": {"type": "vdbvolume", "filename": "cloud.vdb"}}},
@@ -155,18 +156,20 @@ def test_unported_features_raise(desc, match):
 
 
 @pytest.mark.parametrize("desc,match", [
-    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "normalmap"}}]}, "textures"),
-    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "coating", "bsdf": {
-        "type": "diffuse", "texture": "t.png"}}}]}, "textures"),
+    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "normalmap"},
+                  "subsurface": {"type": "dipole"}}]}, "integrators"),
+    ({"shapes": [{"type": "heightfield", "filename": "h.pfm", "bsdf": {"type": "coating", "bsdf": {
+        "type": "diffuse", "texture": {"type": "checkerboard"}}}}]}, "loaders"),
     ({"shapes": [{"type": "rectangle", "subsurface": {"type": "dipole"}}]}, "integrators"),
     ({"shapes": [{"type": "rectangle"}], "emitters": [{"type": "sky"}],
       "medium": {"sigma_s": [1.0] * 3, "density": {"type": "vdbvolume", "filename": "c.vdb"}}},
      "the loaders"),
-    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "bumpmap", "bsdf": {"type": "hk"}}}]},
-     "textures"),
-    ({"shapes": [{"type": "rectangle"}], "emitters": [{"type": "envmap", "filename": "sky.exr"}]},
+    ({"shapes": [{"type": "deformable", "bsdf": {"type": "bumpmap", "bsdf": {"type": "hk"}}}]},
+     "animation"),
+    ({"shapes": [{"type": "rectangle", "subsurface": {"type": "singlescatter"}}],
+      "emitters": [{"type": "envmap", "filename": "sky.exr"}]}, "integrators"),
+    ({"shapes": [{"type": "heightfield", "filename": "cloth.exr", "bsdf": {"type": "irawan"}}]},
      "Queue 1 item 9"),
-    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "irawan"}}]}, "Queue 1 item 9"),
 ])
 def test_next_slices_raise(desc, match):
     with pytest.raises(NotImplementedError, match=match):
