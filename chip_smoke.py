@@ -167,6 +167,24 @@ Phases:
      denoiser ran, its card output equals the CPU's on the same buffers
      (rtol 1e-4, atol 1e-6), its relMSE against a 256-spp image is below
      the noisy image's, and its time.
+  16. "integrators" (slice 9): intersect_tiled and the BVH bit-equal to
+     their plain versions, closest and any-hit, on the first 65536
+     emitter rays of render_ptracer's first wave on the Cornell box and
+     on their first hits' sensor-connection shadow rays, gather_rows_t
+     bit-equal on those hits' shading rows, and intersect_tiled on one
+     VPL chunk's fan (32 VPLs x 65536 camera hits); then, each in 4 groups
+     of 4 spp (seeds 0-3) at the CLI's defaults (256x256, depth 5): the
+     Cornell box through the path tracer, direct, ao, ptracer, bdpt, vpl
+     (256 VPL paths) and bdpt through the BVH; the JAX package's
+     point-light Cornell box at depth 2 (path, bdpt); veach_mis at
+     512x512 (path, bdpt); each mean within max(3%, 4 standard
+     errors) of the JAX package's CPU mean (INTEGRATOR_REFERENCE,
+     tools/integrator_reference_means.py); bdpt/path within 3%,
+     ptracer/path within 8%, vpl/path in (0.85, 1.05) (the JAX package's
+     tests' bars), veach's bdpt/path printed without a bar; direct equal
+     to render() at depth 1; ptracer and bdpt repeating bit for bit; the
+     CLI's cornell -I bdpt; the host syncs a wave of ptracer and bdpt by
+     source line; seconds and query-lane Mrays/s of each render.
 
 Each main-path route runs with the launch counts set to 0 just before it
 and read just after it, and is held to the kernels it must launch: the
@@ -189,7 +207,11 @@ the vocabulary's wavefront renders to two tiled launches a bounce and
 three gathers (five with a coat: its nested rows and its coat-table
 row), its independent-sampler Cornell renders to one trace_fused a wave;
 the textures' renders to two tiled launches a bounce and three gathers
-(four with vertex colours) and no trace_fused.
+(four with vertex colours) and no trace_fused; the integrators' renders
+to the launches integrator_launches counts (a light-path bounce two
+queries and two gathers, a BDPT camera bounce a third gather and a wave
+(D - 1) D / 2 interior shadow queries, a VPL chunk one query and two
+gathers; the Cornell path tracer and direct one trace_fused a wave).
 """
 from __future__ import annotations
 
@@ -2198,9 +2220,10 @@ def phase_shading_kernel_checks(sc, veach):
     return res
 
 
-def render_counted(scene, cfg):
-    """integrators.render.render with the path segments of its waves summed
-    (render_wave wrapped).  Returns (image, seconds, segments)."""
+def render_counted(scene, cfg, fn=None):
+    """integrators.render.render (or fn(scene, cfg), which calls it) with
+    the path segments of its waves summed (render_wave wrapped).  Returns
+    (image, seconds, segments)."""
     import torch
 
     from mitsuba_path_guiding_torch.integrators import render as rmod
@@ -2217,7 +2240,7 @@ def render_counted(scene, cfg):
     try:
         torch.cuda.synchronize()
         t0 = time.time()
-        img = rmod.render(scene, cfg)
+        img = (fn or rmod.render)(scene, cfg)
         torch.cuda.synchronize()
         dt = time.time() - t0
     finally:
@@ -3320,6 +3343,386 @@ def run_textures(ts, cornell, card):
     return counts
 
 
+# ---- the integrators phase (slice 9): the light-path and auxiliary
+# integrators behind the CLI's -I
+
+INTEGRATOR_RUNS = {                     # scene: (max_depth, integrators rendered)
+    "cornell": (DEPTH, ("path", "direct", "ao", "ptracer", "bdpt", "vpl")),
+    "cornell_point": (2, ("path", "bdpt")),   # a delta light's complete strategy set
+    "veach": (DEPTH, ("path", "bdpt")),
+}
+
+
+def integrator_descs(mod):
+    """The integrators phase's scenes from a scenes module (the port's or
+    the JAX package's): the Cornell box, the JAX package's point-light
+    Cornell box (tests/test_bdpt.py) and veach_mis."""
+    point = mod.cornell_box()
+    point["shapes"] = [s for s in point["shapes"] if not s.get("emitter")]
+    point["emitters"] = [{"type": "point", "position": [0.0, 0.9, 0.0],
+                          "intensity": [1.0, 0.9, 0.7]}]
+    return {"cornell": mod.cornell_box(), "cornell_point": point, "veach": mod.veach_mis()}
+
+
+INT_SPP = 16                # the CLI's default spp, in INT_GROUPS groups of 4 (seeds 0-3)
+INT_GROUPS = 4
+VPL_PATHS = 256             # render_vpl's default
+INT_KERNEL_RAYS = 65536     # the first particles of render_ptracer's first wave
+# The JAX package's cross-consistency bars against the forward path
+# tracer of the same scene and depth (tests/test_bdpt.py,
+# tests/test_ptracer.py, tests/test_vpl_erpt.py): (low, high) of the ratio.
+INT_BARS = {"bdpt": (0.97, 1.03), "ptracer": (0.92, 1.08), "vpl": (0.85, 1.05)}
+INT_SYNC_WAVES = 2
+# Image means of the JAX package on the CPU (mean, standard error over 12
+# groups of 4 spp at 64x64, seeds 1000-1011) by
+# tools/integrator_reference_means.py ("intrefs"; 629.4 s on the CPU).
+INTEGRATOR_REFERENCE = {
+    "cornell/path": (0.11577501706779003, 0.0007155663628284205),
+    "cornell/direct": (0.09270522681375344, 0.0006944721364549299),
+    "cornell/ao": (0.2743988037109375, 0.0008144535000660717),
+    "cornell/ptracer": (0.11469813498357932, 0.00010525860670066178),
+    "cornell/bdpt": (0.11467706908782323, 8.126603248043725e-05),
+    "cornell/vpl": (0.11339189670979977, 0.0007863927931929209),
+    "cornell_point/path": (0.05931773688644171, 0.00024524105025458147),
+    "cornell_point/bdpt": (0.05933357557902733, 9.510180111137946e-05),
+    "veach/path": (0.3007487878203392, 0.018394745323190805),
+    "veach/bdpt": (0.2845637947320938, 0.000800166569424295),
+}
+
+
+def integrator_scenes():
+    from mitsuba_path_guiding_torch.scene import scenes
+    from mitsuba_path_guiding_torch.scene.builder import build_scene
+
+    return {k: build_scene(v, device=DEVICE) for k, v in integrator_descs(scenes).items()}
+
+
+def light_wave_rays(scene, n=INT_KERNEL_RAYS):
+    """The first n particles of render_ptracer's first wave on a scene:
+    their emitter rays (as sample_ray draws them; dead lanes tmax -1) and
+    the shadow rays of their first hits toward the camera (as trace_light
+    connects them: offset origins, tmax dist (1 - 1e-3), -1 where the
+    connection is masked off)."""
+    import torch
+
+    from mitsuba_path_guiding_torch.accel.traverse import intersect_pallas
+    from mitsuba_path_guiding_torch.core import rng
+    from mitsuba_path_guiding_torch.integrators.path import _offset_ray
+    from mitsuba_path_guiding_torch.integrators.ptracer import (
+        TAG_EMITTER_RAY,
+        _decode_hit,
+        live_tmax,
+    )
+    from mitsuba_path_guiding_torch.models.emitter import kinds_present, sample_ray
+    from mitsuba_path_guiding_torch.models.sensor import connect_to_sensor
+
+    pid = torch.arange(n, device=DEVICE)
+    rkeys = rng.ray_keys(rng.base_key(0, device=DEVICE), pid, torch.zeros_like(pid))
+    rs = sample_ray(scene.emitters, scene.aabb_min, scene.aabb_max,
+                    rng.event_uniform(rkeys, TAG_EMITTER_RAY, 5),
+                    kinds=kinds_present(scene.emitters))
+    tmax = torch.where(rs.valid, 3.0e37, -1.0)
+    hit = intersect_pallas(scene.geo, rs.o, rs.d, tmax)
+    p, ng, _, _, _ = _decode_hit(scene.geo, hit, rs.o, rs.d)
+    _, to_cam, dist, _, ok = connect_to_sensor(scene.sensor, W, H, p)
+    return {"emitter": (rs.o, rs.d, tmax),
+            "sensor": (_offset_ray(p, ng, to_cam), to_cam,
+                       live_tmax(dist * (1.0 - 1e-3), rs.valid & hit.valid & ok))}
+
+
+def vpl_fan_rays(scene):
+    """The any-hit fan of render_vpl's first chunk on a scene at the CLI's
+    defaults (256x256, depth 5, 256 VPL paths): the chunk's VPLs times the
+    first camera hits, as shade_chunk queries them."""
+    from mitsuba_path_guiding_torch.integrators import vpl
+    from mitsuba_path_guiding_torch.integrators.path import route_dense_or_bvh
+    from mitsuba_path_guiding_torch.integrators.ptracer import live_tmax
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig
+
+    import torch
+
+    cfg = RenderConfig(width=W, height=H, spp=1, max_depth=DEPTH)
+    intersect, _ = route_dense_or_bvh(scene, "auto")
+    vpls = vpl.generate_vpls(scene, VPL_PATHS, seed=cfg.seed + 1, max_depth=DEPTH - 2)
+    n_vpl = vpls.pos.shape[0]
+    c = vpl._chunk_size(n_vpl, W * H, 128)
+    cam = vpl.camera_pass(scene, cfg, intersect, 0)
+    d_min = 0.1 * float(torch.linalg.vector_norm(scene.aabb_max - scene.aabb_min))
+    o, d, dist, _ = vpl.chunk_shadow_rays(cam, vpls.pos[:c], d_min * d_min)
+    ok = cam.valid.repeat(c) & vpls.valid[:c].repeat_interleave(W * H)
+    return o, d, live_tmax(dist * (1.0 - 2e-3), ok), c
+
+
+def phase_integrator_kernel_checks(ic, card):
+    """On the Cornell box: intersect_tiled against tiled_plain and the BVH
+    kernel against bvh_plain, closest hit and any-hit, every output bit
+    equal on every lane, on render_ptracer's first emitter rays and their
+    sensor-connection shadow rays; gather_rows_t bit-equal on the shading
+    rows of the emitter rays' hits (timed as gather_call times it); and
+    intersect_tiled likewise on one VPL chunk's fan."""
+    import torch
+
+    from mitsuba_path_guiding_torch.ops.intersect_bvh import bvh_cuda, bvh_plain
+
+    sc = ic["cornell"]
+    geo = sc.geo
+    n_tri = geo.p0.shape[0]
+    res = {}
+    for label, (o, d, tmax) in light_wave_rays(sc).items():
+        res[f"intersect_tiled_{label}"] = tiled_check(geo, o, d, tmax, n_tri, f"cornell {label}")
+        for any_hit in (False, True):
+            got = bvh_cuda(sc.bvh, o, d, tmax, any_hit)
+            want = bvh_plain(sc.bvh, o, d, tmax, any_hit)
+            torch.cuda.synchronize()
+            differ = [int((_bits(a) != _bits(b)).sum()) for a, b in zip(got, want)]
+            check(not any(differ), f"bvh cornell {label} any_hit={any_hit}: lanes differing by "
+                                   f"output {differ}")
+            res[f"bvh_{label}_{'any' if any_hit else 'closest'}"] = {
+                "rays": o.shape[0], "bit_equal": True,
+                "hit_share": float((got[1] >= 0).float().mean())}
+        if label == "emitter":
+            prim = bvh_cuda(sc.bvh, o, d, tmax, False)[1]
+            res["gather_rows_t_emitter_hits"] = gather_call(geo.shade_packed,
+                                                            prim.clamp_min(0).to(torch.int32))
+    o, d, tmax, c = vpl_fan_rays(sc)
+    res["intersect_tiled_vpl_fan"] = {**tiled_check(geo, o, d, tmax, n_tri, "cornell vpl fan"),
+                                      "vpls": c}
+    emit({"phase": "integrator_kernel_checks", "card": card, **res})
+    return res
+
+
+def _large(table):
+    from mitsuba_path_guiding_torch.ops.gather import SMALL_ROWS
+
+    return int(table.shape[0] > SMALL_ROWS)
+
+
+def integrator_launches(scene, integrator, depth, n_pix, spp, groups, accel="auto"):
+    """The launches a render of ``groups`` calls of ``spp`` must give, and
+    the lanes of its ray queries (None for the wavefront path tracer, whose
+    rays render_counted counts).  A light-path bounce is a closest-hit and
+    a shadow query and two gathers (shading and material rows); a BDPT
+    camera bounce adds sample_direct's emitter row, and a wave (D - 1) D /
+    2 interior connections, one shadow query each; a VPL chunk is one
+    shadow query and two material gathers; the path tracer's bounce is two
+    queries and three gathers.  Returns ({kernel: count}, lanes)."""
+    from mitsuba_path_guiding_torch.integrators import vpl
+    from mitsuba_path_guiding_torch.integrators.render import PIXEL_BATCH
+
+    sh, ma, em = (_large(scene.geo.shade_packed), _large(scene.mats.packed),
+                  _large(scene.emitters.packed))
+    d = depth
+    lanes = None
+    if integrator == "ptracer":
+        waves = -(-n_pix * spp // PIXEL_BATCH)
+        q = g = (1 + 2 * d) * waves
+        big = (em + (sh + ma) * d) * waves
+        lanes = n_pix * spp * (1 + 2 * d)
+    elif integrator == "bdpt":
+        q1 = 1 + 4 * d + (d - 1) * d // 2
+        q, g = q1 * spp, (1 + 5 * d) * spp
+        big = (em * (1 + d) + (sh + ma) * 2 * d) * spp
+        lanes = q1 * n_pix * spp
+    elif integrator == "vpl":  # the VPLs are generated once a call
+        gd = max(d - 2, 1)
+        n_vpl = (gd + 1) * VPL_PATHS
+        chunks = -(-n_vpl // vpl._chunk_size(n_vpl, n_pix, 128))
+        q = gd + (1 + chunks) * spp
+        g = 1 + 2 * gd + (1 + 2 * chunks) * spp
+        big = em + (sh + ma) * gd + (sh + 2 * chunks * ma) * spp
+        lanes = VPL_PATHS * gd + (1 + n_vpl) * n_pix * spp
+    elif integrator == "ao":
+        q, g, big, lanes = 2 * spp, spp, sh * spp, 2 * n_pix * spp
+    else:  # the wavefront path tracer, in waves of at most PIXEL_BATCH pixels
+        waves = -(-n_pix // PIXEL_BATCH) * spp
+        q, g, big = 2 * d * waves, 3 * d * waves, (sh + ma + em) * d * waves
+    bvh = accel == "bvh"
+    return ({"intersect_tiled": 0 if bvh else q * groups, "intersect_bvh": q * groups if bvh else 0,
+             "gather_rows_t": g * groups, "gather_rows_t_large": big * groups},
+            None if lanes is None else lanes * groups)
+
+
+def integrator_groups(scene, name, fn, cfg, card, ref_key, lanes=None):
+    """fn(scene, cfg) in INT_GROUPS calls of cfg.spp, seeds 0 up: the
+    mean and standard error of their image means, held within max(3%, 4
+    sqrt(se_ref^2 + se^2)) of the JAX package's mean
+    (INTEGRATOR_REFERENCE[ref_key]).  Mrays/s counts the lanes of every
+    ray query (``lanes``), or, where fn renders through render() (lanes
+    None), 2 x the path segments.  Returns (first group's image, mean,
+    record)."""
+    import torch
+
+    means, first, secs, segs = [], None, 0.0, 0
+    for g in range(INT_GROUPS):
+        c = cfg._replace(seed=g)
+        if lanes is None:
+            img, dt, sg = render_counted(scene, c, fn)
+            segs += sg
+        else:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            img = fn(scene, c)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+        check(bool(torch.isfinite(img).all()), f"{name}: image not finite")
+        means.append(float(img.mean()))
+        first = img if first is None else first
+        secs += dt
+    mean = statistics.fmean(means)
+    se = statistics.stdev(means) / len(means) ** 0.5
+    ref = INTEGRATOR_REFERENCE[ref_key]
+    check(mean > 0.0, f"{name}: image is black")
+    tol = max(MEAN_TOL, 4.0 * (ref[1] ** 2 + se ** 2) ** 0.5 / ref[0])
+    rel = abs(mean - ref[0]) / ref[0]
+    check(rel < tol, f"{name}: mean {mean} vs reference {ref[0]} (tol {tol})")
+    rays = 2 * segs if lanes is None else lanes
+    rec = {"phase": name, "card": card, "resolution": f"{cfg.width}x{cfg.height}",
+           "spp": cfg.spp * INT_GROUPS, "max_depth": cfg.max_depth, "accel": cfg.accel,
+           "seconds": round(secs, 3), "mean": mean, "se": se, "group_means": means,
+           "mrays_per_s": rays / secs / 1e6, "rays": rays,
+           "reference_mean": ref[0], "reference_se": ref[1], "rel_err": rel, "rel_tol": tol,
+           "reference": "intrefs: tools/integrator_reference_means.py"}
+    return first, mean, rec
+
+
+def light_path_syncs(scene):
+    """Host syncs a wave (syncs_per_wave) of trace_light (131072
+    particles, render_ptracer's wave) and of trace_bdpt (the 256x256
+    image) on the Cornell box at depth 5, each with its light splat."""
+    import torch
+
+    from mitsuba_path_guiding_torch.core import rng
+    from mitsuba_path_guiding_torch.integrators import bdpt, ptracer
+    from mitsuba_path_guiding_torch.integrators.render import PIXEL_BATCH
+    from mitsuba_path_guiding_torch.models.bsdf import types_present
+    from mitsuba_path_guiding_torch.models.emitter import kinds_present
+
+    kw = dict(em_kinds=kinds_present(scene.emitters), mat_types=types_present(scene.mats),
+              max_depth=DEPTH)
+    key = rng.base_key(0, device=DEVICE)
+    pid = torch.arange(PIXEL_BATCH, device=DEVICE)
+    pix = torch.arange(W * H, device=DEVICE)
+    lkeys = rng.ray_keys(key, pid, torch.zeros_like(pid))
+    pkeys = rng.ray_keys(key, pix, torch.zeros_like(pix))
+    acc = torch.zeros((W * H, 3), device=DEVICE)
+
+    def light():
+        ptracer.splat_light(acc, ptracer.trace_light(scene, lkeys, W, H, **kw), W, H)
+
+    def bidir():
+        ptracer.splat_light(acc, bdpt.trace_bdpt(scene, pkeys, pix, W, H, **kw)[1], W, H)
+
+    out = {}
+    for name, fn in (("ptracer", light), ("bdpt", bidir)):
+        n, sites = syncs_per_wave(fn, INT_SYNC_WAVES)
+        out[name] = {"syncs_per_wave": n, "by_source_line": sites}
+    return out
+
+
+def run_integrators(ic, card):
+    """The integrators phase's renders, each between its own launch-count
+    reset and read, held to the launches integrator_launches gives: on the
+    Cornell box at the CLI's defaults (256x256, 16 spp, depth 5) the
+    forward path tracer and direct (render(), trace_fused), ao, ptracer,
+    bdpt, vpl and bdpt through the BVH; the point-light Cornell box at
+    depth 2 (path and bdpt); veach_mis at 512x512 (path and bdpt);
+    then the CLI's cornell -I bdpt.  Each mean is held to the JAX
+    package's, bdpt, ptracer and vpl to the cross-consistency bars against
+    the path tracer, direct to render() at depth 1, ptracer and bdpt to a
+    repeat of their first group bit for bit.  Returns their launch counts
+    by route."""
+    import torch
+
+    from mitsuba_path_guiding_torch import render as cli
+    from mitsuba_path_guiding_torch.film.film import read_pfm
+    from mitsuba_path_guiding_torch.integrators import aux_integrators, bdpt, ptracer, vpl
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig, render
+
+    funcs = {"path": render, "direct": aux_integrators.render_direct,
+             "ao": aux_integrators.render_ao, "ptracer": ptracer.render_ptracer,
+             "bdpt": bdpt.render_bdpt, "vpl": vpl.render_vpl}
+    counts, means, firsts = {}, {}, {}
+    spp = INT_SPP // INT_GROUPS
+
+    def run(scene_name, integrator, width=W, accel="auto"):
+        sc = ic[scene_name]
+        depth = INTEGRATOR_RUNS[scene_name][0]
+        cfg = RenderConfig(width=width, height=width, spp=spp, max_depth=depth, accel=accel)
+        route = f"int_{scene_name}_{integrator}" + ("_bvh" if accel == "bvh" else "")
+        if scene_name == "cornell" and integrator in ("path", "direct"):
+            # unguided render() takes trace_fused on Cornell, one launch a wave
+            expect, lanes = {"trace_fused": spp * INT_GROUPS}, None
+        else:
+            expect, lanes = integrator_launches(sc, integrator, depth, width * width, spp,
+                                                INT_GROUPS, accel)
+        (first, mean, rec), counts[route] = drive(
+            route, lambda: integrator_groups(sc, route, funcs[integrator], cfg, card,
+                                             f"{scene_name}/{integrator}", lanes),
+            {**NONE_LAUNCHED, **expect})
+        emit(rec)
+        means[route], firsts[route] = mean, (first, cfg)
+
+    for integrator in ("path", "direct", "ao", "ptracer", "bdpt", "vpl"):
+        run("cornell", integrator)
+    run("cornell", "bdpt", accel="bvh")
+    run("cornell_point", "path")
+    run("cornell_point", "bdpt")
+    run("veach", "path", width=VEACH_W)
+    run("veach", "bdpt", width=VEACH_W)
+
+    # direct is render() at depth 1; ptracer and bdpt repeat bit for bit
+    first, cfg = firsts["int_cornell_direct"]
+    check(torch.equal(first, render(ic["cornell"], cfg._replace(max_depth=1))),
+          "direct: not render() at depth 1")
+    repeats = {}
+    for route, fn in (("int_cornell_ptracer", ptracer.render_ptracer),
+                      ("int_cornell_bdpt", bdpt.render_bdpt),
+                      ("int_cornell_bdpt_bvh", bdpt.render_bdpt)):
+        first, cfg = firsts[route]
+        repeats[route] = bool(torch.equal(first, fn(ic["cornell"], cfg)))
+        check(repeats[route], f"{route}: a second call differs")
+
+    ratios = {}
+    for scene_name, integrator in (("cornell", "bdpt"), ("cornell", "ptracer"),
+                                   ("cornell", "vpl"), ("cornell_point", "bdpt"),
+                                   ("veach", "bdpt")):
+        r = means[f"int_{scene_name}_{integrator}"] / means[f"int_{scene_name}_path"]
+        ratios[f"{scene_name}/{integrator}"] = r
+        if scene_name != "veach":
+            lo, hi = INT_BARS[integrator]
+            check(lo < r < hi, f"{scene_name} {integrator}/path = {r}, bar ({lo}, {hi})")
+    r = means["int_cornell_bdpt_bvh"] / means["int_cornell_bdpt"]
+    check(abs(r - 1.0) < 0.01, f"bdpt through the BVH: {r} of the tiled route's mean")
+    ratios["cornell/bdpt_bvh_over_tiled"] = r
+
+    # the CLI's cornell -I bdpt at its defaults (256x256, 16 spp, depth 5)
+    out = os.path.join(texture_dir(), "cli_bdpt.pfm")
+    os.makedirs(texture_dir(), exist_ok=True)
+    sc = ic["cornell"]
+    expect, _ = integrator_launches(sc, "bdpt", DEPTH, W * H, INT_SPP, 1)
+
+    def cli_run():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cli.main(["cornell", "-I", "bdpt", "-o", out])
+        return time.time() - t0
+
+    secs, counts["int_cli_bdpt"] = drive("int_cli_bdpt", cli_run,
+                                        {**NONE_LAUNCHED, **expect, "trace_fused": 0})
+    img = read_pfm(out)
+    ref = INTEGRATOR_REFERENCE["cornell/bdpt"]
+    rel = abs(float(img.mean()) - ref[0]) / ref[0]
+    check(bool((img == img).all()) and img.mean() > 0.0, "cli bdpt: image not finite or black")
+    check(rel < MEAN_TOL, f"cli bdpt: mean {img.mean()} vs reference {ref[0]}")
+    emit({"phase": "int_cli_bdpt", "card": card, "argv": "cornell -I bdpt",
+          "seconds_with_scene_build": round(secs, 3), "mean": float(img.mean()),
+          "reference_mean": ref[0], "rel_err": rel})
+    emit({"phase": "integrator_consistency", "card": card, "ratios_to_path": ratios,
+          "bars": INT_BARS, "repeat_bit_equal": repeats,
+          "host_syncs": light_path_syncs(ic["cornell"])})
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -3443,12 +3846,17 @@ def main(argv=None):
     texs = texture_scenes()
     tex_checks = phase_texture_kernel_checks(texs, card)
     c_tex = run_textures(texs, scene, card)
+    # the light-path and auxiliary integrators: the kernel checks on their
+    # rays, then the renders and the CLI's -I bdpt
+    ics = integrator_scenes()
+    int_checks = phase_integrator_kernel_checks(ics, card)
+    c_int = run_integrators(ics, card)
     routes = {"progressive": c_prog, "frozen_render": c_frozen, "unguided_render": c_render,
               "progressive_adaptive": c_adaptive, "guiding_gain_bounce_lamp": c_bounce,
               "guiding_gain_door_room": c_door_gain,
               "door_room_progressive": c_door, "door_room_plk": c_plk, **interior["launches"],
               "door_room_twolevel": door_tl["launches"], "door_room_sorted_blocklist": c_sorted,
-              "door_room_bvh": c_bvh, **c_shading, **c_vocab, **c_vol, **c_tex}
+              "door_room_bvh": c_bvh, **c_shading, **c_vocab, **c_vol, **c_tex, **c_int}
     launches = {k: {r: c[k] for r, c in routes.items()} for k in c_prog}
 
     entries = phase_timings(scene, veach, tables, grid, checks, launches, card)
@@ -3459,7 +3867,9 @@ def main(argv=None):
     entries[0]["calls"].update({"coat_table_random": vocab_checks["gather_rows_t_coat_random"],
                                 "coat_table_wave": vocab_checks["gather_rows_t_coat_wave"],
                                 "volbox_shading_rows": vol_checks["gather_rows_t_volbox_shading"],
-                                "vertex_colour_table_wave": tex_checks["gather_rows_t_vcol_wave"]})
+                                "vertex_colour_table_wave": tex_checks["gather_rows_t_vcol_wave"],
+                                "light_path_emitter_hits":
+                                    int_checks["gather_rows_t_emitter_hits"]})
     entries += new_entries
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -64,6 +64,10 @@ INFD = 3.0e37
 # (cap*N + dummies sorted pairs run) and the tile engine ("mt" or "plk").
 PAIR_CAP = 5
 PAIR_ENGINE = "mt"
+# route_dense_or_bvh's "auto" takes the dense tiled intersector up to this
+# many triangles and the BVH above, as the reference routes its volumetric
+# and light-path integrators
+BRUTE_FORCE_MAX_TRIS = 16384
 
 
 class PathAux(NamedTuple):
@@ -200,6 +204,19 @@ def route_queries(scene: SceneData, accel: str, use_bvh: bool = False):
         def occluded(o, d, tmax):
             return occluded_pallas(geo, o, d, tmax, pack=pack)
     return intersect, occluded
+
+
+def route_dense_or_bvh(scene: SceneData, accel: str = "auto", use_bvh: bool = False):
+    """``route_queries`` of the integrators that the reference routes to
+    its dense oracle or its BVH (the volumetric tracer, the light-path
+    integrators, the auxiliary ones): "auto" takes the tiled kernel at
+    BRUTE_FORCE_MAX_TRIS triangles or fewer and the BVH above them or with
+    ``use_bvh``; any other ``accel`` goes to ``route_queries`` as named.
+    The tiled kernel has the dense oracle's winner."""
+    if accel == "auto":
+        big = use_bvh or scene.geo.p0.shape[0] > BRUTE_FORCE_MAX_TRIS
+        accel = "bvh" if big else "pallas"
+    return route_queries(scene, accel)
 
 
 def trace(

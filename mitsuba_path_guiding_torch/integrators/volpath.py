@@ -52,7 +52,7 @@ from mitsuba_path_guiding_torch.integrators.path import (
     PathAux,
     PathRecord,
     _offset_ray,
-    route_queries,
+    route_dense_or_bvh,
 )
 from mitsuba_path_guiding_torch.models import bsdf as bsdf_mod
 from mitsuba_path_guiding_torch.models import emitter as em_mod
@@ -74,9 +74,6 @@ from mitsuba_path_guiding_torch.scene.types import BSDFType, SceneData
 # key salts of the tracking loops (apart from the bounce tags)
 TAG_TRACK_DIST = 2 << 20
 TAG_TRACK_NEE = 3 << 20
-# "auto" takes the dense tiled intersector up to this many triangles and
-# the BVH above, as the reference routes its volumetric tracer
-BRUTE_FORCE_MAX_TRIS = 16384
 
 
 def transmittance(sigma_t: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
@@ -125,10 +122,7 @@ def trace_vol(
     sigma_s = med.sigma_s
     g_hg = med.phase_g
 
-    if accel == "auto":
-        big = use_bvh or geo.p0.shape[0] > BRUTE_FORCE_MAX_TRIS
-        accel = "bvh" if big else "pallas"
-    intersect, occluded = route_queries(scene, accel)
+    intersect, occluded = route_dense_or_bvh(scene, accel, use_bvh)
 
     # microflake media have a directional extinction: sigma_t(w) scales
     # with the flakes' projected area along w, normalised by its mean over

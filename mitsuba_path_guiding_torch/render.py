@@ -8,6 +8,7 @@ rendered by the volumetric tracer with guided distance sampling).
   python -m mitsuba_path_guiding_torch.render veach -o out.npy -s 64 -G --device cpu
   python -m mitsuba_path_guiding_torch.render volbox -o vol.npy -r 32x32 -s 4 --device cpu
   python -m mitsuba_path_guiding_torch.render cornell -o c.exr -s 16 --denoise --aovs
+  python -m mitsuba_path_guiding_torch.render cornell -I bdpt -o b.exr
 
   -o FILE      output (exr/pfm/png/npy; default <scene>.exr)
   -s N         samples per pixel (default 16)
@@ -16,6 +17,9 @@ rendered by the volumetric tracer with guided distance sampling).
   -g / -G      enable / disable path guiding (default: on)
   -p N         samples per progression (default 4)
   -t SEC       time budget
+  -I NAME      integrator: guided (default; the progressive guided path
+               tracer), path, direct, ao, ptracer, bdpt or vpl; pssmlt,
+               mlt, erpt, sppm and photonmapper are not ported yet
   --seed N     random seed
   --denoise    denoise the image (the neural denoiser over 4 spp of
                albedo, normal and depth feature buffers)
@@ -23,13 +27,44 @@ rendered by the volumetric tracer with guided distance sampling).
   --device D   cuda (default) or cpu
 
 The default is the guided progressive render on the card; without a card
-it raises unless ``--device cpu`` is given.
+it raises unless ``--device cpu`` is given.  The other integrators render
+once at the given spp (``--denoise`` and ``--aovs`` need ``guided``).
 """
 from __future__ import annotations
 
 import argparse
 import sys
 import time
+
+INTEGRATORS = ("guided", "path", "bdpt", "pssmlt", "mlt", "erpt", "sppm", "vpl", "ptracer",
+               "photonmapper", "direct", "ao")
+NOT_PORTED = ("pssmlt", "mlt", "erpt", "sppm", "photonmapper")
+
+
+def render_once(name: str, scene, cfg):
+    """The image of a one-shot integrator (every ``-I`` choice but
+    ``guided``)."""
+    if name in NOT_PORTED:
+        raise NotImplementedError(f"integrator '{name}' is not ported yet: ROADMAP item 9")
+    if name == "path":
+        from mitsuba_path_guiding_torch.integrators.render import render
+        return render(scene, cfg)
+    if name == "bdpt":
+        from mitsuba_path_guiding_torch.integrators.bdpt import render_bdpt
+        return render_bdpt(scene, cfg)
+    if name == "vpl":
+        from mitsuba_path_guiding_torch.integrators.vpl import render_vpl
+        return render_vpl(scene, cfg)
+    if name == "ptracer":
+        from mitsuba_path_guiding_torch.integrators.ptracer import render_ptracer
+        return render_ptracer(scene, cfg)
+    if name == "direct":
+        from mitsuba_path_guiding_torch.integrators.aux_integrators import render_direct
+        return render_direct(scene, cfg)
+    if name == "ao":
+        from mitsuba_path_guiding_torch.integrators.aux_integrators import render_ao
+        return render_ao(scene, cfg)
+    raise ValueError(f"unknown integrator '{name}'")
 
 
 def main(argv=None):
@@ -44,11 +79,14 @@ def main(argv=None):
     ap.add_argument("-G", "--no-guide", dest="guide", action="store_false")
     ap.add_argument("-p", "--pass-size", type=int, default=4)
     ap.add_argument("-t", "--time-budget", type=float, default=0.0)
+    ap.add_argument("-I", "--integrator", default="guided", choices=INTEGRATORS)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--denoise", action="store_true")
     ap.add_argument("--aovs", action="store_true", help="also write albedo/normal/depth AOVs")
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
+    if args.integrator != "guided" and (args.denoise or args.aovs):
+        ap.error("--denoise and --aovs need -I guided")
 
     def log(*a):
         print(*a, file=sys.stderr, flush=True)
@@ -68,9 +106,18 @@ def main(argv=None):
     width, height = (int(x) for x in args.resolution.lower().split("x"))
     out = args.output or f"{args.scene}.exr"
     log(f"scene: {args.scene}  {width}x{height}@{args.spp}spp depth={args.depth} "
-        f"guiding={'on' if args.guide else 'off'}")
+        f"integrator={args.integrator} guiding={'on' if args.guide else 'off'}")
     scene = build_scene(builtins[args.scene](), device=args.device)
     log(f"scene compiled on {scene.geo.p0.device}: {int(scene.geo.p0.shape[0])} triangles")
+    if args.integrator != "guided":
+        t0 = time.time()
+        img = render_once(args.integrator, scene, RenderConfig(
+            width=width, height=height, spp=args.spp, max_depth=args.depth, rr_depth=5,
+            seed=args.seed)).cpu().numpy()
+        log(f"render time ({args.integrator}): {time.time() - t0:.1f}s")
+        write_image(out, img)
+        log(f"wrote {out}  (mean {img.mean():.4f})")
+        return 0
     rcfg = RenderConfig(width=width, height=height, spp=0, max_depth=args.depth,
                         rr_depth=5, seed=args.seed)
     n_prog = max(1, (args.spp + args.pass_size - 1) // args.pass_size)

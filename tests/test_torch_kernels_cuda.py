@@ -650,3 +650,62 @@ def test_denoiser_card_equals_cpu(card):
     got = denoise_neural(*(b.cuda() for b in bufs))
     assert load_net(got.device) is not None
     torch.testing.assert_close(got.cpu(), denoise_neural(*bufs), rtol=1e-4, atol=1e-6)
+
+
+def _image_close(got, want, rtol=1e-3):
+    """The 16x16 parity bars: means within rtol relative, >= 99% of pixels
+    within rtol (atol 1e-6)."""
+    got, want = got.cpu(), want.cpu()
+    assert abs(float(got.mean()) / float(want.mean()) - 1.0) < rtol
+    close = torch.isclose(got, want, rtol=rtol, atol=1e-6).all(dim=-1)
+    assert float(close.float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("integrator", ["ptracer", "bdpt"])
+def test_light_path_renders_repeat_and_equal_the_cpus(card, integrator):
+    """render_ptracer and render_bdpt on the Cornell box at 16x16: two
+    calls on the card give the same image bit for bit (the light splats
+    add in an order fixed by the data), and the card's image meets the
+    CPU's within the parity tests' bars (the card rounds transcendentals
+    apart from the CPU)."""
+    from mitsuba_path_guiding_torch.integrators import bdpt, ptracer
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig
+
+    fn = ptracer.render_ptracer if integrator == "ptracer" else bdpt.render_bdpt
+    cfg = RenderConfig(width=16, height=16, spp=4, max_depth=5, seed=2)
+    img = fn(card, cfg)
+    assert torch.equal(fn(card, cfg), img)
+    _image_close(img, fn(build_scene(cornell_box(), device="cpu"), cfg))
+
+
+def test_sample_ray_on_the_card_equals_the_cpus(card):
+    """sample_ray of every kind the test scene holds (area, point, spot,
+    directional, envmap) on 65536 lanes: valid and infinite equal, every
+    field within rtol 1e-5 (atol 1e-6) on >= 99.9% of lanes."""
+    import numpy as np
+
+    from mitsuba_path_guiding_torch.models.emitter import kinds_present, sample_ray
+    from mitsuba_path_guiding_torch.scene.transforms import look_at
+
+    desc = cornell_box()
+    rs = np.random.default_rng(3)
+    desc["emitters"] = [
+        {"type": "point", "position": [0.3, 1.5, -0.2], "intensity": [3.0, 2.0, 1.0]},
+        {"type": "spot", "to_world": look_at([1.0, 1.8, 0.0], [0, 0, 0]),
+         "intensity": [5.0, 4.0, 3.0], "cutoff_angle": 30.0},
+        {"type": "directional", "direction": [0.0, -1.0, 0.0]},
+        {"type": "envmap", "image": rs.random((8, 16, 3)).astype(np.float32)}]
+    u = torch.rand((65536, 5), generator=torch.Generator().manual_seed(4))
+    out = []
+    for dev in ("cuda", "cpu"):
+        sc = build_scene(desc, device=dev)
+        out.append(sample_ray(sc.emitters, sc.aabb_min, sc.aabb_max, u.to(dev),
+                              kinds=kinds_present(sc.emitters)))
+    got, want = out
+    assert torch.equal(got.valid.cpu(), want.valid) and torch.equal(got.infinite.cpu(), want.infinite)
+    for f in ("o", "d", "weight", "normal", "emit_weight", "emission_pdf_w", "direct_pdf_a",
+              "cos_light"):
+        a, b = getattr(got, f).cpu(), getattr(want, f)
+        close = torch.isclose(a, b, rtol=1e-5, atol=1e-6)
+        close = close.all(dim=-1) if close.dim() > 1 else close
+        assert float(close.float().mean()) >= 0.999, f
