@@ -185,6 +185,25 @@ Phases:
      to render() at depth 1; ptracer and bdpt repeating bit for bit; the
      CLI's cornell -I bdpt; the host syncs a wave of ptracer and bdpt by
      source line; seconds and query-lane Mrays/s of each render.
+  17. "chains" (slice 10): intersect_tiled and the BVH bit-equal to their
+     plain versions, closest and any-hit, on an SPPM photon wave's
+     first-bounce rays on the Cornell box (131072 photons), one MLT
+     perturbation's reconnection shadow rays on the caustic box (4096
+     chains) and a volume photon wave's rays in the medium box (65536
+     photons), gather_rows_t bit-equal on the MLT bootstrap's hits; then
+     on the Cornell box at the CLI's defaults (256x256, 16 spp, depth 5)
+     pssmlt, mlt, erpt, sppm and photonmapper through render_once (sppm
+     through the BVH too), each twice and bit-equal, each image's mean
+     over the path tracer's inside the JAX tests' bars, the BVH's within
+     1% of the tiled route's; the CLI's cornell -I sppm; the JAX package's
+     MLT, PSSMLT, ERPT, SPPM and photon-mapper tests' runs (CHAIN_RUNS on
+     chain_descs' scenes, 4 seeds each, 2 for ERPT) against JAX CPU means
+     (CHAIN_REFERENCE, tools/chain_reference_means.py) and against the
+     path tracer with the tests' bars (CHAIN_BARS), path space beating
+     PSS on the caustic box, mlt through the BVH within 1% of the tiled
+     route; the volume photon map's beam estimate within 15% of
+     trace_vol, repeating bit for bit; the host syncs a step; seconds and
+     query-lane Mrays/s of each render.
 
 Each main-path route runs with the launch counts set to 0 just before it
 and read just after it, and is held to the kernels it must launch: the
@@ -211,7 +230,13 @@ the textures' renders to two tiled launches a bounce and three gathers
 to the launches integrator_launches counts (a light-path bounce two
 queries and two gathers, a BDPT camera bounce a third gather and a wave
 (D - 1) D / 2 interior shadow queries, a VPL chunk one query and two
-gathers; the Cornell path tracer and direct one trace_fused a wave).
+gathers; the Cornell path tracer and direct one trace_fused a wave); the
+chains' renders to the launches chain_launches counts (a PSSMLT or ERPT
+trace two queries and three gathers a bounce; an MLT path a query and
+two gathers a bounce, a perturbation V + 1 queries and 4V + 3 gathers;
+an SPPM pass 2D queries and 4D + 2 gathers; the photon mapper's photon
+wave D queries and 2D + 1 gathers, a camera sample D + 2 and 2D + 3; a
+volume photon wave D queries and one gather).
 """
 from __future__ import annotations
 
@@ -3723,6 +3748,663 @@ def run_integrators(ic, card):
     return counts
 
 
+# ---- the chains phase (slice 10): the Markov-chain and photon-map
+# integrators behind the CLI's -I
+
+
+def chain_descs(mod):
+    """The chains phase's scenes from a scenes module (the port's or the
+    JAX package's) and the transforms beside it:
+    - cornell: the Cornell box;
+    - big_light_box: the Cornell box with a 0.6-scaled area light
+      (tests/test_mlt.py), where unidirectional paths find the light often;
+    - caustic_box: big_light_box with a mirror slab, lighting the floor
+      through E-D-S-L paths (tests/test_mlt.py);
+    - floor_point: a diffuse floor under a point light (tests/test_sppm.py);
+    - glossy_floor: the Cornell box with a rough-conductor floor of alpha
+      0.06, below the direction bins' resolution: SPPM's per-photon route
+      (tests/test_sppm.py);
+    - medium_box: a black box of a homogeneous medium around a point light
+      (tests/test_volphoton.py)."""
+    import importlib
+
+    tf = importlib.import_module(mod.__name__.rsplit(".", 1)[0] + ".transforms")
+    big = mod.cornell_box(light_scale=1.0)
+    for shape in big["shapes"]:
+        if "emitter" in shape:
+            shape["to_world"] = (tf.translate(0, 1.995, 0) @ tf.rotate([1, 0, 0], 90)
+                                 @ tf.scale(0.6))
+    caustic = mod.cornell_box(light_scale=1.0)
+    caustic["shapes"] = [dict(sh) for sh in big["shapes"]] + [{
+        "type": "rectangle",
+        "to_world": tf.translate(-0.55, 0.7, 0.2) @ tf.rotate([0, 1, 0], 55) @ tf.scale(0.35),
+        "bsdf": {"type": "conductor", "material": "none"}}]
+    floor = {
+        "sensor": {"type": "perspective", "fov": 45.0,
+                   "to_world": tf.look_at([0, 2, -4], [0, 0, 0])},
+        "shapes": [{"type": "rectangle", "to_world": tf.rotate([1, 0, 0], -90) @ tf.scale(2.0),
+                    "bsdf": {"type": "diffuse", "reflectance": [0.6] * 3}}],
+        "emitters": [{"type": "point", "position": [0, 2.5, 0], "intensity": [8.0] * 3}]}
+    glossy = mod.cornell_box()
+    glossy["shapes"][0]["bsdf"] = {"type": "roughconductor", "alpha": 0.06, "material": "none",
+                                   "specular_reflectance": [0.9, 0.9, 0.9]}
+    black = {"type": "diffuse", "reflectance": [0.0, 0.0, 0.0]}
+    walls = [((0, 0, -2), tf.rotate([1, 0, 0], 0)), ((0, 0, 2), tf.rotate([0, 1, 0], 180)),
+             ((-2, 0, 0), tf.rotate([0, 1, 0], 90)), ((2, 0, 0), tf.rotate([0, 1, 0], -90)),
+             ((0, -2, 0), tf.rotate([1, 0, 0], -90)), ((0, 2, 0), tf.rotate([1, 0, 0], 90))]
+    medium = {
+        "shapes": [{"type": "rectangle", "to_world": tf.translate(*p) @ r @ tf.scale(2.0),
+                    "bsdf": black} for p, r in walls],
+        "emitters": [{"type": "point", "position": [0.0, 0.0, 0.0],
+                      "intensity": [4.0, 4.0, 4.0]}],
+        "medium": {"sigma_s": [0.6] * 3, "sigma_a": [0.1] * 3, "g": 0.0},
+        "sensor": {"type": "perspective", "fov": 60.0,
+                   "to_world": tf.look_at([0, 0, -1.9], [0, 0, 0])}}
+    return {"cornell": mod.cornell_box(), "big_light_box": big, "caustic_box": caustic,
+            "floor_point": floor, "glossy_floor": glossy, "medium_box": medium}
+
+
+# The JAX package's tests of the chain and photon integrators
+# (tests/test_mlt.py, test_ptracer.py, test_vpl_erpt.py, test_sppm.py,
+# test_photonmapper.py) as runs of chain_descs' scenes: name -> (scene,
+# integrator, resolution, spp (mutations a pixel for the chains, camera
+# samples for the photon mapper), max_depth, the test's seed, the
+# integrator's keyword arguments).
+CHAIN_RUNS = {
+    "mlt_big": ("big_light_box", "mlt", 16, 768, 4, 5, {"n_chains": 4096}),
+    "mlt_caustic": ("caustic_box", "mlt", 16, 768, 4, 7, {"n_chains": 4096}),
+    "mlt_caustic_512": ("caustic_box", "mlt", 16, 512, 4, 3, {"n_chains": 4096}),
+    "pssmlt_caustic_512": ("caustic_box", "pssmlt", 16, 512, 4, 3, {"n_chains": 4096}),
+    "pssmlt_cornell": ("cornell", "pssmlt", 24, 96, 4, 1,
+                       {"n_chains": 4096, "bootstrap_factor": 8}),
+    "erpt_cornell": ("cornell", "erpt", 16, 24, 4, 11, {"chain_length": 12}),
+    "sppm_floor": ("floor_point", "sppm", 24, 1, 2, 1,
+                   {"n_iterations": 5, "photons_per_iter": 32768}),
+    "sppm_cornell": ("cornell", "sppm", 24, 1, 5, 0,
+                     {"n_iterations": 6, "photons_per_iter": 32768}),
+    "sppm_glossy": ("glossy_floor", "sppm", 24, 1, 4, 0,
+                    {"n_iterations": 8, "photons_per_iter": 32768}),
+    "pm_cornell": ("cornell", "photonmapper", 16, 24, 4, 5, {"n_photons": 65536}),
+}
+# runs without a JAX CPU mean: the narrow-glossy gather unrolls 256
+# per-photon BSDF evaluations, and its compile alone takes minutes
+CHAIN_NO_REFERENCE = ("sppm_glossy",)
+
+
+CHAIN_GROUPS = 4        # seeds of each CHAIN_RUNS run on the card: the test's and the next three
+CHAIN_GROUPS_OF = {"erpt_cornell": 2}   # but two of ERPT's (1248 traces of 256 lanes a seed)
+CHAIN_CLI = ("pssmlt", "mlt", "erpt", "sppm", "photonmapper")
+# The JAX tests' bars against the path tracer of the same scene: run ->
+# (the path tracer's resolution, spp, max_depth, seed, use_nee; the bar):
+# ("rel", r): means within r; ("rel_corr", (r, c)): and the pixels'
+# correlation above c; ("ratio", (lo, hi)): the ratio of the means.
+CHAIN_BARS = {
+    "mlt_big": ((16, 512, 4, 0, False), ("rel", 0.12)),
+    "mlt_caustic": ((16, 512, 4, 2, False), ("rel", 0.15)),
+    "pssmlt_cornell": ((24, 96, 4, 0, True), ("rel_corr", (0.12, 0.9))),
+    "erpt_cornell": ((16, 256, 4, 3, True), ("rel", 0.06)),
+    "sppm_floor": ((24, 64, 2, 1, True), ("rel", 0.08)),
+    "sppm_cornell": ((24, 96, 5, 0, True), ("rel_corr", (0.12, 0.95))),
+    "sppm_glossy": ((24, 192, 4, 0, True), ("rel_corr", (0.2, 0.9))),
+    "pm_cornell": ((16, 256, 4, 3, True), ("ratio", (0.80, 1.20))),
+}
+# path space beats primary-sample space at 512 mutations a pixel on the
+# caustic box: squared error against this path-traced image
+CHAIN_PSS_REFERENCE = (16, 2048, 4, 11, False)
+# the CLI's defaults on the Cornell box, each image's ratio to the path
+# tracer's at the same defaults, held to the JAX tests' bars
+CHAIN_CLI_BARS = {"pssmlt": (0.88, 1.12), "mlt": (0.88, 1.12), "erpt": (0.94, 1.06),
+                  "sppm": (0.88, 1.12), "photonmapper": (0.80, 1.20)}
+# tests/test_volphoton.py: 6 waves of 65536 volume photons at depth 6, a
+# 0.12 gather radius, 4096 camera rays with 16 beam points each, against
+# trace_vol at 24 spp; |ratio - 1| < 0.15
+VOLPHOTON = {"photons": 65536, "waves": 6, "depth": 6, "r": 0.12, "rays": 4096, "taps": 16,
+             "spp": 24, "bar": 0.15}
+CHAIN_SYNC_CALLS = 2
+# Image means of the JAX package on the CPU, one render a run at the
+# test's seed, by tools/chain_reference_means.py ("chainrefs"; 284.6 s
+# on the CPU).
+CHAIN_REFERENCE = {
+    "mlt_big": 0.6844627261161804,
+    "mlt_caustic": 0.6569505929946899,
+    "mlt_caustic_512": 0.6602808833122253,
+    "pssmlt_caustic_512": 0.6612117290496826,
+    "pssmlt_cornell": 0.11029162257909775,
+    "erpt_cornell": 0.11289000511169434,
+    "sppm_floor": 0.08578630536794662,
+    "sppm_cornell": 0.1148117259144783,
+    "pm_cornell": 0.11667612195014954,
+}
+
+
+def chain_scenes():
+    from mitsuba_path_guiding_torch.scene import scenes
+    from mitsuba_path_guiding_torch.scene.builder import build_scene
+
+    return {k: build_scene(v, device=DEVICE) for k, v in chain_descs(scenes).items()}
+
+
+def chain_funcs():
+    from mitsuba_path_guiding_torch.integrators import erpt, mlt, photonmapper, pssmlt, sppm
+
+    return {"mlt": mlt.render_mlt, "pssmlt": pssmlt.render_pssmlt, "erpt": erpt.render_erpt,
+            "sppm": sppm.render_sppm, "photonmapper": photonmapper.render_photonmapper}
+
+
+def chain_launches(integrator, depth, res, spp, kw, bvh=False):
+    """The launches of one render: a trace bounce (PSSMLT, ERPT) is two
+    queries and three gathers; an MLT path bounce a query and two gathers
+    (the last one gather), a perturbation V + 1 queries and 4V + 3
+    gathers (2V - 1 of them its re-evaluation's), a large step a traced
+    path;
+    an SPPM pass 2D queries and 4D + 2 gathers; the photon mapper's photon
+    wave D queries and 2D + 1 gathers, a camera sample D + 2 queries and
+    2D + 3 gathers."""
+    d = depth
+    if integrator in ("pssmlt", "erpt"):
+        if integrator == "pssmlt":
+            traces = 1 + max(res * res * spp // kw.get("n_chains", 8192), 1)
+        else:
+            traces = spp * (1 + kw.get("chain_length", 16))
+        q, g = 2 * d * traces, 3 * d * traces
+    elif integrator == "mlt":
+        steps = max(res * res * spp // kw.get("n_chains", 4096), 1)
+        large = (steps + 3) // 4
+        pert = steps - large
+        q = d * (1 + large) + (d + 1) * pert
+        g = (2 * d - 1) * (1 + large) + (4 * d + 3) * pert
+    elif integrator == "sppm":
+        it = kw.get("n_iterations", 8)
+        q, g = 2 * d * it, (4 * d + 2) * it
+    else:  # photonmapper
+        s = max(spp, 1)
+        q, g = d + (d + 2) * s, 1 + 2 * d + (2 * d + 3) * s
+    return {"intersect_tiled": 0 if bvh else q, "intersect_bvh": q if bvh else 0,
+            "gather_rows_t": g, "gather_rows_t_large": 0}
+
+
+class QueryLanes:
+    """Counts the lanes of every intersect_tiled and BVH launch while on
+    (all lanes, and live lanes: tmax >= 0, summed on the card)."""
+
+    def __init__(self):
+        from mitsuba_path_guiding_torch.ops import intersect_bvh, intersect_tiled
+
+        self.mods = ((intersect_tiled, "intersect_tiled_cuda"), (intersect_bvh, "bvh_cuda"))
+        self.lanes, self.live = 0, []
+
+    def __enter__(self):
+        self.saved = [getattr(m, a) for m, a in self.mods]
+        for (m, a), real in zip(self.mods, self.saved):
+            def counted(*args, _real=real, **kw):
+                o, tmax = args[1], args[3]
+                self.lanes += o.shape[0]
+                self.live.append((tmax >= 0).sum())
+                return _real(*args, **kw)
+            setattr(m, a, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, a), real in zip(self.mods, self.saved):
+            setattr(m, a, real)
+
+    def live_lanes(self):
+        return int(sum(int(x) for x in self.live))
+
+
+def timed_render(fn):
+    """(fn()'s result, seconds, query lanes, live query lanes)."""
+    import torch
+
+    with QueryLanes() as ql:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+    return out, dt, ql.lanes, ql.live_lanes()
+
+
+def wide_path_render(scene, res, spp, depth, seed, use_nee, lanes=1 << 17):
+    """The path tracer's image of render() (the same samples), in waves of
+    about ``lanes`` lanes: spp planes of the image a wave."""
+    import torch
+
+    from mitsuba_path_guiding_torch.film.film import Film, develop, new_film, splat
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig, render_wave
+
+    cfg = RenderConfig(width=res, height=res, spp=spp, max_depth=depth, seed=seed,
+                       use_nee=use_nee)
+    n_pix = res * res
+    k = max(1, lanes // n_pix)
+    rgbw = new_film(res, res, device=DEVICE).rgb_weight
+    for s0 in range(0, spp, k):
+        m = min(k, spp - s0)
+        pix = torch.arange(n_pix, device=DEVICE).repeat(m)
+        sidx = torch.arange(s0, s0 + m, device=DEVICE).repeat_interleave(n_pix)
+        film_xy, L, _ = render_wave(scene, cfg, pix, sidx)
+        rgbw = splat(rgbw, film_xy, L, res, res)
+    return develop(Film(rgb_weight=rgbw, width=res, height=res))
+
+
+def record_queries(module, fn):
+    """fn() with ``module``'s route_dense_or_bvh wrapped: returns (fn()'s
+    result, the (o, d, tmax, any_hit) of every query, in order)."""
+    from mitsuba_path_guiding_torch.integrators.path import route_dense_or_bvh
+
+    calls = []
+
+    def recording(scene, accel="auto", use_bvh=False):
+        intersect, occluded = route_dense_or_bvh(scene, accel, use_bvh)
+
+        def rec_intersect(o, d, tmax):
+            calls.append((o, d, tmax, False))
+            return intersect(o, d, tmax)
+
+        def rec_occluded(o, d, tmax):
+            calls.append((o, d, tmax, True))
+            return occluded(o, d, tmax)
+        return rec_intersect, rec_occluded
+
+    real = module.route_dense_or_bvh
+    module.route_dense_or_bvh = recording
+    try:
+        return fn(), calls
+    finally:
+        module.route_dense_or_bvh = real
+
+
+def bvh_check(bvh, o, d, tmax, label):
+    """The BVH kernel against bvh_plain, closest hit and any-hit: every
+    output bit equal on every lane."""
+    import torch
+
+    from mitsuba_path_guiding_torch.ops.intersect_bvh import bvh_cuda, bvh_plain
+
+    out = {}
+    for any_hit in (False, True):
+        got = bvh_cuda(bvh, o, d, tmax, any_hit)
+        want = bvh_plain(bvh, o, d, tmax, any_hit)
+        torch.cuda.synchronize()
+        differ = [int((_bits(a) != _bits(b)).sum()) for a, b in zip(got, want)]
+        check(not any(differ), f"bvh {label} any_hit={any_hit}: lanes differing by output "
+                               f"{differ}")
+        out["any" if any_hit else "closest"] = {
+            "rays": o.shape[0], "bit_equal": True,
+            "hit_share": float((got[1] >= 0).float().mean())}
+    return out
+
+
+def chain_kernel_rays(cs):
+    """The three ray sets of the chains phase's kernel checks and the MLT
+    bootstrap's hits: an SPPM photon pass's first bounce rays on the
+    Cornell box (131072 photons; origins on the walls, dead lanes tmax
+    -1), the reconnection shadow rays of one perturbation of the caustic
+    box's 4096 MLT chains, and a volume photon pass's surface rays in the
+    medium box (65536 photons, depth 6)."""
+    import torch
+
+    from mitsuba_path_guiding_torch.core import rng
+    from mitsuba_path_guiding_torch.integrators import mlt, sppm, volphoton
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig
+    from mitsuba_path_guiding_torch.models.emitter import kinds_present
+
+    sc = cs["cornell"]
+    ids = torch.arange(1 << 17, dtype=torch.int32, device=DEVICE) + (1 << 24)
+    rk = rng.ray_keys(rng.base_key(0, device=DEVICE), ids, torch.zeros_like(ids))
+    _, calls = record_queries(sppm, lambda: sppm.photon_pass(
+        sc, rk, max_depth=DEPTH, em_kinds=kinds_present(sc.emitters)))
+    photon_bounce = calls[1][:3]
+
+    cb = cs["caustic_box"]
+    cfg = RenderConfig(width=W, height=H, spp=1, max_depth=4)
+    st = mlt.scene_statics(cb, cfg)
+    shadow, hits = [], []
+
+    def rec_occluded(o, d, tmax):
+        shadow.append((o, d, tmax))
+        return st.occluded(o, d, tmax)
+
+    def rec_intersect(o, d, tmax):
+        hit = st.intersect(o, d, tmax)
+        hits.append(hit.prim)
+        return hit
+
+    key = rng.base_key(1, device=DEVICE)
+    boot = mlt._trace_path(cb, cfg, rng.uniform_shape(key, (2 + 3 * 4, 4096)),
+                           st._replace(intersect=rec_intersect))
+    mlt._perturb(cb, cfg, st._replace(occluded=rec_occluded), boot,
+                 rng.uniform_shape(rng.fold_in(key, 1), (9, 4096)))
+
+    mb = cs["medium_box"]
+    pk = rng.ray_keys(rng.base_key(5, device=DEVICE), torch.zeros(1 << 16, dtype=torch.int64,
+                                                                   device=DEVICE),
+                      torch.arange(1 << 16, device=DEVICE))
+    _, vcalls = record_queries(volphoton, lambda: volphoton.volume_photon_pass(
+        mb, pk, max_depth=VOLPHOTON["depth"], em_kinds=kinds_present(mb.emitters)))
+    return {"sppm_photon_bounce": (sc, photon_bounce),
+            "mlt_reconnection": (cb, shadow[0]),
+            "volume_photon_surface": (mb, vcalls[1][:3])}, (cb, hits)
+
+
+def phase_chain_kernel_checks(cs, card):
+    """intersect_tiled against tiled_plain and the BVH kernel against
+    bvh_plain, closest hit and any-hit, every output bit equal on every
+    lane, on chain_kernel_rays' three sets; gather_rows_t bit-equal on
+    the shading rows of the MLT bootstrap's first hits (timed as
+    gather_call times it)."""
+    import torch
+
+    sets, (cb, hits) = chain_kernel_rays(cs)
+    res = {}
+    for label, (sc, (o, d, tmax)) in sets.items():
+        n_tri = sc.geo.p0.shape[0]
+        res[f"intersect_tiled_{label}"] = tiled_check(sc.geo, o, d, tmax, n_tri, label)
+        res[f"bvh_{label}"] = bvh_check(sc.bvh, o, d, tmax, label)
+    res["gather_rows_t_mlt_bootstrap_hits"] = gather_call(
+        cb.geo.shade_packed, hits[0].clamp_min(0).to(torch.int32))
+    emit({"phase": "chain_kernel_checks", "card": card, **res})
+    return res
+
+
+def bar_check(name, img, ref, bar):
+    """A JAX test's bar (CHAIN_BARS) on img against the path tracer's ref;
+    returns the numbers read."""
+    import numpy as np
+
+    a, b = img.cpu().numpy(), ref.cpu().numpy()
+    kind, val = bar
+    ratio = float(a.mean() / b.mean())
+    out = {"ratio_to_path": ratio}
+    if kind in ("rel", "rel_corr"):
+        r = val if kind == "rel" else val[0]
+        check(abs(ratio - 1.0) < r, f"{name}: mean ratio to the path tracer {ratio}, bar {r}")
+    if kind == "rel_corr":
+        corr = float(np.corrcoef(b.mean(-1).ravel(), a.mean(-1).ravel())[0, 1])
+        out["corr"] = corr
+        check(corr > val[1], f"{name}: correlation with the path tracer {corr}, bar {val[1]}")
+    if kind == "ratio":
+        check(val[0] < ratio < val[1], f"{name}: ratio to the path tracer {ratio}, bar {val}")
+    if name == "mlt_big":
+        k = b.shape[0] // 4
+        rb = b.reshape(4, k, 4, k, 3).mean(axis=(1, 3))
+        mb = a.reshape(4, k, 4, k, 3).mean(axis=(1, 3))
+        out["block_rel"] = float((np.abs(mb - rb) / np.maximum(rb, 5e-2)).mean())
+        check(out["block_rel"] < 0.35, f"mlt_big: 4x4-block error {out['block_rel']}")
+    return out
+
+
+def run_chain_tests(cs, card):
+    """Each CHAIN_RUNS run at CHAIN_GROUPS seeds (CHAIN_GROUPS_OF's
+    count for its runs; the JAX test's seed first),
+    between one launch-count reset and read, held to chain_launches; the
+    first seed's image to the JAX test's bar against the path tracer
+    (CHAIN_BARS); the seeds' mean to the JAX package's CPU mean of the
+    test's seed (CHAIN_REFERENCE) within max(3%, 4 sd sqrt(1 + 1 /
+    groups)), sd the seeds' spread; path space beating PSS on the caustic
+    box; mlt_big's first seed through the BVH within 1% of the tiled
+    route's mean.  Returns the launch counts by run."""
+    import torch
+
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig
+
+    funcs = chain_funcs()
+    counts, firsts = {}, {}
+    for run, (name, integrator, res, spp, depth, seed, kw) in CHAIN_RUNS.items():
+        sc = cs[name]
+        n_groups = CHAIN_GROUPS_OF.get(run, CHAIN_GROUPS)
+
+        def groups():
+            out = []
+            for g in range(n_groups):
+                cfg = RenderConfig(width=res, height=res, spp=spp, max_depth=depth, seed=seed + g)
+                out.append(timed_render(lambda: funcs[integrator](sc, cfg, **kw)))
+            return out
+
+        one = chain_launches(integrator, depth, res, spp, kw)
+        renders, counts[f"chain_{run}"] = drive(
+            f"chain_{run}", groups, {**NONE_LAUNCHED, **{k: v * n_groups for k, v in one.items()}})
+        imgs = [r[0] for r in renders]
+        for img in imgs:
+            check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0,
+                  f"{run}: image not finite or black")
+        means = [float(img.mean()) for img in imgs]
+        mean = statistics.fmean(means)
+        sd = statistics.stdev(means)
+        secs = sum(r[1] for r in renders)
+        rec = {"phase": f"chain_{run}", "card": card, "scene": name, "integrator": integrator,
+               "resolution": f"{res}x{res}", "spp": spp, "max_depth": depth,
+               "seeds": [seed + g for g in range(n_groups)], "kwargs": kw,
+               "group_means": means, "mean": mean, "sd": sd, "seconds": round(secs, 3),
+               "mrays_per_s": sum(r[2] for r in renders) / secs / 1e6}
+        if run in CHAIN_REFERENCE:
+            ref = CHAIN_REFERENCE[run]
+            tol = max(MEAN_TOL, 4.0 * sd * (1.0 + 1.0 / n_groups) ** 0.5 / ref)
+            rel = abs(mean - ref) / ref
+            check(rel < tol, f"{run}: mean {mean} vs the JAX CPU mean {ref} (tol {tol})")
+            rec.update({"reference_mean": ref, "rel_err": rel, "rel_tol": tol,
+                        "test_seed_rel_err": abs(means[0] - ref) / ref,
+                        "reference": "chainrefs: tools/chain_reference_means.py"})
+        if run in CHAIN_BARS:
+            pr = CHAIN_BARS[run][0]
+            rec.update(bar_check(run, imgs[0], wide_path_render(sc, *pr), CHAIN_BARS[run][1]))
+            rec["bar"] = CHAIN_BARS[run][1]
+        emit(rec)
+        firsts[run] = imgs[0]
+    # MLT through the BVH: the test's seed of mlt_big, within 1% of the
+    # tiled route's image mean
+    name, integrator, res, spp, depth, seed, kw = CHAIN_RUNS["mlt_big"]
+    cfg = RenderConfig(width=res, height=res, spp=spp, max_depth=depth, seed=seed, accel="bvh")
+    (img, secs, lanes, _), counts["chain_mlt_big_bvh"] = drive(
+        "chain_mlt_big_bvh", lambda: timed_render(lambda: funcs["mlt"](cs[name], cfg, **kw)),
+        {**NONE_LAUNCHED, **chain_launches("mlt", depth, res, spp, kw, bvh=True)})
+    r = float(img.mean()) / float(firsts["mlt_big"].mean())
+    check(abs(r - 1.0) < 0.01, f"mlt through the BVH: {r} of the tiled route's mean")
+    emit({"phase": "chain_mlt_big_bvh", "card": card, "seconds": round(secs, 3),
+          "mean": float(img.mean()), "ratio_to_tiled": r, "mrays_per_s": lanes / secs / 1e6})
+    ref = wide_path_render(cs["caustic_box"], *CHAIN_PSS_REFERENCE)
+    e_ps, e_pss = (float(((firsts[r] - ref) ** 2).mean())
+                   for r in ("mlt_caustic_512", "pssmlt_caustic_512"))
+    check(e_ps < e_pss, f"path space does not beat PSS on the caustic box: {e_ps} vs {e_pss}")
+    emit({"phase": "chain_path_space_vs_pss", "card": card, "mse_path_space": e_ps,
+          "mse_pss": e_pss, "mutations_per_pixel": 512})
+    return counts
+
+
+def chain_syncs(cornell):
+    """Host syncs (torch's sync debug mode, syncs_per_wave) of one step of
+    each chain integrator on the Cornell box at the CLI's defaults: a
+    PSSMLT step of 8192 chains, an MLT large step and a perturbation of
+    4096, an ERPT seed evaluation with one step of 65536 chains; and of an
+    SPPM pass and a photon-mapper camera sample (a render of two less a
+    render of one)."""
+    import torch
+
+    from mitsuba_path_guiding_torch.core import rng
+    from mitsuba_path_guiding_torch.core.spectrum import luminance
+    from mitsuba_path_guiding_torch.integrators import erpt, mlt, pssmlt
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig
+
+    cfg = RenderConfig(width=W, height=H, spp=INT_SPP, max_depth=DEPTH)
+    key = rng.base_key(0, device=DEVICE)
+    acc = torch.zeros((W * H, 3), device=DEVICE)
+    out = {}
+
+    pst = pssmlt.scene_statics(cornell, cfg)
+    u = rng.uniform_shape(key, (pssmlt.pss_dims(cfg), 8192))
+    c, xy = pssmlt._path_eval(cornell, cfg, u, pst)
+    chain = (u, torch.clamp_min(luminance(c), 1e-12), c, xy)
+    keys = pssmlt.chain_keys(key, 8192)
+    out["pssmlt_step"] = syncs_per_wave(
+        lambda: pssmlt._chain_step(cornell, cfg, pst, chain, keys, 1, acc, 0.3), CHAIN_SYNC_CALLS)
+
+    mst = mlt.scene_statics(cornell, cfg)
+    s = mlt._trace_path(cornell, cfg, rng.uniform_shape(key, (2 + 3 * DEPTH, 4096)), mst)
+    mkeys = rng.fold_in(pssmlt.chain_keys(key, 4096), 1)
+    out["mlt_large_step"] = syncs_per_wave(
+        lambda: mlt._large_step(cornell, cfg, mst, s, mkeys, acc), CHAIN_SYNC_CALLS)
+    out["mlt_perturbation_step"] = syncs_per_wave(
+        lambda: mlt._pert_step(cornell, cfg, mst, s, mkeys, acc), CHAIN_SYNC_CALLS)
+
+    u0, kc = erpt.seed_uniforms(key, cfg, pssmlt.pss_dims(cfg))
+    ekeys = pssmlt.chain_keys(kc, W * H)
+    out["erpt_seed_and_step"] = syncs_per_wave(
+        lambda: erpt._redistribute(cornell, cfg, pst, u0, ekeys, acc, 1), CHAIN_SYNC_CALLS)
+
+    funcs = chain_funcs()
+    for name, kw1, kw2 in (("sppm_pass", {"n_iterations": 1}, {"n_iterations": 2}),
+                           ("photonmapper_sample", {}, {})):
+        if name == "photonmapper_sample":
+            one = syncs_per_wave(lambda: funcs["photonmapper"](cornell, cfg._replace(spp=1)),
+                                 CHAIN_SYNC_CALLS)
+            two = syncs_per_wave(lambda: funcs["photonmapper"](cornell, cfg._replace(spp=2)),
+                                 CHAIN_SYNC_CALLS)
+        else:
+            one = syncs_per_wave(lambda: funcs["sppm"](cornell, cfg, **kw1), CHAIN_SYNC_CALLS)
+            two = syncs_per_wave(lambda: funcs["sppm"](cornell, cfg, **kw2), CHAIN_SYNC_CALLS)
+        out[name] = (two[0] - one[0], {"render_of_one": one, "render_of_two": two})
+    return {k: {"syncs": v[0], "by_source_line": v[1]} for k, v in out.items()}
+
+
+def run_chains(cs, card):
+    """The chains phase's renders: the Cornell box through each of
+    CHAIN_CLI at the CLI's defaults (256x256, 16 spp, depth 5; render_once,
+    the CLI's dispatch), SPPM again through the BVH, each between its own
+    launch-count reset and read and held to chain_launches, each rendered
+    twice and held bit-equal, its ratio to the path tracer's image at the
+    same defaults to CHAIN_CLI_BARS, the BVH route's mean to the tiled
+    route's within 1%; the CLI's cornell -I sppm; the JAX tests' runs
+    (run_chain_tests, MLT through the BVH among them); the volume photon map against trace_vol
+    (VOLPHOTON, its beam estimate repeating bit for bit); the host syncs a
+    step.  Returns the launch counts by route."""
+    import torch
+
+    from mitsuba_path_guiding_torch import render as cli
+    from mitsuba_path_guiding_torch.film.film import read_pfm
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig, render
+
+    cornell = cs["cornell"]
+    cfg = RenderConfig(width=W, height=H, spp=INT_SPP, max_depth=DEPTH)
+    path_img = render(cornell, cfg)
+    path_mean = float(path_img.mean())
+    counts, means = {}, {}
+    for name, accel in [(n, "auto") for n in CHAIN_CLI] + [("sppm", "bvh")]:
+        route = f"chain_cli_{name}" + ("_bvh" if accel == "bvh" else "")
+        c = cfg._replace(accel=accel)
+        expect = chain_launches(name, DEPTH, W, INT_SPP, {}, bvh=accel == "bvh")
+        (img, secs, lanes, live), counts[route] = drive(
+            route, lambda: timed_render(lambda: cli.render_once(name, cornell, c)),
+            {**NONE_LAUNCHED, **expect})
+        again = cli.render_once(name, cornell, c)
+        repeat = bool(torch.equal(img, again))
+        check(repeat, f"{route}: a second render differs")
+        check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0,
+              f"{route}: image not finite or black")
+        means[route] = float(img.mean())
+        ratio = means[route] / path_mean
+        lo, hi = CHAIN_CLI_BARS[name]
+        check(lo < ratio < hi, f"{route}: ratio to the path tracer {ratio}, bar ({lo}, {hi})")
+        emit({"phase": route, "card": card, "resolution": f"{W}x{H}", "spp": INT_SPP,
+              "max_depth": DEPTH, "accel": accel, "seconds": round(secs, 3), "mean": means[route],
+              "path_mean": path_mean, "ratio_to_path": ratio, "bar": [lo, hi],
+              "query_lanes": lanes, "live_query_lanes": live,
+              "mrays_per_s": lanes / secs / 1e6, "live_mrays_per_s": live / secs / 1e6,
+              "repeat_bit_equal": repeat})
+    r = means["chain_cli_sppm_bvh"] / means["chain_cli_sppm"]
+    check(abs(r - 1.0) < 0.01, f"sppm through the BVH: {r} of the tiled route's mean")
+
+    out = os.path.join(texture_dir(), "cli_sppm.pfm")
+    os.makedirs(texture_dir(), exist_ok=True)
+
+    def cli_run():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cli.main(["cornell", "-I", "sppm", "-o", out])
+        return time.time() - t0
+
+    secs, counts["chain_cli_main_sppm"] = drive(
+        "chain_cli_main_sppm", cli_run,
+        {**NONE_LAUNCHED, **chain_launches("sppm", DEPTH, W, INT_SPP, {}), "trace_fused": 0})
+    img = read_pfm(out)
+    check(bool((img == img).all()) and abs(float(img.mean()) - means["chain_cli_sppm"]) <= 1e-6
+          * means["chain_cli_sppm"], "cli sppm: not render_once's image")
+    emit({"phase": "chain_cli_main_sppm", "card": card, "argv": "cornell -I sppm",
+          "seconds_with_scene_build": round(secs, 3), "mean": float(img.mean())})
+
+    counts.update(run_chain_tests(cs, card))
+    counts["chain_volphoton"] = phase_volphoton(cs["medium_box"], card)
+    emit({"phase": "chain_syncs", "card": card, "host_syncs": chain_syncs(cornell)})
+    return counts
+
+
+def phase_volphoton(scene, card):
+    """tests/test_volphoton.py on the card: VOLPHOTON's waves of volume
+    photons (between a launch-count reset and read: a query a bounce and
+    sample_ray's gather a wave) and the beam estimate on its camera rays
+    (through the tiled kernel), against trace_vol's mean on the same rays,
+    |ratio - 1| < 0.15; the photons and the estimate made twice and held
+    bit-equal.  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from mitsuba_path_guiding_torch.accel.traverse import intersect_pallas
+    from mitsuba_path_guiding_torch.core import rng
+    from mitsuba_path_guiding_torch.integrators import volphoton
+    from mitsuba_path_guiding_torch.integrators.volpath import trace_vol
+    from mitsuba_path_guiding_torch.models.bsdf import types_present
+    from mitsuba_path_guiding_torch.models.emitter import kinds_present
+
+    v = VOLPHOTON
+    em = kinds_present(scene.emitters)
+    n = v["rays"]
+    rs = np.random.default_rng(0)
+    o = torch.tensor([0.0, 0.0, -1.9], device=DEVICE).expand(n, 3).contiguous()
+    ang = rs.uniform(-0.45, 0.45, (n, 2))
+    d = np.stack([np.sin(ang[:, 0]), np.sin(ang[:, 1]) * 0.3, np.ones(n)], -1)
+    d = torch.from_numpy((d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)).to(
+        DEVICE)
+    hit = intersect_pallas(scene.geo, o, d)
+    t_seg = torch.where(hit.valid, hit.t, 4.0)
+    taps = torch.from_numpy(rs.random((v["taps"], n)).astype(np.float32)).to(DEVICE)
+    lo, inv_cell, g = volphoton.build_vol_grid(scene, v["r"])
+
+    def beam():
+        deps = []
+        for w in range(v["waves"]):
+            rk = rng.ray_keys(rng.base_key(5, device=DEVICE),
+                              torch.zeros(v["photons"], dtype=torch.int64, device=DEVICE),
+                              torch.arange(w * v["photons"], (w + 1) * v["photons"],
+                                           device=DEVICE))
+            deps.append(volphoton.volume_photon_pass(scene, rk, max_depth=v["depth"],
+                                                     em_kinds=em))
+        ph = [torch.cat(x) for x in zip(*deps)]
+        return volphoton.beam_estimate(scene, o, d, t_seg, taps, *ph, lo, inv_cell, g, v["r"],
+                                       n_emitted=v["photons"] * v["waves"],
+                                       n_taps=v["taps"]), float(ph[3].float().mean())
+
+    ((L_beam, ok_share), secs, lanes, _), counts = drive(
+        "chain_volphoton", lambda: timed_render(beam),
+        {**NONE_LAUNCHED, "intersect_tiled": v["waves"] * v["depth"],
+         "gather_rows_t": v["waves"]})
+    L_again, _ = beam()
+    repeat = bool(torch.equal(L_beam, L_again))
+    check(repeat, "volphoton: a second beam estimate differs")
+    check(ok_share > 0.05, f"volphoton: medium events on {ok_share} of the deposits")
+    acc = torch.zeros((n, 3), device=DEVICE)
+    pix = torch.arange(n, device=DEVICE)
+    for s in range(v["spp"]):
+        rk = rng.ray_keys(rng.base_key(91, device=DEVICE), pix, torch.full_like(pix, s))
+        acc = acc + trace_vol(scene, o, d, rk, max_depth=v["depth"], em_kinds=em,
+                              mat_types=types_present(scene.mats))[0]
+    a, b = float(L_beam.mean()), float((acc / v["spp"]).mean())
+    check(b > 1e-4 and abs(a / b - 1.0) < v["bar"], f"volphoton: beam {a} vs trace_vol {b}")
+    emit({"phase": "chain_volphoton", "card": card, "photons": v["photons"] * v["waves"],
+          "medium_event_share": ok_share, "rays": n, "taps": v["taps"],
+          "seconds": round(secs, 3), "beam_mean": a, "trace_vol_mean": b, "ratio": a / b,
+          "bar": v["bar"], "repeat_bit_equal": repeat, "query_lanes": lanes})
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -3851,12 +4533,18 @@ def main(argv=None):
     ics = integrator_scenes()
     int_checks = phase_integrator_kernel_checks(ics, card)
     c_int = run_integrators(ics, card)
+    # the Markov-chain and photon-map integrators: the kernel checks on
+    # their rays, then the renders
+    chs = chain_scenes()
+    chain_checks = phase_chain_kernel_checks(chs, card)
+    c_chain = run_chains(chs, card)
     routes = {"progressive": c_prog, "frozen_render": c_frozen, "unguided_render": c_render,
               "progressive_adaptive": c_adaptive, "guiding_gain_bounce_lamp": c_bounce,
               "guiding_gain_door_room": c_door_gain,
               "door_room_progressive": c_door, "door_room_plk": c_plk, **interior["launches"],
               "door_room_twolevel": door_tl["launches"], "door_room_sorted_blocklist": c_sorted,
-              "door_room_bvh": c_bvh, **c_shading, **c_vocab, **c_vol, **c_tex, **c_int}
+              "door_room_bvh": c_bvh, **c_shading, **c_vocab, **c_vol, **c_tex, **c_int,
+              **c_chain}
     launches = {k: {r: c[k] for r, c in routes.items()} for k in c_prog}
 
     entries = phase_timings(scene, veach, tables, grid, checks, launches, card)
@@ -3869,7 +4557,9 @@ def main(argv=None):
                                 "volbox_shading_rows": vol_checks["gather_rows_t_volbox_shading"],
                                 "vertex_colour_table_wave": tex_checks["gather_rows_t_vcol_wave"],
                                 "light_path_emitter_hits":
-                                    int_checks["gather_rows_t_emitter_hits"]})
+                                    int_checks["gather_rows_t_emitter_hits"],
+                                "mlt_bootstrap_hits":
+                                    chain_checks["gather_rows_t_mlt_bootstrap_hits"]})
     entries += new_entries
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

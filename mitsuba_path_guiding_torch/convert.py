@@ -11,7 +11,8 @@ field: the host-side ``enabled``, ``heterogeneous`` and ``phase_kind``,
 the fiber and mixture phases' tables) come across as they are.
 The BVH (given the port's packed layout), blocklist and pair tables come
 across too, and a two-level ``BlockTable`` (``ops/intersect_twolevel.py``)
-through ``block_table_from_numpy``.
+through ``block_table_from_numpy``; the chain integrators' state through
+``mlt_state_from_numpy`` and ``tensors_from_numpy``.
 """
 from __future__ import annotations
 
@@ -102,3 +103,19 @@ def block_table_from_numpy(d: dict, device=None):
 def grid_from_numpy(d: dict, device=None) -> GuidingGrid:
     """GuidingGrid on ``device`` from the reference grid's numpy arrays."""
     return _fill(GuidingGrid, d, resolve_device(device), host=("res0", "n_used"))
+
+
+def mlt_state_from_numpy(d: dict, device=None):
+    """``integrators.mlt.MLTState`` on ``device`` from the reference's
+    chain state as numpy arrays (a dict of its fields)."""
+    from mitsuba_path_guiding_torch.integrators.mlt import MLTState
+
+    return _fill(MLTState, d, resolve_device(device))
+
+
+def tensors_from_numpy(arrays, device=None):
+    """A tuple of tensors on ``device`` from numpy arrays, float32, int32
+    and bool kept apart: the PSSMLT chain (u (D, N), I (N,), C (N, 3), xy
+    (N, 2)), SPPM's hitpoint and photon arrays."""
+    dev = resolve_device(device)
+    return tuple(_tensor(x, dev) for x in arrays)

@@ -10,9 +10,13 @@ import torch
 LUM_WEIGHTS_NP = np.array([0.212671, 0.715160, 0.072169], dtype=np.float32)
 
 
+# the same float32 values as Python scalars: a product with a scalar needs
+# no copy of the weights to the card (a host sync there)
+_W0, _W1, _W2 = (float(x) for x in LUM_WEIGHTS_NP)
+
+
 def luminance(rgb: torch.Tensor) -> torch.Tensor:
-    w = torch.as_tensor(LUM_WEIGHTS_NP, device=rgb.device)
-    return rgb[..., 0] * w[0] + rgb[..., 1] * w[1] + rgb[..., 2] * w[2]
+    return rgb[..., 0] * _W0 + rgb[..., 1] * _W1 + rgb[..., 2] * _W2
 
 
 

@@ -206,17 +206,25 @@ def route_queries(scene: SceneData, accel: str, use_bvh: bool = False):
     return intersect, occluded
 
 
-def route_dense_or_bvh(scene: SceneData, accel: str = "auto", use_bvh: bool = False):
-    """``route_queries`` of the integrators that the reference routes to
-    its dense oracle or its BVH (the volumetric tracer, the light-path
-    integrators, the auxiliary ones): "auto" takes the tiled kernel at
-    BRUTE_FORCE_MAX_TRIS triangles or fewer and the BVH above them or with
-    ``use_bvh``; any other ``accel`` goes to ``route_queries`` as named.
-    The tiled kernel has the dense oracle's winner."""
+def dense_or_bvh_accel(scene: SceneData, accel: str = "auto", use_bvh: bool = False) -> str:
+    """The route named for ``route_queries`` by ``route_dense_or_bvh``:
+    "auto" becomes "pallas" at BRUTE_FORCE_MAX_TRIS triangles or fewer and
+    "bvh" above them or with ``use_bvh``; any other ``accel`` stays."""
     if accel == "auto":
         big = use_bvh or scene.geo.p0.shape[0] > BRUTE_FORCE_MAX_TRIS
-        accel = "bvh" if big else "pallas"
-    return route_queries(scene, accel)
+        return "bvh" if big else "pallas"
+    return accel
+
+
+def route_dense_or_bvh(scene: SceneData, accel: str = "auto", use_bvh: bool = False):
+    """``route_queries`` of the integrators that the reference routes to
+    its dense oracle or its BVH (the volumetric tracer, the light-path,
+    Markov-chain and photon-map integrators, the auxiliary ones): "auto"
+    takes the tiled kernel at BRUTE_FORCE_MAX_TRIS triangles or fewer and
+    the BVH above them or with ``use_bvh``; any other ``accel`` goes to
+    ``route_queries`` as named.  The tiled kernel has the dense oracle's
+    winner."""
+    return route_queries(scene, dense_or_bvh_accel(scene, accel, use_bvh))
 
 
 def trace(

@@ -60,7 +60,8 @@ def generate_rays(
     t = sensor.to_world[:3, 3]
     n = fx.shape[0]
     film_xy = torch.stack([fx, fy], dim=-1)
-    z_axis = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=fx.device)
+    # (0, 0, 1) made on the device: no host copy
+    z_axis = (torch.arange(3, device=fx.device) == 2).to(torch.float32)
 
     def at_t(d_cam):
         return t.expand(n, 3).clone(), normalize(_rotate(d_cam, R)), film_xy

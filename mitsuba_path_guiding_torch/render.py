@@ -9,6 +9,7 @@ rendered by the volumetric tracer with guided distance sampling).
   python -m mitsuba_path_guiding_torch.render volbox -o vol.npy -r 32x32 -s 4 --device cpu
   python -m mitsuba_path_guiding_torch.render cornell -o c.exr -s 16 --denoise --aovs
   python -m mitsuba_path_guiding_torch.render cornell -I bdpt -o b.exr
+  python -m mitsuba_path_guiding_torch.render cornell -I sppm -o s.npy -r 32x32 -s 1 --device cpu
 
   -o FILE      output (exr/pfm/png/npy; default <scene>.exr)
   -s N         samples per pixel (default 16)
@@ -18,8 +19,10 @@ rendered by the volumetric tracer with guided distance sampling).
   -p N         samples per progression (default 4)
   -t SEC       time budget
   -I NAME      integrator: guided (default; the progressive guided path
-               tracer), path, direct, ao, ptracer, bdpt or vpl; pssmlt,
-               mlt, erpt, sppm and photonmapper are not ported yet
+               tracer), path, direct, ao, ptracer, bdpt, vpl, pssmlt, mlt
+               and erpt (-s counts mutations a pixel, seed paths for
+               erpt), sppm (8 passes of 131072 photons) or photonmapper
+               (131072 photons, -s camera samples with a final gather)
   --seed N     random seed
   --denoise    denoise the image (the neural denoiser over 4 spp of
                albedo, normal and depth feature buffers)
@@ -28,7 +31,8 @@ rendered by the volumetric tracer with guided distance sampling).
 
 The default is the guided progressive render on the card; without a card
 it raises unless ``--device cpu`` is given.  The other integrators render
-once at the given spp (``--denoise`` and ``--aovs`` need ``guided``).
+once at the given spp with the JAX CLI's defaults (``--denoise`` and
+``--aovs`` need ``guided``).
 """
 from __future__ import annotations
 
@@ -38,20 +42,32 @@ import time
 
 INTEGRATORS = ("guided", "path", "bdpt", "pssmlt", "mlt", "erpt", "sppm", "vpl", "ptracer",
                "photonmapper", "direct", "ao")
-NOT_PORTED = ("pssmlt", "mlt", "erpt", "sppm", "photonmapper")
 
 
 def render_once(name: str, scene, cfg):
     """The image of a one-shot integrator (every ``-I`` choice but
     ``guided``)."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"integrator '{name}' is not ported yet: ROADMAP item 9")
     if name == "path":
         from mitsuba_path_guiding_torch.integrators.render import render
         return render(scene, cfg)
     if name == "bdpt":
         from mitsuba_path_guiding_torch.integrators.bdpt import render_bdpt
         return render_bdpt(scene, cfg)
+    if name == "pssmlt":
+        from mitsuba_path_guiding_torch.integrators.pssmlt import render_pssmlt
+        return render_pssmlt(scene, cfg)
+    if name == "mlt":
+        from mitsuba_path_guiding_torch.integrators.mlt import render_mlt
+        return render_mlt(scene, cfg)
+    if name == "erpt":
+        from mitsuba_path_guiding_torch.integrators.erpt import render_erpt
+        return render_erpt(scene, cfg)
+    if name == "sppm":
+        from mitsuba_path_guiding_torch.integrators.sppm import render_sppm
+        return render_sppm(scene, cfg)
+    if name == "photonmapper":
+        from mitsuba_path_guiding_torch.integrators.photonmapper import render_photonmapper
+        return render_photonmapper(scene, cfg)
     if name == "vpl":
         from mitsuba_path_guiding_torch.integrators.vpl import render_vpl
         return render_vpl(scene, cfg)

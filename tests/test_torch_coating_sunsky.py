@@ -442,12 +442,15 @@ def test_port_imports_no_jax():
     package at any depth of its AST (a function's imports included)."""
     files = sorted((ROOT / "mitsuba_path_guiding_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 40
-    # the volume slice's modules are among them
+    # the volume slice's and the chain and photon integrators' modules are
+    # among them
     names = {p.relative_to(ROOT).as_posix() for p in files}
     for mod in ("integrators/volpath.py", "models/medium.py", "models/phase.py",
                 "guiding/distance.py", "scene/volume.py", "scene/builder.py", "render.py",
                 "models/texture.py", "models/cloth.py", "film/bitmap.py", "film/denoise.py",
-                "film/neural_denoise.py", "util.py"):
+                "film/neural_denoise.py", "util.py", "integrators/pssmlt.py",
+                "integrators/erpt.py", "integrators/mlt.py", "integrators/sppm.py",
+                "integrators/photonmapper.py", "integrators/volphoton.py"):
         assert f"mitsuba_path_guiding_torch/{mod}" in names, mod
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
