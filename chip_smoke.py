@@ -204,6 +204,20 @@ Phases:
      route; the volume photon map's beam estimate within 15% of
      trace_vol, repeating bit for bit; the host syncs a step; seconds and
      query-lane Mrays/s of each render.
+  18. "scene_files" (slice 11): the Cornell box written as Mitsuba XML
+     (scene_xml: every to_world a <matrix> of repr floats) compiles equal
+     to the built-in; the CLI's main() on it at its defaults (256x256,
+     16 spp, guided 4 x 4) and with -I path gives images bit-equal to
+     main(["cornell", ...]); two -s 8 -c runs equal the -s 16 image bit
+     for bit; --preview 0 serves a finished 256x256 PNG; door_room
+     written as XML with its spheres as PLY files of doubles compiles
+     equal to the built-in (pair tables and blocklist included) and its
+     guided 512x512 render (2 spp x 2, the pair route) equals the
+     built-in's bit for bit; util kdbench times intersect_tiled on 65536
+     rays of the XML Cornell and of the largest sphere PLY (its card
+     time between CUDA events); the seconds of every step, the XML and
+     the built-in renders timed again in alternating order after the
+     counted runs (alternating_seconds: medians, spread and their ratio).
 
 Each main-path route runs with the launch counts set to 0 just before it
 and read just after it, and is held to the kernels it must launch: the
@@ -236,7 +250,12 @@ trace two queries and three gathers a bounce; an MLT path a query and
 two gathers a bounce, a perturbation V + 1 queries and 4V + 3 gathers;
 an SPPM pass 2D queries and 4D + 2 gathers; the photon mapper's photon
 wave D queries and 2D + 1 gathers, a camera sample D + 2 and 2D + 3; a
-volume photon wave D queries and one gather).
+volume photon wave D queries and one gather); the scene files' renders
+to the launches of the same route on the built-in scene (the Cornell
+guided render 160 tiled and 240 gathers, -I path 16 trace_fused, the
+door_room render 80 MT tiles, 120 gathers of which 40 on the large table,
+and a blocklist launch per query that left a ray unproven) and kdbench
+to 6 tiled launches.
 """
 from __future__ import annotations
 
@@ -4404,6 +4423,404 @@ def phase_volphoton(scene, card):
           "bar": v["bar"], "repeat_bit_equal": repeat, "query_lanes": lanes})
     return counts
 
+# ---------------------------------------------------------------------------
+# 18. "scene_files" (slice 11): the Mitsuba-XML entry point.
+# ---------------------------------------------------------------------------
+
+SCENE_DEFAULTS = {"width": W, "height": H, "spp": 16, "max_depth": DEPTH, "rr_depth": 5}
+GUIDED_WAVES = 16                      # the CLI's guided default: 4 spp x 4 progressions
+SCENE_CKPT_SPP = 8                     # two checkpointed runs of 8 spp against one of 16
+DOOR_XML_SPP, DOOR_XML_PROGRESSIONS = 2, 2
+DOOR_XML_WAVES = (DOOR_W * DOOR_H // DOOR_WAVE) * DOOR_XML_SPP * DOOR_XML_PROGRESSIONS
+KDBENCH_RAYS = 65536
+KDBENCH_REPS = 6                       # kdbench's warm-up and its 5 timed calls
+CORNELL_TIMING_ROUNDS, DOOR_TIMING_ROUNDS = 2, 1   # ABBA rounds of the XML/built-in timing
+
+
+def scene_files_dir():
+    """Where the scene_files phase writes its XML, PLY and image files."""
+    return os.path.join(texture_dir(), "scene_files")
+
+
+def _floats(xs):
+    import numpy as np
+
+    return " ".join(repr(float(x)) for x in np.ravel(np.asarray(xs, dtype=np.float64)))
+
+
+def write_ply(path, mesh):
+    """A binary little-endian PLY of ``mesh``'s float64 vertices (and
+    normals), so that the file holds them bit for bit; faces as uchar
+    counts of int32 indices."""
+    import numpy as np
+
+    props = ["x", "y", "z"] + (["nx", "ny", "nz"] if mesh.normals is not None else [])
+    vert = np.empty(len(mesh.vertices), dtype=[(p, "<f8") for p in props])
+    for k, p in enumerate("xyz"):
+        vert[p] = mesh.vertices[:, k]
+        if mesh.normals is not None:
+            vert["n" + p] = mesh.normals[:, k]
+    face = np.empty(len(mesh.faces), dtype=[("n", "u1"), ("i", "<i4", (3,))])
+    face["n"] = 3
+    face["i"] = mesh.faces
+    head = ["ply", "format binary_little_endian 1.0", f"element vertex {len(vert)}"]
+    head += [f"property double {p}" for p in props]
+    head += [f"element face {len(face)}", "property list uchar int vertex_indices",
+             "end_header"]
+    with open(path, "wb") as fh:
+        fh.write(("\n".join(head) + "\n").encode("ascii"))
+        fh.write(vert.tobytes())
+        fh.write(face.tobytes())
+
+
+def scene_xml(desc, directory, name, settings=None):
+    """Write the built-in scene description ``desc`` as Mitsuba XML under
+    ``directory`` and return its path.  Every ``to_world`` goes out as a
+    ``<matrix>`` of repr floats (the loader's matrix @ eye(4) is exact), a
+    tessellated sphere as an object-space PLY mesh of doubles with its
+    matrix, and the BSDF and emitter values as repr floats, so that the
+    file compiles to the built-in's arrays bit for bit.  ``settings``
+    (width, height, spp, max_depth, rr_depth) become the film, sampler and
+    integrator elements."""
+    import numpy as np
+
+    from mitsuba_path_guiding_torch.scene.builder import _to_world
+    from mitsuba_path_guiding_torch.scene.shapes import make_sphere
+
+    def value(key, v):
+        if isinstance(v, str):
+            return f'<string name="{key}" value="{v}"/>'
+        if np.ndim(v) == 0:
+            return f'<float name="{key}" value="{_floats(v)}"/>'
+        return f'<rgb name="{key}" value="{_floats(v)}"/>'
+
+    def matrix(m):
+        return f'<transform name="toWorld"><matrix value="{_floats(m)}"/></transform>'
+
+    def bsdf(b):
+        return (f'<bsdf type="{b["type"]}">'
+                + "".join(value(k, v) for k, v in b.items() if k != "type") + "</bsdf>")
+
+    os.makedirs(directory, exist_ok=True)
+    lines = ['<scene version="0.6.0">']
+    if settings:
+        lines.append(f'<integrator type="path"><integer name="maxDepth" '
+                     f'value="{settings["max_depth"]}"/><integer name="rrDepth" '
+                     f'value="{settings["rr_depth"]}"/></integrator>')
+    sen = desc["sensor"]
+    inner = [value("fov", sen["fov"]), matrix(sen["to_world"])]
+    if settings:
+        inner.append(f'<film type="hdrfilm"><integer name="width" value="{settings["width"]}"/>'
+                     f'<integer name="height" value="{settings["height"]}"/></film>')
+        inner.append(f'<sampler type="independent"><integer name="sampleCount" '
+                     f'value="{settings["spp"]}"/></sampler>')
+    lines.append(f'<sensor type="{sen["type"]}">' + "".join(inner) + "</sensor>")
+    plys = {}
+    for i, sh in enumerate(desc["shapes"]):
+        kind = sh["type"]
+        inner = [matrix(_to_world(sh))]
+        if kind == "sphere":
+            res = sh.get("sphere_res", 32)
+            if res not in plys:
+                plys[res] = os.path.join(directory, f"{name}_sphere{res}.ply")
+                write_ply(plys[res], make_sphere(res, 2 * res))
+            kind = "ply"
+            inner.insert(0, f'<string name="filename" value="{os.path.basename(plys[res])}"/>')
+        elif kind not in ("rectangle", "cube"):
+            raise ValueError(f"scene_xml: shape type {kind}")
+        inner.append(bsdf(sh["bsdf"]))
+        if sh.get("emitter"):
+            inner.append('<emitter type="area">'
+                         + value("radiance", sh["emitter"]["radiance"]) + "</emitter>")
+        lines.append(f'<shape type="{kind}">' + "".join(inner) + "</shape>")
+    check(not desc.get("emitters"), "scene_xml: scene-level emitters are not written")
+    lines.append("</scene>")
+    path = os.path.join(directory, f"{name}.xml")
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return path
+
+
+def scene_differences(a, b, path="scene"):
+    """The fields in which two compiled scenes differ, recursively: a
+    tensor must equal the other bit for bit (the packed BVH holds int32
+    bits in float32 words, some of them NaN patterns) or value for value
+    (a -0.0 of a built-in matrix reads back as +0.0 from the XML's
+    ``<matrix>``: the loader's matrix @ eye(4) adds +0.0 to it); host
+    values equal."""
+    import torch
+
+    if a is None or b is None:
+        return [] if a is None and b is None else [path]
+    if hasattr(a, "_fields"):
+        return [d for f in a._fields
+                for d in scene_differences(getattr(a, f), getattr(b, f), f"{path}.{f}")]
+    if torch.is_tensor(a):
+        same = (a.shape == b.shape and a.dtype == b.dtype
+                and (bool(torch.equal(_bits(a), _bits(b))) or bool(torch.equal(a, b))))
+        return [] if same else [path]
+    return [] if a == b else [path]
+
+
+def cli_run(argv):
+    """The CLI's main() on ``argv`` (on DEVICE): (its seconds, the image it
+    wrote, a .npy)."""
+    import numpy as np
+    import torch
+
+    from mitsuba_path_guiding_torch import render as cli
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.time()
+    rc = cli.main(argv + ([] if DEVICE == "cuda" else ["--device", DEVICE]))
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    secs = time.time() - t0
+    check(rc == 0, f"CLI {argv}: exit code {rc}")
+    return secs, np.load(argv[argv.index("-o") + 1])
+
+
+def alternating_seconds(xml_fn, builtin_fn, rounds):
+    """Seconds of the XML and the built-in run (each a function of no
+    arguments giving its seconds), after the counted runs have warmed
+    both, in ``rounds`` rounds of ABBA order (BXXB, then XBBX, ...) so
+    neither side always runs first: each side's seconds, their medians
+    and the ratio of the medians."""
+    runs = {"xml": (xml_fn, []), "builtin": (builtin_fn, [])}
+    order = []
+    for r in range(rounds):
+        order += ["builtin", "xml", "xml", "builtin"] if r % 2 == 0 else \
+            ["xml", "builtin", "builtin", "xml"]
+    for side in order:
+        fn, secs = runs[side]
+        secs.append(fn())
+    med = {side: statistics.median(secs) for side, (_, secs) in runs.items()}
+    ratio = med["xml"] / med["builtin"]
+    return {"order": "".join("X" if side == "xml" else "B" for side in order),
+            "xml_s": runs["xml"][1], "builtin_s": runs["builtin"][1],
+            "xml_median_s": med["xml"], "builtin_median_s": med["builtin"],
+            "xml_over_builtin": ratio, "within_10pct": abs(ratio - 1.0) <= 0.10}
+
+
+def png_size(png):
+    """(width, height) of a PNG whose IDAT decompresses to its 8-bit RGB
+    scanlines; raises on anything else."""
+    import struct
+    import zlib
+
+    check(png.startswith(b"\x89PNG\r\n\x1a\n"), "preview: /image.png is not a PNG")
+    pos, idat, size = 8, b"", None
+    while pos < len(png):
+        n, tag = struct.unpack(">I4s", png[pos:pos + 8])
+        data = png[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            size = struct.unpack(">II", data[:8])
+        elif tag == b"IDAT":
+            idat += data
+        pos += 12 + n
+    w, h = size
+    check(len(zlib.decompress(idat)) == h * (1 + 3 * w), "preview: IDAT does not decode")
+    return w, h
+
+
+def phase_scene_files_cornell(cornell, card):
+    """(a)-(c) on the Cornell box written as XML (CLI defaults in its film,
+    sampler and integrator): its compile equals the built-in's; the CLI at
+    its defaults (guided 4 spp x 4) and with -I path gives images bit-equal
+    to the built-in's, each route held to its exact launches; two -s 8 -c
+    runs equal one -s 16; --preview 0 serves a finished 256x256 image."""
+    import json
+    import urllib.request
+
+    import numpy as np
+
+    from mitsuba_path_guiding_torch.scene import scenes
+    from mitsuba_path_guiding_torch.scene.builder import build_scene
+    from mitsuba_path_guiding_torch.scene.xml_loader import load_scene_xml
+    from mitsuba_path_guiding_torch.utils import preview as pmod
+
+    d = scene_files_dir()
+    xml = scene_xml(scenes.cornell_box(), d, "cornell", SCENE_DEFAULTS)
+    t0 = time.time()
+    desc, settings = load_scene_xml(xml)
+    parse_s = time.time() - t0
+    check(settings == {**SCENE_DEFAULTS, "integrator": "path", "sampler": "independent"},
+          f"XML Cornell settings {settings}")
+    diff = scene_differences(build_scene(desc, device=DEVICE), cornell)
+    check(not diff, f"XML Cornell compiles apart from the built-in in {diff}")
+    counts, rec = {}, {"phase": "scene_files_cornell", "card": card, "xml_parse_s": parse_s}
+    guided = {**NONE_LAUNCHED, "intersect_tiled": 2 * DEPTH * GUIDED_WAVES,
+              "gather_rows_t": 3 * DEPTH * GUIDED_WAVES}
+    fused = {**NONE_LAUNCHED, "trace_fused": SCENE_DEFAULTS["spp"]}
+    imgs = {}
+    for label, extra, expect in (("guided", [], guided), ("path", ["-I", "path"], fused)):
+        for src, scene_arg in (("xml", xml), ("builtin", "cornell")):
+            route = f"scene_files_{src}_{label}"
+            out = os.path.join(d, f"{route}.npy")
+            (secs, imgs[route]), counts[route] = drive(
+                route, lambda: cli_run([scene_arg, "-o", out] + extra), expect)
+            rec[f"{route}_s"] = secs
+        same = np.array_equal(imgs[f"scene_files_xml_{label}"], imgs[f"scene_files_builtin_{label}"])
+        check(same, f"XML Cornell -I {label}: image differs from the built-in's")
+        rec[f"{label}_bit_equal"] = same
+        rec[f"{label}_mean"] = float(imgs[f"scene_files_xml_{label}"].mean())
+        timing_out = os.path.join(d, f"scene_files_timing_{label}.npy")
+        rec[f"{label}_timing"] = alternating_seconds(
+            *(lambda scene_arg=scene_arg: cli_run([scene_arg, "-o", timing_out] + extra)[0]
+              for scene_arg in (xml, "cornell")), CORNELL_TIMING_ROUNDS)
+
+    ckpt = os.path.join(d, "cornell_ckpt.npz")
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    half = os.path.join(d, "scene_files_ckpt.npy")
+    ck_s = [cli_run([xml, "-s", str(SCENE_CKPT_SPP), "-c", ckpt, "-o", half])[0]
+            for _ in range(2)]
+    resumed = np.load(half)
+    same = np.array_equal(resumed, imgs["scene_files_xml_guided"])
+    check(same, "checkpoint: two -s 8 -c runs differ from one -s 16 run")
+    rec.update(checkpoint_runs_s=ck_s, checkpoint_bit_equal=same)
+
+    seen = {}
+    real_close = pmod.PreviewServer.close
+
+    def close(srv):
+        base = f"http://127.0.0.1:{srv.port}"
+        seen["status"] = json.loads(urllib.request.urlopen(base + "/status", timeout=10).read())
+        seen["png"] = urllib.request.urlopen(base + "/image.png", timeout=10).read()
+        real_close(srv)
+
+    pmod.PreviewServer.close = close
+    try:
+        pv_s, pv_img = cli_run([xml, "--preview", "0", "-o", os.path.join(d, "preview.npy")])
+    finally:
+        pmod.PreviewServer.close = real_close
+    st = seen["status"]
+    check(st["finished"] and st["spp"] == SCENE_DEFAULTS["spp"], f"preview: /status {st}")
+    check(png_size(seen["png"]) == (W, H), "preview: /image.png is not 256x256")
+    check(np.array_equal(pv_img, imgs["scene_files_xml_guided"]), "preview: the render changed")
+    rec.update(preview_s=pv_s, preview_status=st, preview_png_bytes=len(seen["png"]))
+    emit(rec)
+    return xml, counts
+
+
+def phase_scene_files_door(door, card):
+    """(d) door_room written as XML with its spheres as PLY files of
+    doubles: the compile (pair tables and blocklist included) equals the
+    built-in's; a guided 512x512 render of 2 spp x 2 progressions by the
+    pair route equals the built-in's bit for bit, both held to the pair
+    route's launches.  Returns (the largest PLY, the launch counts)."""
+    import torch
+
+    from mitsuba_path_guiding_torch.scene import scenes
+    from mitsuba_path_guiding_torch.scene.builder import build_scene
+    from mitsuba_path_guiding_torch.scene.xml_loader import load_scene_xml
+
+    d = scene_files_dir()
+    t0 = time.time()
+    xml = scene_xml(scenes.door_room(), d, "door_room")
+    write_s = time.time() - t0
+    t0 = time.time()
+    desc, _ = load_scene_xml(xml)
+    parse_s = time.time() - t0
+    t0 = time.time()
+    scene = build_scene(desc, device=DEVICE)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    build_s = time.time() - t0
+    diff = scene_differences(scene, door)
+    check(not diff, f"XML door_room compiles apart from the built-in in {diff}")
+    waves = DOOR_XML_WAVES
+    counts, imgs, secs, bl, mt = {}, {}, {}, {}, {}
+    for src, sc in (("xml", scene), ("builtin", door)):
+        route = f"scene_files_door_{src}"
+        retraced = {}
+
+        def run(sc=sc, route=route, retraced=retraced):
+            def render():
+                if DEVICE == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.time()
+                img = door_render(sc)
+                if DEVICE == "cuda":
+                    torch.cuda.synchronize()
+                return img, time.time() - t0
+
+            (((img, s), bl[route]), mt[route]), retraced["n"] = count_retraces(
+                lambda: mt_kernel_time(lambda: blocklist_kernel_time(render)), route)
+            return img, s
+
+        (imgs[src], secs[src]), counts[route] = drive(route, run, {
+            **NONE_LAUNCHED, **door_gathers(waves), "intersect_pairs_mt": 2 * DEPTH * waves,
+            "intersect_blocklist": lambda retraced=retraced: retraced["n"]})
+    same = bool(torch.equal(imgs["xml"], imgs["builtin"]))
+    check(same, "XML door_room: the render differs from the built-in's")
+
+    def seconds(sc):
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.time()
+        door_render(sc)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        return time.time() - t0
+
+    timing = alternating_seconds(lambda: seconds(scene), lambda: seconds(door), DOOR_TIMING_ROUNDS)
+    check(bool(torch.isfinite(imgs["xml"]).all()) and float(imgs["xml"].mean()) > 0.0,
+          "XML door_room: image not finite or black")
+    emit({"phase": "scene_files_door", "card": card, "resolution": f"{DOOR_W}x{DOOR_H}",
+          "spp": DOOR_XML_SPP * DOOR_XML_PROGRESSIONS, "write_s": write_s, "xml_parse_s": parse_s,
+          "build_s": build_s, "render_s": secs, "timing": timing, "bit_equal": same,
+          "mean": float(imgs["xml"].mean()),
+          "launches": {k: {r: c[k] for r, c in counts.items()}
+                       for k in ("gather_rows_t", "gather_rows_t_large", "intersect_pairs_mt",
+                                 "intersect_blocklist")},
+          "blocklist_kernel_ms_sum": {r: v["kernel_ms_sum"] for r, v in bl.items()},
+          "mt_kernel_ms_sum": {r: v["kernel_ms_sum"] for r, v in mt.items()}})
+    plys = [os.path.join(d, f) for f in os.listdir(d)
+            if f.startswith("door_room_") and f.endswith(".ply")]
+    return max(plys, key=os.path.getsize), counts
+
+
+def door_render(scene):
+    """door_room guided at 512x512, DOOR_XML_SPP spp x DOOR_XML_PROGRESSIONS."""
+    from mitsuba_path_guiding_torch.integrators.progressive import render_progressive, \
+        ProgressiveConfig
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig
+
+    cfg = ProgressiveConfig(render=RenderConfig(width=DOOR_W, height=DOOR_H, spp=0,
+                                                max_depth=DEPTH),
+                            samples_per_progression=DOOR_XML_SPP,
+                            n_progressions=DOOR_XML_PROGRESSIONS, guiding=True)
+    return render_progressive(scene, cfg)
+
+
+def phase_kdbench(paths, card):
+    """(e) ``util kdbench`` with 65536 rays on each of ``paths``: on the
+    card it times the intersect_tiled kernel, 6 launches (a warm-up and
+    5 timed) and nothing else."""
+    from mitsuba_path_guiding_torch import util
+
+    counts, rec = {}, {"phase": "scene_files_kdbench", "card": card}
+    for label, path in paths.items():
+        route = f"scene_files_kdbench_{label}"
+        res, counts[route] = drive(route, lambda: util.kdbench(path, KDBENCH_RAYS, DEVICE), {
+            **NONE_LAUNCHED, "intersect_tiled": KDBENCH_REPS if DEVICE == "cuda" else 0})
+        rec[label] = {**res, "file": os.path.basename(path)}
+    emit(rec)
+    return counts
+
+
+def run_scene_files(cornell, door, card):
+    """The scene_files phase; returns the launch counts by route."""
+    t0 = time.time()
+    xml, counts = phase_scene_files_cornell(cornell, card)
+    ply, door_counts = phase_scene_files_door(door, card)
+    counts.update(door_counts)
+    counts.update(phase_kdbench({"cornell_xml": xml, "door_room_ply": ply}, card))
+    emit({"phase": "scene_files", "seconds": round(time.time() - t0, 3)})
+    return counts
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4538,13 +4955,16 @@ def main(argv=None):
     chs = chain_scenes()
     chain_checks = phase_chain_kernel_checks(chs, card)
     c_chain = run_chains(chs, card)
+    # the scene files: the XML Cornell box through the CLI, checkpoints and
+    # the preview, door_room from PLY files, util kdbench
+    c_files = run_scene_files(scene, door, card)
     routes = {"progressive": c_prog, "frozen_render": c_frozen, "unguided_render": c_render,
               "progressive_adaptive": c_adaptive, "guiding_gain_bounce_lamp": c_bounce,
               "guiding_gain_door_room": c_door_gain,
               "door_room_progressive": c_door, "door_room_plk": c_plk, **interior["launches"],
               "door_room_twolevel": door_tl["launches"], "door_room_sorted_blocklist": c_sorted,
               "door_room_bvh": c_bvh, **c_shading, **c_vocab, **c_vol, **c_tex, **c_int,
-              **c_chain}
+              **c_chain, **c_files}
     launches = {k: {r: c[k] for r, c in routes.items()} for k in c_prog}
 
     entries = phase_timings(scene, veach, tables, grid, checks, launches, card)

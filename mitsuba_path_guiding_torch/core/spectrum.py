@@ -1,5 +1,5 @@
-"""RGB luminance and the sRGB transfer curve (port of the reference's
-core/spectrum.py, the parts the port uses)."""
+"""RGB luminance, the sRGB transfer curve and Reinhard's tonemap (port of
+the reference's core/spectrum.py, the parts the port uses)."""
 from __future__ import annotations
 
 import numpy as np
@@ -18,6 +18,16 @@ _W0, _W1, _W2 = (float(x) for x in LUM_WEIGHTS_NP)
 def luminance(rgb: torch.Tensor) -> torch.Tensor:
     return rgb[..., 0] * _W0 + rgb[..., 1] * _W1 + rgb[..., 2] * _W2
 
+
+def reinhard_tonemap(rgb: torch.Tensor, key: float = 0.18) -> torch.Tensor:
+    """Photographic tonemapping (Mitsuba's tonemap utility): scale to the
+    log-average luminance ``key``, then compress as ``L / (1 + L)``."""
+    lum = luminance(rgb)
+    log_avg = torch.exp(torch.mean(torch.log(torch.clamp_min(lum, 1e-6))))
+    scaled = rgb * (key / torch.clamp_min(log_avg, 1e-12))
+    lw = luminance(scaled)
+    ld = lw / (1.0 + lw)
+    return scaled * (ld / torch.clamp_min(lw, 1e-12))[..., None]
 
 
 def srgb_encode_np(linear):

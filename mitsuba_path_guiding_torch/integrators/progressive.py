@@ -12,14 +12,21 @@ progressions, so the random sequences continue, with every sampler of
 ``RenderConfig.sampler``; the film takes ``RenderConfig.filter_name``.
 A scene with a medium runs the volumetric tracer (with guided distance
 sampling when ``guide_distance``), and ``RenderConfig.max_component_value``
-clamps each sample's radiance.
+clamps each sample's radiance.  ``train_progressions`` > 0 stops the fit
+after that many progressions; ``on_preprogression`` and
+``on_postprogression`` are called with the renderer around each
+progression; ``queue`` (a ``utils.logger.RenderQueue``) receives the
+render's events, and its listeners may pause or stop the loop between
+progressions.  The developed image is read back to the host for the
+queue only when a listener is registered.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from mitsuba_path_guiding_torch.film.film import Film, develop, new_film, splat
@@ -40,7 +47,7 @@ from mitsuba_path_guiding_torch.integrators.render import (
 from mitsuba_path_guiding_torch.integrators.volpath import trace_vol
 from mitsuba_path_guiding_torch.models.sensor import generate_rays
 from mitsuba_path_guiding_torch.scene.types import SceneData
-from mitsuba_path_guiding_torch.utils.logger import get_logger
+from mitsuba_path_guiding_torch.utils.logger import RenderQueue
 
 
 @dataclass
@@ -62,6 +69,11 @@ class ProgressiveConfig:
     adaptive_refine: bool = False
     refine_threshold: float = SPLIT_THRESHOLD
     capacity_factor: int = 4
+    train_progressions: int = 0       # 0 = train on all progressions
+    on_preprogression: Optional[Callable] = None
+    on_postprogression: Optional[Callable] = None
+    # render events and controls; None = progress through the default logger
+    queue: Optional[RenderQueue] = None
 
 
 class ProgressiveRenderer:
@@ -78,6 +90,7 @@ class ProgressiveRenderer:
         r = cfg.render
         self.film = new_film(r.width, r.height, device=self.device)
         self.sample_counter = 0
+        self.progression = 0
         self.grid: Optional[GuidingGrid] = None
         if cfg.guiding:
             self.grid = make_grid(
@@ -118,6 +131,10 @@ class ProgressiveRenderer:
     def run_progression(self):
         """One full-image pass of samples_per_progression spp."""
         cfg, r = self.cfg, self.cfg.render
+        if cfg.on_preprogression is not None:
+            cfg.on_preprogression(self)
+        training = cfg.guiding and (
+            cfg.train_progressions <= 0 or self.progression < cfg.train_progressions)
         n_pix = r.width * r.height
         all_pixels = torch.arange(n_pix, dtype=torch.int64, device=self.device)
         rgbw = self.film.rgb_weight
@@ -128,7 +145,7 @@ class ProgressiveRenderer:
             pix = all_pixels[batch_start: batch_start + r.pixel_batch]
             for s in range(cfg.samples_per_progression):
                 sidx = torch.full_like(pix, self.sample_counter + s)
-                film_xy, L, aux, rec = self._wave(pix, sidx)
+                film_xy, L, aux, rec = self._wave(pix, sidx, training)
                 rgbw = splat(rgbw, film_xy, L, r.width, r.height, r.filter_name)
                 seg_total += torch.sum(aux.n_bounces)
                 lane_total += int(pix.shape[0])
@@ -149,16 +166,36 @@ class ProgressiveRenderer:
             self.grid = update_grid(self.grid, *acc)
             if cfg.adaptive_refine:
                 self.grid = refine_grid(self.grid, cfg.refine_threshold)
+        self.progression += 1
+        if cfg.on_postprogression is not None:
+            cfg.on_postprogression(self)
 
     def render(self) -> torch.Tensor:
-        """Sample-budget (or time-budget) progressive render."""
+        """Sample-budget (or time-budget) progressive render; a listener's
+        stop ends it early with the samples rendered so far."""
         cfg = self.cfg
-        log = get_logger()
+        queue = RenderQueue() if cfg.queue is None else cfg.queue
         t0 = time.time()
+        queue.begin(cfg.n_progressions)
         for i in range(cfg.n_progressions):
+            ctrl = queue.poll_controls()
+            while ctrl["pause"] and not ctrl["stop"]:
+                time.sleep(0.2)
+                ctrl = queue.poll_controls()
+            if ctrl["stop"]:
+                break
             self.run_progression()
-            log.log_progress((i + 1) / cfg.n_progressions, "Rendering")
+            queue.progression(i, cfg.n_progressions, self.sample_counter,
+                              image=self.image() if queue.listeners else None)
             if cfg.max_seconds > 0 and time.time() - t0 > cfg.max_seconds:
                 break
-        log.info("Render finished: %d spp in %.1f s", self.sample_counter, time.time() - t0)
+        queue.finish(self.sample_counter, image=self.image() if queue.listeners else None)
         return develop(self.film)
+
+    def image(self) -> np.ndarray:
+        """The developed image so far, on the host."""
+        return develop(self.film).cpu().numpy()
+
+
+def render_progressive(scene: SceneData, cfg: ProgressiveConfig) -> torch.Tensor:
+    return ProgressiveRenderer(scene, cfg).render()

@@ -524,7 +524,7 @@ SHAPE_BUILDERS = {
     # keyframed vertex animation (reference shapes/deformable.cpp) needs
     # the animation loader, which this package has not ported yet
     "deformable": lambda props: _not_ported(
-        "deformable shapes", "Queue 1 item 9 (loaders: animation)"),
+        "deformable shapes", "Queue 1 item 9 (the loaders: animation, with motion)"),
 }
 
 
@@ -535,8 +535,10 @@ def _not_ported(what: str, item: str):
 def _heightfield_data(props):
     if "heights" in props:
         return np.asarray(props["heights"], dtype=np.float64)
-    _not_ported("heightfields read from image files",
-                "Queue 1 item 9 (loaders)")
+    from mitsuba_path_guiding_torch.util import _read
+
+    img = _read(props["filename"])
+    return img.mean(axis=-1) if img.ndim == 3 else img
 
 
 def vertex_curvature(mesh: Mesh, kind: str = "mean") -> np.ndarray:

@@ -1,10 +1,10 @@
-"""Volume data sources: VOL and npy grids, hierarchical grids (host-side
-numpy; a copy of the reference's numpy-only scene/volume.py).
+"""Volume data sources: VOL and npy grids, hierarchical grids and OpenVDB
+files (host-side numpy; a copy of the reference's numpy-only scene/volume.py).
 
 The result is a dense (D, H, W) float32 density grid and an optional
 world AABB, which the scene compiler turns into
-``MediumData.world_to_grid``.  OpenVDB files raise until the VDB codec is
-ported (ROADMAP Queue 1 item 9, "the loaders").
+``MediumData.world_to_grid``.  OpenVDB files are read through the
+bindings where importable, else through ``scene/vdb.py``.
 """
 from __future__ import annotations
 
@@ -57,10 +57,51 @@ def save_vol(path: str, data: np.ndarray, aabb_min, aabb_max):
 
 
 def vdb_to_dense(path: str, grid_name: str = "density"):
-    """An OpenVDB grid as a dense array: not ported yet (the VDB codec,
-    ``scene/vdb.py``, comes with ROADMAP Queue 1 item 9, "the loaders")."""
-    raise NotImplementedError(
-        f"{path}: OpenVDB volumes: ROADMAP Queue 1 item 9 (the loaders)")
+    """An OpenVDB grid as a dense (z, y, x) array and its world AABB.
+
+    Prefers the OpenVDB bindings when importable (``openvdb`` or
+    ``pyopenvdb``); otherwise reads the file with the in-repo codec
+    (``scene/vdb.py``: standard float 5-4-3 trees, none/zip compression;
+    Blosc files need the bindings)."""
+    try:
+        try:
+            import openvdb  # type: ignore
+        except ImportError:
+            import pyopenvdb as openvdb  # type: ignore
+    except ImportError:
+        return _vdb_to_dense_native(path, grid_name)
+    grid = openvdb.read(path, grid_name)
+    bbox = grid.evalActiveVoxelBoundingBox()
+    lo, hi = np.array(bbox[0]), np.array(bbox[1])
+    shape = tuple(int(x) for x in (hi - lo + 1))
+    dense = np.zeros(shape, dtype=np.float32)
+    grid.copyToArray(dense, ijk=tuple(int(x) for x in lo))
+    # index -> world bounds via the grid transform
+    wlo = np.array(grid.transform.indexToWorld(tuple(lo)), dtype=np.float32)
+    whi = np.array(grid.transform.indexToWorld(tuple(hi + 1)), dtype=np.float32)
+    # openvdb arrays are (x, y, z); ours are (z, y, x)
+    return np.ascontiguousarray(dense.transpose(2, 1, 0)), np.stack([wlo, whi])
+
+
+def _vdb_to_dense_native(path: str, grid_name: str):
+    """The in-repo codec's read of one grid."""
+    from mitsuba_path_guiding_torch.scene.vdb import read_vdb
+
+    grids = {g.name: g for g in read_vdb(path)}
+    if grid_name not in grids:
+        raise KeyError(
+            f"{path}: no grid named '{grid_name}' (has: {sorted(grids)})"
+        )
+    g = grids[grid_name]
+    lo = np.asarray(g.origin, np.float64)
+    hi = lo + np.asarray(g.data.shape, np.float64)
+    voxel = np.asarray(g.voxel_size, np.float64)
+    trans = np.asarray(g.translation, np.float64)
+    wlo = (lo * voxel + trans).astype(np.float32)
+    whi = (hi * voxel + trans).astype(np.float32)
+    # vdb index arrays are (x, y, z); ours are (z, y, x)
+    return (np.ascontiguousarray(g.data.transpose(2, 1, 0)),
+            np.stack([wlo, whi]))
 
 
 # Grids stay in device memory for the whole render (there is no

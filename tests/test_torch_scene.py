@@ -143,11 +143,11 @@ def test_generate_rays(name, w, h):
 @pytest.mark.parametrize("desc,match", [
     ({"shapes": [{"type": "deformable", "bsdf": {"type": "bumpmap"}}],
       "emitters": [{"type": "constant"}]}, "Queue 1 item 9"),
-    ({"shapes": [{"type": "heightfield", "filename": "h.exr", "bsdf": {
+    ({"shapes": [{"type": "rectangle", "subsurface": {"type": "dipole"}, "bsdf": {
         "type": "diffuse", "texture": {"type": "checkerboard"}}}],
       "emitters": [{"type": "sunsky"}]}, "Queue 1 item 9"),
-    ({"shapes": [{"type": "rectangle"}], "emitters": [{"type": "constant"}], "medium": {
-        "sigma_s": [1.0] * 3, "density": {"type": "vdbvolume", "filename": "cloud.vdb"}}},
+    ({"shapes": [{"type": "deformable"}], "emitters": [{"type": "constant"}], "medium": {
+        "sigma_s": [1.0] * 3}},
      "Queue 1 item 9"),
 ])
 def test_unported_features_raise(desc, match):
@@ -158,17 +158,18 @@ def test_unported_features_raise(desc, match):
 @pytest.mark.parametrize("desc,match", [
     ({"shapes": [{"type": "rectangle", "bsdf": {"type": "normalmap"},
                   "subsurface": {"type": "dipole"}}]}, "integrators"),
-    ({"shapes": [{"type": "heightfield", "filename": "h.pfm", "bsdf": {"type": "coating", "bsdf": {
+    ({"shapes": [{"type": "deformable", "bsdf": {"type": "coating", "bsdf": {
         "type": "diffuse", "texture": {"type": "checkerboard"}}}}]}, "loaders"),
     ({"shapes": [{"type": "rectangle", "subsurface": {"type": "dipole"}}]}, "integrators"),
-    ({"shapes": [{"type": "rectangle"}], "emitters": [{"type": "sky"}],
-      "medium": {"sigma_s": [1.0] * 3, "density": {"type": "vdbvolume", "filename": "c.vdb"}}},
+    ({"shapes": [{"type": "deformable"}], "emitters": [{"type": "sky"}],
+      "medium": {"sigma_s": [1.0] * 3}},
      "the loaders"),
     ({"shapes": [{"type": "deformable", "bsdf": {"type": "bumpmap", "bsdf": {"type": "hk"}}}]},
      "animation"),
     ({"shapes": [{"type": "rectangle", "subsurface": {"type": "singlescatter"}}],
       "emitters": [{"type": "envmap", "filename": "sky.exr"}]}, "integrators"),
-    ({"shapes": [{"type": "heightfield", "filename": "cloth.exr", "bsdf": {"type": "irawan"}}]},
+    ({"shapes": [{"type": "rectangle", "subsurface": {"type": "dipole"},
+                  "bsdf": {"type": "irawan"}}]},
      "Queue 1 item 9"),
 ])
 def test_next_slices_raise(desc, match):

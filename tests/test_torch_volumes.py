@@ -33,6 +33,7 @@ from mitsuba_path_guiding_tpu.guiding.grid import make_grid as j_make_grid
 from mitsuba_path_guiding_tpu.models import medium as jmed
 from mitsuba_path_guiding_tpu.models import phase as jph
 from mitsuba_path_guiding_tpu.scene import scenes as jscenes
+from mitsuba_path_guiding_tpu.scene import volume as jvolume
 from mitsuba_path_guiding_tpu.scene.builder import _compile_medium as j_compile_medium
 from mitsuba_path_guiding_tpu.scene.builder import build_scene as j_build_scene
 from torch_port_parity import frac_close, port_grid, t, to_numpy_tree
@@ -436,8 +437,13 @@ def test_volume_scenes_compile_equal_to_reference(tmp_path):
     _, tm, conv = _media(spec)
     np.testing.assert_array_equal(tm.world_to_grid.numpy(), conv.world_to_grid.numpy())
     np.testing.assert_array_equal(tm.majorant.numpy(), conv.majorant.numpy())
-    with pytest.raises(NotImplementedError, match="item 9 \\(the loaders\\)"):
-        _t_medium({"sigma_s": [1.0] * 3, "density": {"type": "vdbvolume", "filename": "x.vdb"}})
+    # an OpenVDB file is read (tests/test_torch_loaders.py); a missing one
+    # raises as the reference's does
+    missing = {"sigma_s": [1.0] * 3, "density": {"type": "vdbvolume", "filename": "x.vdb"}}
+    with pytest.raises(FileNotFoundError, match="x.vdb"):
+        _t_medium(missing)
+    with pytest.raises(FileNotFoundError, match="x.vdb"):
+        jvolume.load_volume_spec(missing["density"])
     for bad in ({"phase": "mixture", "phase_components": []},
                 {"phase": "mixture", "phase_components": [{"type": "kkay"}]},
                 {"phase": "mixture", "phase_components": ["hg"], "phase_weights": [-1.0]}):
