@@ -218,6 +218,38 @@ Phases:
      time between CUDA events); the seconds of every step, the XML and
      the built-in renders timed again in alternating order after the
      counted runs (alternating_seconds: medians, spread and their ratio).
+  19. "sharded" (slice 12): parallel.mesh.render_sharded in processes of
+     its own (spawn_ranks: the spawn start method, a file:// rendezvous
+     under build/chip_smoke/sharded/), at world size 1 on NCCL and at
+     world size 2 on gloo with both ranks on cuda:0 (NCCL refuses two
+     ranks on one card; gloo stages the merges through host memory): the
+     unguided Cornell box at 128x128, depth 5, 4 calls of 16 spp, bit-equal
+     on every rank of both world sizes and its mean within max(3%, 4
+     standard errors) of CORNELL_REFERENCE_MEAN; the guided Cornell box at
+     256x256 x 16 spp (fit every 4 waves) twice at world size 2, bit-equal
+     across runs and ranks, its grids equal, its mean within 8% of the
+     unguided render's (tests/test_sharding.py's bar); the collectives (one
+     film merge a call, one stats merge every 4 waves, none a wave);
+     __graft_entry__.dryrun_multichip's steps at world size 2: door_room(
+     120000) guided at 128x128, depth 5, one step through the pair route
+     (film weight = pixels, segments > pixels, a fitted grid), the 1080p
+     film in two guided bands of 2 rows, and the heterogeneous box's
+     volumetric step with guided distance sampling; each rank's seconds,
+     launches and collective bytes a progression.
+  20. "irrcache_subsurface" (slice 12): intersect_tiled and the BVH
+     bit-equal to their plain versions, closest and any-hit, on the
+     irradiance cache's gather rays and NEE shadow rays (Cornell, 512
+     records x 64 rays) and on the slab's irradiance samples' NEE shadow
+     rays, gather_rows_t bit-equal on the samples' shading rows; then the
+     JAX tests' configurations (IRR_RUNS on subsurface_descs' scenes):
+     render_irrcache on Cornell by the tiled route and the BVH, twice
+     each, bit-equal, over render() (192 spp) in (0.8, 1.2); the
+     translucent slab (mean > 1e-4, sigma_a 5 below half of it) and the
+     single-scattering sphere (mean > 1e-4, over 1.5x the sigma_s 0.1
+     sphere's, g 0.8 changing the mean by more than 2%); each mean within
+     max(3%, 4 standard errors) of the JAX package's CPU mean at the same
+     seed (IRR_REFERENCE, tools/irrcache_subsurface_reference_means.py);
+     seconds and launches of each render.
 
 Each main-path route runs with the launch counts set to 0 just before it
 and read just after it, and is held to the kernels it must launch: the
@@ -255,7 +287,14 @@ to the launches of the same route on the built-in scene (the Cornell
 guided render 160 tiled and 240 gathers, -I path 16 trace_fused, the
 door_room render 80 MT tiles, 120 gathers of which 40 on the large table,
 and a blocklist launch per query that left a ray unproven) and kdbench
-to 6 tiled launches.
+to 6 tiled launches; each rank of the sharded renders, on its shard, to
+the launches of the same route unsharded (a Cornell bounce two tiled
+queries and three gathers, no trace_fused; a door_room bounce one MT
+pair-tile launch a query, at most one blocklist launch a query and three
+gathers, one on the large table; a volume bounce two tiled queries and
+three gathers); the irradiance cache and subsurface renders to
+irr_launches (a camera pass of depth D D queries and 2D gathers, an NEE
+sample a query and a gather).
 """
 from __future__ import annotations
 
@@ -4822,6 +4861,615 @@ def run_scene_files(cornell, door, card):
     return counts
 
 
+# ---- phase 19, "sharded" (slice 12): render_sharded on one and two ranks
+
+SHARD_RES = 128          # unguided Cornell: SHARD_GROUPS calls of SHARD_SPP spp (64 spp)
+SHARD_SPP = 16
+SHARD_GROUPS = 4
+SHARD_GUIDED_RES = 256   # guided Cornell: 16 spp, the grid fitted every 4 waves
+SHARD_GUIDED_SPP = 16
+SHARD_FIT_EVERY = 4
+SHARD_GUIDED_BAR = 0.08  # tests/test_sharding.py's bar against the unguided render
+SHARD_DOOR_TRIS = 120_000
+SHARD_DOOR_RES = 128     # tests/test_sharding.py's guided pair-route step
+BAND_W, BAND_H, BAND_ROWS, BANDS = 1920, 1080, 2, 2   # dryrun_multichip's 1080p bands
+
+
+def spawn_ranks(job, world, out_dir, backend="gloo", device="cuda:0", threads=None, **kw):
+    """Run ``job`` ("module:function", called as fn(out_dir, device,
+    **kw)) on ``world`` ranks, one process each, started by the spawn
+    method; the ranks join ``backend`` through a file:// rendezvous in
+    ``out_dir`` (no TCP port) and each writes the dict of arrays it
+    returns to ``out_dir/rank<k>.npz``.  Returns those dicts in rank
+    order.  ``threads``: torch's intra-op threads a rank (default the
+    cores over the ranks)."""
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    os.makedirs(out_dir, exist_ok=True)
+    for fn in os.listdir(out_dir):
+        if fn == "rendezvous" or fn.startswith("rank"):
+            os.remove(os.path.join(out_dir, fn))
+    if threads is None:
+        threads = max(1, (os.cpu_count() or 1) // world)
+    mp.start_processes(_rank_main, args=(job, world, backend, device, threads, out_dir, kw),
+                       nprocs=world, join=True, start_method="spawn")
+    out = []
+    for r in range(world):
+        with np.load(os.path.join(out_dir, f"rank{r}.npz")) as z:
+            out.append({k: z[k] for k in z.files})
+    return out
+
+
+def _rank_main(rank, job, world, backend, device, threads, out_dir, kw):
+    import importlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(threads)
+    root = os.path.dirname(os.path.abspath(__file__))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    if device.startswith("cuda"):
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method="file://" + os.path.join(out_dir, "rendezvous"),
+                            world_size=world, rank=rank)
+    try:
+        mod, fn = job.split(":")
+        out = getattr(importlib.import_module(mod), fn)(out_dir, device, **kw)
+    finally:
+        dist.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+def _sync(device):
+    import torch
+
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize(device)
+
+
+def _rank_route(prefix, fn, device):
+    """fn() on this rank with the launch and collective counts set to 0
+    just before it and read just after it: (fn()'s result, the counts and
+    the seconds as arrays under ``prefix``)."""
+    import numpy as np
+
+    from mitsuba_path_guiding_torch.ops import build
+    from mitsuba_path_guiding_torch.parallel import mesh as pm
+
+    build.reset_launches()
+    pm.reset_collectives()
+    _sync(device)
+    t0 = time.time()
+    out = fn()
+    _sync(device)
+    rec = {f"{prefix}seconds": np.float64(time.time() - t0)}
+    rec.update({f"{prefix}launch_{k}": np.int64(v) for k, v in build.LAUNCHES.items()})
+    rec.update({f"{prefix}coll_{k}": np.int64(v) for k, v in pm.COLLECTIVES.items()})
+    return out, rec
+
+
+def _grid_rec(prefix, grid):
+    from mitsuba_path_guiding_torch.utils.checkpoint import grid_arrays
+
+    return {prefix + k: v for k, v in grid_arrays(grid).items()}
+
+
+def job_sharded_cornell(out_dir, device, width=SHARD_RES, height=SHARD_RES, spp=SHARD_SPP,
+                        depth=DEPTH, groups=1, guided=False, fit_every=SHARD_FIT_EVERY,
+                        repeats=1, prefix=""):
+    """The Cornell box through render_sharded on this rank: ``repeats``
+    runs, each ``groups`` calls of ``spp`` spp at sample offsets 0, spp,
+    ..., unguided or guided (alpha 0.5, the default 16^3 grid of 8 lobes,
+    fitted every ``fit_every`` waves).  Per run: the images (groups, H,
+    W, 3), the segments, the counts and seconds (``_rank_route``) and,
+    guided, the grid."""
+    import numpy as np
+
+    from mitsuba_path_guiding_torch.guiding.sampler import make_guide_fn
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig
+    from mitsuba_path_guiding_torch.models.bsdf import types_present
+    from mitsuba_path_guiding_torch.parallel import mesh as pm
+    from mitsuba_path_guiding_torch.scene.builder import build_scene
+    from mitsuba_path_guiding_torch.scene.scenes import cornell_box
+
+    scene = build_scene(cornell_box(), device=device)
+    m = pm.make_device_mesh(device)
+    guide = make_guide_fn(0.5, mat_types=types_present(scene.mats)) if guided else None
+    cfg = RenderConfig(width=width, height=height, spp=spp, max_depth=depth, seed=0)
+    out = {}
+    for run in range(repeats):
+        res, rec = _rank_route(f"{prefix}run{run}_", lambda: [
+            pm.render_sharded(scene, cfg, m, guide=guide, fit_every=fit_every,
+                              sample_offset=g * spp) for g in range(groups)], device)
+        out.update(rec)
+        out[f"{prefix}img{run}"] = np.stack([img.cpu().numpy() for img, _, _ in res])
+        out[f"{prefix}seg{run}"] = np.int64(sum(seg for _, _, seg in res))
+        if guided:
+            out.update(_grid_rec(f"{prefix}grid{run}_", res[-1][1]))
+    return out
+
+
+def job_sharded_dryrun(out_dir, device, steps=("door_room", "banded_1080p", "volume"),
+                       prefix=""):
+    """__graft_entry__.dryrun_multichip's steps on this rank, each a
+    sharded step of its own:
+    - door_room_small: door_room(120000) at 16x16, depth 2, through the
+      pair route, on this rank alone and on the mesh (merged films);
+    - door_room: the same scene at 128x128, depth 5, guided (an 8^3 grid
+      of 4 lobes), one step, the statistics merged and fitted;
+    - banded_1080p: a 1920x1080 film rendered in two bands of 2 rows,
+      depth 2, guided (min_rough 0.3, a 4^3 grid of 4 lobes), the grid
+      fitted after each band and the film merged once;
+    - volume: the heterogeneous box (res 8) at 8x8, depth 3, through the
+      volumetric tracer with guided distance sampling, fitted once.
+    Records each step's film (or its weight), local segments, grid count,
+    counts and seconds."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mitsuba_path_guiding_torch.guiding.fit import update_grid
+    from mitsuba_path_guiding_torch.guiding.grid import make_grid
+    from mitsuba_path_guiding_torch.guiding.sampler import make_guide_fn
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig
+    from mitsuba_path_guiding_torch.models.bsdf import types_present
+    from mitsuba_path_guiding_torch.parallel import mesh as pm
+    from mitsuba_path_guiding_torch.scene.builder import build_scene
+    from mitsuba_path_guiding_torch.scene.scenes import door_room, heterogeneous_box
+
+    m = pm.make_device_mesh(device)
+    out = {}
+
+    def pixels(n, start=0):
+        pix = start + torch.arange(n, dtype=torch.int64, device=m.device)
+        return pix, torch.zeros_like(pix)
+
+    door = None
+    if {"door_room_small", "door_room", "banded_1080p"} & set(steps):
+        door = build_scene(door_room(SHARD_DOOR_TRIS), device=device)
+        door_guide = make_guide_fn(0.5, mat_types=types_present(door.mats))
+    if "door_room_small" in steps:
+        singles = [dist.new_group([r]) for r in range(m.world_size)]
+        cfg = RenderConfig(width=16, height=16, spp=1, max_depth=2, accel="twolevel")
+        for tag, mesh in (("ws1", pm.make_device_mesh(device, group=singles[m.rank])),
+                          ("ws2", m)):
+            step = pm.make_sharded_step(door, cfg, mesh)
+            rgbw, _, _ = step(*pixels(256), pm.init_sharded_film(cfg, mesh), None)
+            out[f"{prefix}door_room_small_film_{tag}"] = pm.merge_film(rgbw, mesh).cpu().numpy()
+    if "door_room" in steps:
+        cfg = RenderConfig(width=SHARD_DOOR_RES, height=SHARD_DOOR_RES, spp=1, max_depth=DEPTH,
+                           accel="twolevel")
+        grid = make_grid(door.aabb_min, door.aabb_max, res=8, n_lobes=4)
+        step = pm.make_sharded_step(door, cfg, m, guide=door_guide)
+
+        def door_step():
+            rgbw, stats, n_seg = step(*pixels(SHARD_DOOR_RES ** 2), pm.init_sharded_film(cfg, m),
+                                      grid)
+            return pm.merge_film(rgbw, m), update_grid(grid, *pm.merge_stats(stats, m)), n_seg
+
+        (film, g, n_seg), rec = _rank_route(f"{prefix}door_room_", door_step, device)
+        out.update(rec)
+        out[f"{prefix}door_room_film"] = film.cpu().numpy()
+        out[f"{prefix}door_room_seg"] = np.int64(int(n_seg.sum()))
+        out[f"{prefix}door_room_grid_count"] = np.float64(float(g.s_count.sum()))
+    if "banded_1080p" in steps:
+        cfg5 = RenderConfig(width=BAND_W, height=BAND_H, spp=1, max_depth=2, accel="twolevel")
+        guide5 = make_guide_fn(0.5, mat_types=types_present(door.mats), min_rough=0.3)
+        grid5 = make_grid(door.aabb_min, door.aabb_max, res=4, n_lobes=4)
+        step5 = pm.make_sharded_step(door, cfg5, m, guide=guide5)
+        band_pix = BAND_W * BAND_ROWS
+
+        def banded():
+            # one progression: the bands into one film, the grid fitted
+            # after each band, the film merged once
+            rgbw, g, seg = pm.init_sharded_film(cfg5, m), grid5, 0
+            for band in range(BANDS):
+                rgbw, stats, n_seg = step5(*pixels(band_pix, band * band_pix), rgbw, g)
+                g = update_grid(g, *pm.merge_stats(stats, m))
+                seg = seg + n_seg
+            return pm.merge_film(rgbw, m), g, seg
+
+        (film, g, seg), rec = _rank_route(f"{prefix}banded_1080p_", banded, device)
+        out.update(rec)
+        out[f"{prefix}banded_1080p_finite"] = np.bool_(bool(torch.isfinite(film).all()))
+        out[f"{prefix}banded_1080p_weight"] = np.float64(float(film[:, 3].sum()))
+        out[f"{prefix}banded_1080p_seg"] = np.int64(int(seg.sum()))
+        out[f"{prefix}banded_1080p_grid_count"] = np.float64(float(g.s_count.sum()))
+    if "volume" in steps:
+        vol = build_scene(heterogeneous_box(sigma_s=0.9, sigma_a=0.1, res=8), device=device)
+        cfg4 = RenderConfig(width=8, height=8, spp=1, max_depth=3)
+        grid4 = make_grid(vol.aabb_min, vol.aabb_max, res=4, n_lobes=4)
+        step4 = pm.make_sharded_step(vol, cfg4, m,
+                                     guide=make_guide_fn(0.5, mat_types=types_present(vol.mats)),
+                                     vol=True, guide_distance=True)
+
+        def volume_step():
+            rgbw, stats, n_seg = step4(*pixels(64), pm.init_sharded_film(cfg4, m), grid4)
+            return pm.merge_film(rgbw, m), update_grid(grid4, *pm.merge_stats(stats, m)), n_seg
+
+        (film, g, n_seg), rec = _rank_route(f"{prefix}volume_", volume_step, device)
+        out.update(rec)
+        out[f"{prefix}volume_film_weight"] = np.float64(float(film[:, 3].sum()))
+        out[f"{prefix}volume_finite"] = np.bool_(bool(torch.isfinite(film).all()))
+        out[f"{prefix}volume_grid_finite"] = np.bool_(bool(torch.isfinite(g.s_count).all()))
+        out[f"{prefix}volume_grid_count"] = np.float64(float(g.s_count.sum()))
+        out[f"{prefix}volume_seg"] = np.int64(int(n_seg.sum()))
+    return out
+
+
+def job_sharded_chip(out_dir, device):
+    """Phase 19's world-size-2 work in one spawn: the unguided Cornell
+    renders (prefix u_), the guided one twice (g_) and the dryrun steps."""
+    out = job_sharded_cornell(out_dir, device, groups=SHARD_GROUPS, prefix="u_")
+    out.update(job_sharded_cornell(out_dir, device, width=SHARD_GUIDED_RES,
+                                   height=SHARD_GUIDED_RES, spp=SHARD_GUIDED_SPP, guided=True,
+                                   repeats=2, prefix="g_"))
+    out.update(job_sharded_dryrun(out_dir, device))
+    return out
+
+
+def _launches(rec, prefix):
+    return {k[len(prefix) + 7:]: int(v) for k, v in rec.items()
+            if k.startswith(prefix + "launch_")}
+
+
+def _collectives(rec, prefix):
+    return {k[len(prefix) + 5:]: int(v) for k, v in rec.items() if k.startswith(prefix + "coll_")}
+
+
+def _hold_launches(name, got, want):
+    """Every kernel's count on one rank against ``want`` (None: at least
+    one; a pair (lo, hi): within it)."""
+    for kernel, w in want.items():
+        g = got[kernel]
+        if w is None:
+            check(g > 0, f"{name}: {kernel} was not launched")
+        elif isinstance(w, tuple):
+            check(w[0] <= g <= w[1], f"{name}: {kernel} launched {g} times, expected {w}")
+        else:
+            check(g == w, f"{name}: {kernel} launched {g} times, expected {w}")
+
+
+def sharded_dir(name):
+    """Where one spawn of phase 19 rendezvouses and leaves its ranks'
+    arrays: build/chip_smoke/sharded/<name> in the checkout."""
+    return os.path.join(texture_dir(), "sharded", name)
+
+
+def run_sharded(card):
+    """Phase 19: render_sharded at world size 1 (NCCL) and 2 (gloo, both
+    ranks on cuda:0: NCCL refuses two ranks on one card), in processes of
+    their own.  Returns the launch counts by route (rank 0's; every
+    rank's are held to the same bars)."""
+    import numpy as np
+
+    t0 = time.time()
+    ws1 = spawn_ranks("chip_smoke:job_sharded_cornell", 1, sharded_dir("ws1_nccl"),
+                      backend="nccl", groups=SHARD_GROUPS, prefix="u_")
+    ws2 = spawn_ranks("chip_smoke:job_sharded_chip", 2, sharded_dir("ws2_gloo"))
+    ranks = {"ws1_nccl_rank0": ws1[0], "ws2_gloo_rank0": ws2[0], "ws2_gloo_rank1": ws2[1]}
+    counts = {}
+
+    # unguided: bit-equal across world sizes, the reference mean, the kernels
+    waves = SHARD_SPP * SHARD_GROUPS
+    unguided_want = {**NONE_LAUNCHED, "intersect_tiled": 2 * DEPTH * waves,
+                     "gather_rows_t": 3 * DEPTH * waves}
+    ref_img = ws1[0]["u_img0"]
+    for label, r in ranks.items():
+        check(np.array_equal(r["u_img0"], ref_img), f"sharded unguided {label}: not bit-equal "
+                                                    f"to world size 1")
+        _hold_launches(f"sharded_unguided_{label}", _launches(r, "u_run0_"), unguided_want)
+    group_means = ref_img.reshape(SHARD_GROUPS, -1).mean(axis=1)
+    mean = float(group_means.mean())
+    se = float(group_means.std(ddof=1) / SHARD_GROUPS ** 0.5)
+    tol = max(MEAN_TOL, 4.0 * (CORNELL_REFERENCE_SE ** 2 + se ** 2) ** 0.5
+              / CORNELL_REFERENCE_MEAN)
+    rel = abs(mean - CORNELL_REFERENCE_MEAN) / CORNELL_REFERENCE_MEAN
+    check(rel < tol, f"sharded unguided mean {mean} vs {CORNELL_REFERENCE_MEAN} (tol {tol})")
+    counts["sharded_unguided"] = _launches(ws2[0], "u_run0_")
+
+    # guided at world size 2: repeats, equal grids, the JAX test's bar
+    guided_want = {**NONE_LAUNCHED, "intersect_tiled": 2 * DEPTH * SHARD_GUIDED_SPP,
+                   "gather_rows_t": 3 * DEPTH * SHARD_GUIDED_SPP}
+    grid_keys = [k for k in ws2[0] if k.startswith("g_grid0_")]
+    for r in ws2:
+        check(np.array_equal(r["g_img0"], r["g_img1"]), "sharded guided: runs differ")
+        check(np.array_equal(r["g_img0"], ws2[0]["g_img0"]), "sharded guided: ranks differ")
+        for k in grid_keys:
+            check(np.array_equal(r[k], ws2[0][k]) and np.array_equal(r[k], r[k.replace(
+                "grid0", "grid1")]), f"sharded guided: grid field {k} differs")
+        for run in (0, 1):
+            _hold_launches("sharded_guided", _launches(r, f"g_run{run}_"), guided_want)
+    g_mean = float(ws2[0]["g_img0"].mean())
+    g_rel = abs(g_mean - mean) / mean
+    check(g_rel < SHARD_GUIDED_BAR, f"sharded guided mean {g_mean} vs unguided {mean}")
+    check(int(ws2[0]["g_grid0_grid_valid"].sum()) > 0, "sharded guided: no valid cell")
+    counts["sharded_guided"] = _launches(ws2[0], "g_run0_")
+
+    # the collectives: one film merge a render_sharded call, one stats merge
+    # every fit_every waves, none a wave
+    n_fit = SHARD_GUIDED_SPP // SHARD_FIT_EVERY
+    coll = {"unguided_ws1": _collectives(ws1[0], "u_run0_"),
+            "unguided_ws2": _collectives(ws2[0], "u_run0_"),
+            "guided_ws2": _collectives(ws2[0], "g_run0_")}
+    check(coll["unguided_ws1"]["merge_film"] == SHARD_GROUPS
+          and coll["unguided_ws1"]["all_gather"] == 0, f"world size 1 collectives {coll}")
+    check(coll["unguided_ws2"]["all_gather"] == SHARD_GROUPS, f"unguided collectives {coll}")
+    check((coll["guided_ws2"]["merge_film"], coll["guided_ws2"]["merge_stats"],
+           coll["guided_ws2"]["all_gather"]) == (1, n_fit, 1 + n_fit),
+          f"guided collectives {coll}")
+
+    # dryrun_multichip's steps at world size 2
+    door_want = {**NONE_LAUNCHED, "intersect_pairs_mt": 2 * DEPTH,
+                 "intersect_blocklist": (0, 2 * DEPTH), "gather_rows_t": 3 * DEPTH,
+                 "gather_rows_t_large": DEPTH}
+    band_want = {**NONE_LAUNCHED, "intersect_pairs_mt": 2 * 2 * BANDS,
+                 "intersect_blocklist": (0, 2 * 2 * BANDS), "gather_rows_t": 3 * 2 * BANDS,
+                 "gather_rows_t_large": 2 * BANDS}
+    n_door = SHARD_DOOR_RES ** 2
+    for r in ws2:
+        film = r["door_room_film"]
+        check(bool(np.isfinite(film).all()) and float(film[:, 3].sum()) == n_door,
+              "sharded door_room: film weight is not the pixel count")
+        check(float(r["door_room_grid_count"]) > 0, "sharded door_room: empty grid")
+        _hold_launches("sharded_door_room", _launches(r, "door_room_"), door_want)
+        check(bool(r["banded_1080p_finite"])
+              and float(r["banded_1080p_weight"]) == BANDS * BAND_ROWS * BAND_W,
+              "sharded 1080p bands: film")
+        _hold_launches("sharded_banded_1080p", _launches(r, "banded_1080p_"), band_want)
+        check(bool(r["volume_finite"]) and float(r["volume_film_weight"]) == 64
+              and bool(r["volume_grid_finite"]) and float(r["volume_grid_count"]) > 0,
+              "sharded volume step")
+        # three bounces: two tiled queries and three gathers each
+        _hold_launches("sharded_volume", _launches(r, "volume_"),
+                       {**NONE_LAUNCHED, "intersect_tiled": 2 * 3, "gather_rows_t": 3 * 3})
+    door_seg = sum(int(r["door_room_seg"]) for r in ws2)
+    check(door_seg > n_door, f"sharded door_room: {door_seg} segments for {n_door} pixels")
+    check(sum(_launches(r, "door_room_")["intersect_blocklist"] for r in ws2) > 0,
+          "sharded door_room: no blocklist launch")
+    for step in ("door_room", "banded_1080p", "volume"):
+        counts[f"sharded_{step}"] = _launches(ws2[0], f"{step}_")
+
+    rec = {"phase": "sharded", "card": card, "seconds": round(time.time() - t0, 3),
+           "unguided": {"resolution": f"{SHARD_RES}x{SHARD_RES}", "spp": waves, "mean": mean,
+                        "se": se, "reference_mean": CORNELL_REFERENCE_MEAN, "rel_err": rel,
+                        "rel_tol": tol, "bit_equal_ws1_ws2": True},
+           "guided": {"resolution": f"{SHARD_GUIDED_RES}x{SHARD_GUIDED_RES}",
+                      "spp": SHARD_GUIDED_SPP, "fit_every": SHARD_FIT_EVERY, "mean": g_mean,
+                      "rel_to_unguided": g_rel, "repeats_bit_equal": True,
+                      "grids_equal_on_ranks": True},
+           "door_room_segments": door_seg, "collectives": coll,
+           "collective_bytes_per_progression": {
+               "guided_ws2": coll["guided_ws2"]["bytes"] // n_fit,
+               "banded_1080p_ws2": _collectives(ws2[0], "banded_1080p_")["bytes"]},
+           "seconds_per_rank": {label: {k[:-len("_seconds")]: round(float(v), 3)
+                                        for k, v in r.items() if k.endswith("_seconds")}
+                                for label, r in ranks.items()},
+           "launches_per_rank": {label: {p: _launches(r, p) for p in (
+               "u_run0_", "g_run0_", "door_room_", "banded_1080p_", "volume_")
+               if f"{p}seconds" in r} for label, r in ranks.items()}}
+    emit(rec)
+    return counts
+
+
+# ---- phase 20, "irrcache_subsurface" (slice 12)
+
+IRR_RUNS = {  # name: (scene, resolution, spp, max_depth, seed, kwargs): the JAX tests'
+    "irrcache": ("cornell", 16, 8, 4, 5, {"n_records": 512, "rays_per_record": 64}),
+    "irrcache_pt": ("cornell", 16, 192, 4, 3, {}),
+    "slab": ("slab", 16, 2, 2, 3, {"n_points": 512}),
+    "slab_thick": ("slab_thick", 16, 2, 2, 3, {"n_points": 512}),
+    "single": ("single", 24, 4, 5, 0, {}),
+    "single_weak": ("single_weak", 24, 4, 5, 0, {}),
+    "single_g0": ("single", 16, 4, 5, 0, {}),
+    "single_g08": ("single_g08", 16, 4, 5, 0, {}),
+}
+# tools/irrcache_subsurface_reference_means.py (JAX on the CPU, 129.2 s)
+IRR_REFERENCE = {  # run: (the JAX CPU mean at its seed, the SE over 4 seeds)
+    "irrcache": (0.1350552886724472, 0.011567005774055686),
+    "irrcache_pt": (0.11488459259271622, 0.0008866150562744871),
+    "slab": (0.07435483485460281, 0.007645248580121338),
+    "slab_thick": (0.009688527323305607, 0.0009960007782584194),
+    "single": (0.025272216647863388, 0.0003049768881451473),
+    "single_weak": (0.007887343876063824, 0.00011615305045516455),
+    "single_g0": (0.02494804561138153, 0.0005235547108879096),
+    "single_g08": (0.004462489392608404, 7.481898435148167e-05),
+}
+
+
+def irr_launches(run, route):
+    """The launches of one IRR_RUNS render on ``route`` ("tiled" or
+    "bvh"): a camera pass of depth D is D queries and 2D gathers (the
+    shading and material rows), an NEE sample one shadow query and one
+    gather (the emitter row), a path bounce two queries and three
+    gathers; the cache's overture is a camera pass, a gather wave of
+    depth max(D - 2, 1) and an NEE wave; a subsurface pixel sample is a
+    camera query, its shading row, an NEE sample and the albedo's
+    material row, a single-scattering one four distances of an NEE
+    sample, a boundary query and its shading row more, beside its entry
+    query; the dipole's 8 NEE passes and its sample rows come first.
+    The path tracer's reference is render()'s one trace_fused a wave."""
+    _, res, spp, depth, _, kw = IRR_RUNS[run]
+    if run == "irrcache_pt":
+        return {**NONE_LAUNCHED, "trace_fused": spp}
+    if run == "irrcache":
+        gd = max(depth - 2, 1)
+        queries = depth + 2 * gd + 1 + spp * (depth + 1)
+        gathers = 2 * depth + 3 * gd + 1 + spp * (2 * depth + 1)
+        large = 0
+    elif run.startswith("slab"):
+        queries, gathers, large = 8 + 2 * spp, 1 + 8 + 3 * spp, 0
+    else:  # single scattering on the sphere (more than 512 triangles)
+        queries, gathers, large = 11 * spp, 11 * spp, 5 * spp
+    kernel = "intersect_bvh" if route == "bvh" else "intersect_tiled"
+    return {**NONE_LAUNCHED, kernel: queries, "gather_rows_t": gathers,
+            "gather_rows_t_large": large}
+
+
+def subsurface_descs(mod):
+    """The scenes of tests/test_subsurface.py from a scenes module (the
+    port's or the JAX package's): the translucent slab (a dipole cube
+    between a point light and the camera), with sigma_a 5 (slab_thick),
+    and the single-scattering sphere lit from the side with g 0 and 0.8
+    and with sigma_s 0.1 (single_weak)."""
+    import numpy as np
+
+    def slab(sigma_a):
+        return {"sensor": {"type": "perspective", "fov": 50.0,
+                           "to_world": mod.look_at([0, 0, -3], [0, 0, 0])},
+                "shapes": [{"type": "cube",
+                            "to_world": mod.translate(0, 0, 0) @ np.diag([1.0, 1.0, 0.12, 1.0]),
+                            "bsdf": {"type": "diffuse", "reflectance": [0.0] * 3},
+                            "subsurface": {"sigma_a": sigma_a, "sigma_s": [1.2, 1.0, 0.8],
+                                           "eta": 1.3}}],
+                "emitters": [{"type": "point", "position": [0.0, 0.0, 1.5],
+                              "intensity": [8.0, 8.0, 8.0]}]}
+
+    def single(g, sigma_s):
+        return {"sensor": {"type": "perspective", "fov": 50.0,
+                           "to_world": mod.look_at([0, 0, -3], [0, 0, 0])},
+                "shapes": [{"type": "sphere", "to_world": np.diag([0.8, 0.8, 0.8, 1.0]),
+                            "bsdf": {"type": "diffuse", "reflectance": [0.0] * 3},
+                            "subsurface": {"type": "singlescatter", "sigma_a": [0.05] * 3,
+                                           "sigma_s": [sigma_s] * 3, "eta": 1.33, "g": g}}],
+                "emitters": [{"type": "point", "position": [2.5, 0.0, 0.0],
+                              "intensity": [30.0, 30.0, 30.0]}]}
+
+    return {"cornell": mod.cornell_box(), "slab": slab([0.02, 0.04, 0.1]),
+            "slab_thick": slab([5.0, 5.0, 5.0]), "single": single(0.0, 0.8),
+            "single_weak": single(0.0, 0.1), "single_g08": single(0.8, 0.8)}
+
+
+def irr_render(run, scenes, accel="auto"):
+    """One IRR_RUNS run on the port: its image."""
+    from mitsuba_path_guiding_torch.integrators.irrcache import render_irrcache
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig, render
+    from mitsuba_path_guiding_torch.integrators.subsurface import render_subsurface
+
+    name, res, spp, depth, seed, kw = IRR_RUNS[run]
+    cfg = RenderConfig(width=res, height=res, spp=spp, max_depth=depth, seed=seed, accel=accel)
+    fn = render if run == "irrcache_pt" else (
+        render_irrcache if run == "irrcache" else render_subsurface)
+    return fn(scenes[name], cfg, **kw)
+
+
+def irr_kernel_checks(scenes, card):
+    """intersect_tiled and the BVH bit-equal to their plain versions,
+    closest hit and any-hit, on the irradiance cache's gather rays (the
+    first segment of each record's cells) and NEE shadow rays on the
+    Cornell box, and on the slab's irradiance samples' NEE shadow rays;
+    gather_rows_t bit-equal on the samples' shading rows."""
+    import torch
+
+    from mitsuba_path_guiding_torch.integrators import irrcache, subsurface
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig
+
+    cornell, slab = scenes["cornell"], scenes["slab"]
+    _, _, _, _, seed, kw = IRR_RUNS["irrcache"]
+    gather = []
+    real_trace = irrcache.trace
+
+    def rec_trace(scene, o, d, *a, **k):
+        gather.append((o, d))
+        return real_trace(scene, o, d, *a, **k)
+
+    irrcache.trace = rec_trace
+    try:
+        _, calls = record_queries(irrcache, lambda: irrcache.build_irradiance_cache(
+            cornell, RenderConfig(width=16, height=16, max_depth=4, seed=seed), **kw))
+    finally:
+        irrcache.trace = real_trace
+    o_g, d_g = gather[0]
+    sets = {"irradiance_gather": (cornell, (o_g, d_g, torch.full_like(o_g[:, 0], 3.0e37))),
+            "irradiance_nee_shadow": (cornell, [c for c in calls if c[3]][0][:3])}
+    rows = []
+    real_gather = subsurface.gather_rows_t
+
+    def rec_gather(table, idx):
+        rows.append((table, idx))
+        return real_gather(table, idx)
+
+    subsurface.gather_rows_t = rec_gather
+    try:
+        pts = subsurface.sample_surface_points(slab, IRR_RUNS["slab"][5]["n_points"], seed=3)
+    finally:
+        subsurface.gather_rows_t = real_gather
+    _, calls = record_queries(subsurface, lambda: subsurface.compute_irradiance(
+        slab, pts, RenderConfig(seed=3)))
+    sets["subsurface_nee_shadow"] = (slab, calls[0][:3])
+    res = {}
+    for label, (sc, (o, d, tmax)) in sets.items():
+        res[f"intersect_tiled_{label}"] = tiled_check(sc.geo, o, d, tmax, sc.geo.p0.shape[0],
+                                                      label)
+        res[f"bvh_{label}"] = bvh_check(sc.bvh, o, d, tmax, label)
+    res["gather_rows_t_subsurface_samples"] = gather_call(*rows[0])
+    emit({"phase": "irrcache_subsurface_kernel_checks", "card": card, **res})
+    return res
+
+
+def run_irrcache_subsurface(card):
+    """Phase 20: the kernel checks, then each IRR_RUNS render (irrcache by
+    the tiled route and the BVH, twice each, bit-equal) held to the JAX
+    tests' bars and to the JAX package's CPU means.  Returns (the launch
+    counts by route, the kernel checks)."""
+    import numpy as np
+
+    from mitsuba_path_guiding_torch.scene import scenes as port_scenes
+    from mitsuba_path_guiding_torch.scene.builder import build_scene
+
+    t0 = time.time()
+    scenes = {k: build_scene(v, device=DEVICE) for k, v in subsurface_descs(port_scenes).items()}
+    checks = irr_kernel_checks(scenes, card)
+    counts, means, recs = {}, {}, {}
+    for run in IRR_RUNS:
+        routes = (("tiled", "auto"), ("bvh", "bvh")) if run == "irrcache" else (("tiled", "auto"),)
+        for route, accel in routes:
+            want = irr_launches(run, route)
+            imgs = []
+            for rep in range(2 if run == "irrcache" else 1):
+                name = f"irr_{run}_{route}" + (f"_{rep}" if rep else "")
+                (img, secs, lanes, live), counts[name] = drive(
+                    name, lambda: timed_render(lambda: irr_render(run, scenes, accel)), want)
+                img = img.cpu().numpy()
+                check(bool(np.isfinite(img).all()), f"{name}: not finite")
+                imgs.append(img)
+                recs[name] = {"seconds": round(secs, 3), "mean": float(img.mean()),
+                              "query_lanes": lanes, "live_query_lanes": live,
+                              "launches": counts[name]}
+            if len(imgs) == 2:
+                check(np.array_equal(imgs[0], imgs[1]), f"{run} {route}: repeats differ")
+            means[f"{run}_{route}"] = float(imgs[0].mean())
+            if run in IRR_REFERENCE:
+                ref, se = IRR_REFERENCE[run]
+                tol = max(MEAN_TOL, 4.0 * se / ref)
+                rel = abs(means[f"{run}_{route}"] - ref) / ref
+                check(rel < tol, f"{run} {route}: mean {means[f'{run}_{route}']} vs the JAX "
+                                 f"CPU mean {ref} (tol {tol})")
+                recs[f"irr_{run}_{route}"].update({"reference_mean": ref, "rel_err": rel,
+                                                  "rel_tol": tol})
+    # the JAX tests' bars
+    ratio = {r: means[f"irrcache_{r}"] / means["irrcache_pt_tiled"] for r in ("tiled", "bvh")}
+    for r, v in ratio.items():
+        check(0.8 < v < 1.2, f"irrcache ({r}) over the path tracer: {v}")
+    check(means["slab_tiled"] > 1e-4, f"slab mean {means['slab_tiled']}")
+    check(means["slab_thick_tiled"] < 0.5 * means["slab_tiled"], "sigma_a 5 does not darken")
+    check(means["single_tiled"] > 1e-4, f"singlescatter mean {means['single_tiled']}")
+    check(means["single_tiled"] > 1.5 * means["single_weak_tiled"], "sigma_s scaling")
+    aniso = abs(means["single_g0_tiled"] - means["single_g08_tiled"]) / max(
+        means["single_g0_tiled"], 1e-9)
+    check(aniso > 0.02, f"singlescatter anisotropy {aniso}")
+    emit({"phase": "irrcache_subsurface", "card": card, "seconds": round(time.time() - t0, 3),
+          "irrcache_over_path": ratio, "slab_thick_over_slab":
+              means["slab_thick_tiled"] / means["slab_tiled"],
+          "single_over_weak": means["single_tiled"] / means["single_weak_tiled"],
+          "anisotropy_rel": aniso, "renders": recs})
+    return counts, checks
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -4958,13 +5606,19 @@ def main(argv=None):
     # the scene files: the XML Cornell box through the CLI, checkpoints and
     # the preview, door_room from PLY files, util kdbench
     c_files = run_scene_files(scene, door, card)
+    # multi-GPU: render_sharded on one rank (NCCL) and two (gloo), in
+    # processes of their own
+    c_sharded = run_sharded(card)
+    # the irradiance cache and subsurface scattering: the kernel checks on
+    # their rays, then the renders
+    c_irr, irr_checks = run_irrcache_subsurface(card)
     routes = {"progressive": c_prog, "frozen_render": c_frozen, "unguided_render": c_render,
               "progressive_adaptive": c_adaptive, "guiding_gain_bounce_lamp": c_bounce,
               "guiding_gain_door_room": c_door_gain,
               "door_room_progressive": c_door, "door_room_plk": c_plk, **interior["launches"],
               "door_room_twolevel": door_tl["launches"], "door_room_sorted_blocklist": c_sorted,
               "door_room_bvh": c_bvh, **c_shading, **c_vocab, **c_vol, **c_tex, **c_int,
-              **c_chain, **c_files}
+              **c_chain, **c_files, **c_sharded, **c_irr}
     launches = {k: {r: c[k] for r, c in routes.items()} for k in c_prog}
 
     entries = phase_timings(scene, veach, tables, grid, checks, launches, card)
@@ -4979,7 +5633,9 @@ def main(argv=None):
                                 "light_path_emitter_hits":
                                     int_checks["gather_rows_t_emitter_hits"],
                                 "mlt_bootstrap_hits":
-                                    chain_checks["gather_rows_t_mlt_bootstrap_hits"]})
+                                    chain_checks["gather_rows_t_mlt_bootstrap_hits"],
+                                "subsurface_sample_rows":
+                                    irr_checks["gather_rows_t_subsurface_samples"]})
     entries += new_entries
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

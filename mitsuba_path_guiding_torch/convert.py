@@ -12,7 +12,9 @@ the fiber and mixture phases' tables) come across as they are.
 The BVH (given the port's packed layout), blocklist and pair tables come
 across too, and a two-level ``BlockTable`` (``ops/intersect_twolevel.py``)
 through ``block_table_from_numpy``; the chain integrators' state through
-``mlt_state_from_numpy`` and ``tensors_from_numpy``.
+``mlt_state_from_numpy`` and ``tensors_from_numpy``; an irradiance
+cache and a set of subsurface samples through
+``irradiance_cache_from_numpy`` and ``ss_samples_from_numpy``.
 """
 from __future__ import annotations
 
@@ -119,3 +121,20 @@ def tensors_from_numpy(arrays, device=None):
     (N, 2)), SPPM's hitpoint and photon arrays."""
     dev = resolve_device(device)
     return tuple(_tensor(x, dev) for x in arrays)
+
+
+def irradiance_cache_from_numpy(d: dict, device=None):
+    """``integrators.irrcache.IrradianceCache`` on ``device`` from the
+    reference's cache as numpy arrays (a dict of its fields)."""
+    from mitsuba_path_guiding_torch.integrators.irrcache import IrradianceCache
+
+    return _fill(IrradianceCache, d, resolve_device(device))
+
+
+def ss_samples_from_numpy(d: dict, device=None):
+    """``integrators.subsurface.SSSamples`` on ``device`` from the
+    reference's irradiance samples as numpy arrays (a dict of its
+    fields)."""
+    from mitsuba_path_guiding_torch.integrators.subsurface import SSSamples
+
+    return _fill(SSSamples, d, resolve_device(device))

@@ -152,11 +152,17 @@ def update_grid(grid: GuidingGrid, s_w, s_dir, s_count,
     )
 
 
-def fit_from_records(grid: GuidingGrid, rec) -> GuidingGrid:
+def fit_from_records(grid: GuidingGrid, rec, mesh=None) -> GuidingGrid:
     """One full fitting step: the statistics of ``rec`` and the M-step.
-    The reference's ``psum_axis`` (an all-reduce of the statistics across
-    devices) comes with multi-GPU, ROADMAP Queue 1 item 9."""
-    return update_grid(grid, *accumulate_stats(grid, rec))
+    With a ``mesh`` (``parallel.mesh.make_device_mesh``; the reference's
+    ``psum_axis``) the six statistics are summed over its ranks, in rank
+    order, before the update, so every rank makes the same grid."""
+    stats = accumulate_stats(grid, rec)
+    if mesh is not None:
+        from mitsuba_path_guiding_torch.parallel.mesh import merge_stats
+
+        stats = merge_stats(tuple(x[None] for x in stats), mesh)
+    return update_grid(grid, *stats)
 
 
 SPLIT_THRESHOLD = 4096.0  # samples before a cell subdivides

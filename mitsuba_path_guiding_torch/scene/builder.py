@@ -23,8 +23,9 @@ builder, so a compile needs g++; its depth is checked against the
 traversal stack); from 16384 triangles on it also carries the blocklist
 and pair tables of the big-scene intersectors.  The arrays are computed
 host-side in numpy with the reference's exact arithmetic, so a compiled
-scene is equal to the JAX build array for array.  Subsurface scattering
-raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+scene is equal to the JAX build array for array.  A shape with a
+``subsurface`` spec gets a row of ``sss_packed`` (S, 16) (``_sss_row``),
+its triangles that row's index in shading column 27 (-1 elsewhere).
 """
 from __future__ import annotations
 
@@ -118,6 +119,24 @@ _SENSOR_KINDS = {
     "radiancemeter": SensorKind.RADIANCEMETER,
     "fluencemeter": SensorKind.FLUENCEMETER,
 }
+
+
+def _sss_row(ss: dict) -> np.ndarray:
+    """A shape's subsurface row: 0:3 sigma_a, 3:6 sigma_s (reduced,
+    sigma_s (1 - g), for the dipole; raw for single scattering, whose phase
+    takes g), 6 eta, 7 scale, 8 g, 9 1 for single scattering."""
+    g_ss = float(ss.get("g", 0.0))
+    single = ss.get("type", "dipole") == "singlescatter"
+    row16 = np.zeros(16, dtype=np.float32)
+    row16[0:3] = _rgb(ss.get("sigma_a"), [0.0014, 0.0025, 0.0142])
+    sig_s = _rgb(ss.get("sigma_s"), [0.7, 1.22, 1.9])
+    row16[3:6] = sig_s if single else sig_s * (1.0 - g_ss)
+    row16[6] = float(ss.get("int_ior", 1.5)) / float(ss.get("ext_ior", 1.0)) \
+        if "int_ior" in ss or "ext_ior" in ss else float(ss.get("eta", 1.5))
+    row16[7] = float(ss.get("scale", 1.0))
+    row16[8] = g_ss
+    row16[9] = 1.0 if single else 0.0
+    return row16
 
 
 def _not_ported(what: str, item: str):
@@ -571,9 +590,9 @@ def build_scene(desc: dict, device=None) -> SceneData:
 
     tri_vcol: list = []
     any_vcol = False
+    sss_rows: list = []
+    tri_sss: list = []
     for sh in flat_shapes:
-        if sh.get("subsurface") is not None:
-            _not_ported("subsurface scattering", "Queue 1 item 9 (integrators)")
         mesh = SHAPE_BUILDERS[sh["type"]](sh).transformed(_to_world(sh))
         if sh.get("flip_normals"):
             mesh = mesh.flipped()
@@ -602,6 +621,13 @@ def build_scene(desc: dict, device=None) -> SceneData:
             any_vcol = True
         else:
             tri_vcol.append(np.zeros((nf, 9), np.float32))
+        # subsurface (the dipole's or single scattering's parameters): one
+        # (16,) row a shape, its index in shading column 27
+        if sh.get("subsurface") is not None:
+            sss_rows.append(_sss_row(sh["subsurface"]))
+            tri_sss.extend([len(sss_rows) - 1] * nf)
+        else:
+            tri_sss.extend([-1] * nf)
         if "emitter" in sh and sh["emitter"] is not None:
             rad = _rgb(sh["emitter"].get("radiance"), [1.0, 1.0, 1.0])
             lum = float(np.dot(rad, LUM_WEIGHTS_NP))
@@ -658,7 +684,7 @@ def build_scene(desc: dict, device=None) -> SceneData:
     uv_e2 = h["uv2"] - h["uv0"]
     uv_area = 0.5 * np.abs(uv_e1[:, 0] * uv_e2[:, 1] - uv_e1[:, 1] * uv_e2[:, 0])
     shade[:, 26] = np.sqrt(uv_area / np.maximum(tri_area, 1e-20))
-    shade[:, 27] = -1.0  # no subsurface rows
+    shade[:, 27] = np.asarray(tri_sss, dtype=np.float32)  # sss row (-1 none)
 
     power = np.asarray(em["power"], dtype=np.float64)
     pmf = power / power.sum()
@@ -800,5 +826,5 @@ def build_scene(desc: dict, device=None) -> SceneData:
         aabb_max=t((hi + pad).astype(np.float32)),
         textures=t(atlas),
         texture_sizes=t(sizes),
-        sss_packed=None, blocks=blocks, pairs=pairs,
+        sss_packed=t(np.stack(sss_rows)) if sss_rows else None, blocks=blocks, pairs=pairs,
     )

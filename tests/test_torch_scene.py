@@ -60,7 +60,34 @@ def _sensor(**kw):
     return make
 
 
+def _sss_slab(m, sigma_a=(0.02, 0.04, 0.1)):
+    """tests/test_subsurface.py's translucent slab: a dipole cube between
+    a point light and the camera."""
+    return {"sensor": {"type": "perspective", "fov": 50.0,
+                       "to_world": m.look_at([0, 0, -3], [0, 0, 0])},
+            "shapes": [{"type": "cube",
+                        "to_world": m.translate(0, 0, 0) @ np.diag([1.0, 1.0, 0.12, 1.0]),
+                        "bsdf": {"type": "diffuse", "reflectance": [0.0] * 3},
+                        "subsurface": {"sigma_a": list(sigma_a),
+                                       "sigma_s": [1.2, 1.0, 0.8], "eta": 1.3}}],
+            "emitters": [{"type": "point", "position": [0.0, 0.0, 1.5],
+                          "intensity": [8.0, 8.0, 8.0]}]}
+
+
+def _sss_mixed(m):
+    """Cornell with a single-scattering short box (g, raw sigma_s) and a
+    dipole tall box given by int_ior/ext_ior, scale and the defaults."""
+    sc = m.cornell_box()
+    sc["shapes"][5]["subsurface"] = {"type": "dipole", "int_ior": 1.45, "ext_ior": 1.05,
+                                     "scale": 2.0, "g": 0.3}
+    sc["shapes"][6]["subsurface"] = {"type": "singlescatter", "sigma_a": 0.05,
+                                     "sigma_s": [0.8, 0.6, 0.4], "eta": 1.33, "g": 0.8}
+    return sc
+
+
 RECIPES = {
+    "sss_slab": _sss_slab,
+    "sss_mixed": _sss_mixed,
     "cornell_box": lambda m: m.cornell_box(),
     "bounce_lamp_room": lambda m: m.bounce_lamp_room(),
     "veach_mis": lambda m: m.veach_mis(),
@@ -100,7 +127,14 @@ def test_scene_compiles_to_equal_arrays(name):
     ref = j_build_scene(RECIPES[name](jscenes))
     port = build_scene(RECIPES[name](tscenes), device="cpu")
     assert port.bvh is not None and port.pairs is None and port.blocks is None
+    assert (port.sss_packed is None) == (ref.sss_packed is None)
     _compare(port, ref, name)
+    if name.startswith("sss_"):
+        # the subsurface rows and each triangle's row, bit for bit
+        np.testing.assert_array_equal(port.sss_packed.numpy(), np.asarray(ref.sss_packed))
+        np.testing.assert_array_equal(port.geo.shade_packed[:, 27].numpy(),
+                                      np.asarray(ref.geo.shade_packed)[:, 27])
+        assert (port.geo.shade_packed[:, 27] >= 0).any()
 
 
 def test_scene_descriptions_are_copies():
@@ -143,7 +177,7 @@ def test_generate_rays(name, w, h):
 @pytest.mark.parametrize("desc,match", [
     ({"shapes": [{"type": "deformable", "bsdf": {"type": "bumpmap"}}],
       "emitters": [{"type": "constant"}]}, "Queue 1 item 9"),
-    ({"shapes": [{"type": "rectangle", "subsurface": {"type": "dipole"}, "bsdf": {
+    ({"shapes": [{"type": "deformable", "bsdf": {
         "type": "diffuse", "texture": {"type": "checkerboard"}}}],
       "emitters": [{"type": "sunsky"}]}, "Queue 1 item 9"),
     ({"shapes": [{"type": "deformable"}], "emitters": [{"type": "constant"}], "medium": {
@@ -156,19 +190,19 @@ def test_unported_features_raise(desc, match):
 
 
 @pytest.mark.parametrize("desc,match", [
-    ({"shapes": [{"type": "rectangle", "bsdf": {"type": "normalmap"},
-                  "subsurface": {"type": "dipole"}}]}, "integrators"),
+    ({"shapes": [{"type": "deformable", "bsdf": {"type": "normalmap"},
+                  "subsurface": {"type": "dipole"}}]}, "animation"),
     ({"shapes": [{"type": "deformable", "bsdf": {"type": "coating", "bsdf": {
         "type": "diffuse", "texture": {"type": "checkerboard"}}}}]}, "loaders"),
-    ({"shapes": [{"type": "rectangle", "subsurface": {"type": "dipole"}}]}, "integrators"),
+    ({"shapes": [{"type": "deformable", "subsurface": {"type": "dipole"}}]}, "animation"),
     ({"shapes": [{"type": "deformable"}], "emitters": [{"type": "sky"}],
       "medium": {"sigma_s": [1.0] * 3}},
      "the loaders"),
     ({"shapes": [{"type": "deformable", "bsdf": {"type": "bumpmap", "bsdf": {"type": "hk"}}}]},
      "animation"),
-    ({"shapes": [{"type": "rectangle", "subsurface": {"type": "singlescatter"}}],
-      "emitters": [{"type": "envmap", "filename": "sky.exr"}]}, "integrators"),
-    ({"shapes": [{"type": "rectangle", "subsurface": {"type": "dipole"},
+    ({"shapes": [{"type": "deformable", "subsurface": {"type": "singlescatter"}}],
+      "emitters": [{"type": "envmap", "filename": "sky.exr"}]}, "animation"),
+    ({"shapes": [{"type": "deformable", "subsurface": {"type": "dipole"},
                   "bsdf": {"type": "irawan"}}]},
      "Queue 1 item 9"),
 ])
