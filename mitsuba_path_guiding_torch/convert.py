@@ -14,7 +14,9 @@ across too, and a two-level ``BlockTable`` (``ops/intersect_twolevel.py``)
 through ``block_table_from_numpy``; the chain integrators' state through
 ``mlt_state_from_numpy`` and ``tensors_from_numpy``; an irradiance
 cache and a set of subsurface samples through
-``irradiance_cache_from_numpy`` and ``ss_samples_from_numpy``.
+``irradiance_cache_from_numpy`` and ``ss_samples_from_numpy``; a
+hand-built ``Geometry`` (a triangle soup with no scene around it, as the
+manifold walks take) through ``geometry_from_numpy``.
 """
 from __future__ import annotations
 
@@ -94,6 +96,11 @@ def scene_from_numpy(d: dict, device=None) -> SceneData:
         blocks=_tables(BlockList, d.get("blocks"), dev, host=("n_blocks",)),
         pairs=_tables(PairTable, d.get("pairs"), dev),
     )
+
+
+def geometry_from_numpy(d: dict, device=None) -> Geometry:
+    """Geometry on ``device`` from the reference's numpy arrays."""
+    return _fill(Geometry, d, resolve_device(device))
 
 
 def block_table_from_numpy(d: dict, device=None):

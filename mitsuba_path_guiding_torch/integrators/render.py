@@ -151,13 +151,23 @@ def wave_keys_and_jitter(cfg, pixel_id, sample_idx):
     return pkeys, rkeys, u_cam, u_pos
 
 
+def wants_grad(scene: SceneData) -> bool:
+    """Grad mode is on and a tensor of the scene's geometry, materials,
+    emitters or sensor requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    return any(torch.is_tensor(x) and x.requires_grad
+               for part in (scene.geo, scene.mats, scene.emitters, scene.sensor) for x in part)
+
+
 def _fused_gate(scene: SceneData, cfg: RenderConfig, guide, device):
     """The fused kernel's tables when a wave takes it (unguided, no
     medium, NEE, the independent sampler without Sobol' bounces, on the
-    card, a supported scene), else None."""
+    card, a supported scene, no gradient wanted: the kernel has no
+    backward), else None."""
     if (guide is None and not scene.medium.enabled and cfg.use_nee
             and cfg.sampler == "independent" and cfg.qmc_bounces == 0
-            and device.type == "cuda"):
+            and device.type == "cuda" and not wants_grad(scene)):
         return _fused_tables_for(scene)
     return None
 

@@ -133,3 +133,14 @@ def stream_ptr(device) -> ctypes.c_void_p:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and an input of a kernel without a
+    backward requires grad: a ctypes launch writes into a fresh tensor with
+    no ``grad_fn``, so its output would silently carry no gradient."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward, and an input requires "
+                           "grad (run it under torch.no_grad(), or take a differentiable route)")

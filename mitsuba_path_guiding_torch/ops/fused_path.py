@@ -558,6 +558,8 @@ def trace_fused_cuda(tables: FusedTables, ray_o, ray_d, rkeys, guide_tab=None, m
                      max_depth: int = 5, rr_depth: int = 5, guided: bool = False,
                      alpha: float = 0.5):
     """Launch the CUDA kernel; returns the (16, N) output rows."""
+    build.refuse_grad("trace_fused", tables.plk_rows, tables.shade_rows, tables.em_rows,
+                      tables.mat_rows, ray_o, ray_d, guide_tab, meta)
     if not (ray_o.is_cuda and ray_d.is_cuda and rkeys.is_cuda and tables.plk_rows.is_cuda):
         raise ValueError("trace_fused: rays, keys and tables must be on the card")
     n = ray_o.shape[0]

@@ -305,6 +305,8 @@ def launch_shape(npad: int, any_hit: bool = False) -> dict:
 
 def blocklist_cuda(bl: BlockList, o_p, d_p, t_p, cand, cnt, any_hit: bool = False):
     """Launch the CUDA kernel; the contract of ``blocklist_plain``."""
+    if not any_hit:
+        build.refuse_grad("intersect_blocklist", bl.tri_pack, o_p, d_p)
     tensors = (bl.tri_pack, bl.blk_box, o_p, d_p, t_p, cand, cnt)
     if not all(x.is_cuda for x in tensors):
         raise ValueError("intersect_blocklist: all tensors must be on the card")

@@ -171,6 +171,8 @@ def _kernel_fn(any_hit: bool):
 def bvh_cuda(bvh: BVH, o, d, tmax, any_hit: bool = False):
     """Launch the CUDA kernel; the contract of ``bvh_plain``."""
     tables = (bvh.packed_nodes, _packed_tris(bvh))
+    if not any_hit:
+        build.refuse_grad("intersect_bvh", *tables, o, d)
     if not all(x.is_cuda for x in (*tables, o, d, tmax)):
         raise ValueError("intersect_bvh: all tensors must be on the card")
     n = o.shape[0]

@@ -287,6 +287,8 @@ def _kernel_fn(engine: str, any_hit: bool):
 
 
 def _launch(engine, table, tri_rows, tile_block, pdata, any_hit):
+    if not any_hit:
+        build.refuse_grad(f"intersect_pairs {engine}", table, tri_rows, pdata)
     n_tiles = tile_block.shape[0]
     if not (table.is_cuda and tile_block.is_cuda and pdata.is_cuda):
         raise ValueError(f"{engine}_tiles: all tensors must be on the card")

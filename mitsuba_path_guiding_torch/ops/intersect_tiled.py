@@ -39,14 +39,14 @@ def pack_triangles(p0: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor) -> torc
     return pack
 
 
-def mt_components(p0, e1, e2, o, d):
-    """Moeller-Trumbore of every (triangle, ray) pair: (t, u, v, hit),
-    each (T, N), in the order of intersect_pallas.py:53-74."""
-    ox, oy, oz = o[:, 0][None, :], o[:, 1][None, :], o[:, 2][None, :]
-    dx, dy, dz = d[:, 0][None, :], d[:, 1][None, :], d[:, 2][None, :]
-    p0x, p0y, p0z = (p0[:, k][:, None] for k in range(3))
-    e1x, e1y, e1z = (e1[:, k][:, None] for k in range(3))
-    e2x, e2y, e2z = (e2[:, k][:, None] for k in range(3))
+def _mt(o, d, p0, e1, e2):
+    """Moeller-Trumbore on (x, y, z) component triples that broadcast
+    together: (t, u, v, hit), in the order of intersect_pallas.py:53-74."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    p0x, p0y, p0z = p0
+    e1x, e1y, e1z = e1
+    e2x, e2y, e2z = e2
     pvx = dy * e2z - dz * e2y
     pvy = dz * e2x - dx * e2z
     pvz = dx * e2y - dy * e2x
@@ -62,6 +62,28 @@ def mt_components(p0, e1, e2, o, d):
     t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
     hit = (inv_det != 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > EPS_T)
     return t, u, v, hit
+
+
+def mt_components(p0, e1, e2, o, d):
+    """Moeller-Trumbore of every (triangle, ray) pair: (t, u, v, hit),
+    each (T, N)."""
+    ray = [tuple(x[:, k][None, :] for k in range(3)) for x in (o, d)]
+    tri = [tuple(x[:, k][:, None] for k in range(3)) for x in (p0, e1, e2)]
+    return _mt(*ray, *tri)
+
+
+def winner_with_grad(pack, o, d, t, prim, u, v):
+    """A closest hit whose t, u, v are re-evaluated at the winning
+    triangle by ``_mt`` (the same arithmetic as ``tiled_plain``, so the
+    same bits as the kernel's), with autograd's gradient with respect to
+    o, d and the pack; misses keep the kernel's values.  The kernel picks
+    the triangle, which has no gradient in either package."""
+    valid = prim >= 0
+    w = torch.clamp_min(prim, 0).to(torch.int64)
+    tri = [tuple(pack[r + k, w] for k in range(3)) for r in (0, 3, 6)]
+    tw, uw, vw, _ = _mt(*(tuple(x[:, k] for k in range(3)) for x in (o, d)), *tri)
+    return (torch.where(valid, tw, t), prim, torch.where(valid, uw, u),
+            torch.where(valid, vw, v), valid)
 
 
 def closest_plain(p0, e1, e2, o, d, tmax):
@@ -146,7 +168,10 @@ def _f32(x):
 
 def intersect_tiled_cuda(pack, o, d, tmax, n_tri: int, any_hit: bool = False):
     """Launch the CUDA kernel.  Returns (t, prim, u, v, valid), or the
-    (N,) bool occlusion mask when ``any_hit``."""
+    (N,) bool occlusion mask when ``any_hit`` (a mask has no gradient in
+    either package).  When grad mode is on and o, d or the pack requires
+    grad, the closest hit's t, u, v come back differentiable
+    (``winner_with_grad``)."""
     if not (pack.is_cuda and o.is_cuda and d.is_cuda and tmax.is_cuda):
         raise ValueError("intersect_tiled: all tensors must be on the card")
     if pack.dim() != 2 or pack.shape[0] != 12 or pack.shape[1] % TRI_TILE:
@@ -171,6 +196,8 @@ def intersect_tiled_cuda(pack, o, d, tmax, n_tri: int, any_hit: bool = False):
     build.check(_kernel_fn(False)(*args, build.ptr(t), build.ptr(prim), build.ptr(u),
                                   build.ptr(v), stream), "intersect_tiled")
     build.LAUNCHES["intersect_tiled"] += 1
+    if torch.is_grad_enabled() and (o.requires_grad or d.requires_grad or pack.requires_grad):
+        return winner_with_grad(pack, o, d, t, prim, u, v)
     return t, prim, u, v, prim >= 0
 
 

@@ -237,6 +237,7 @@ def _kernel_fn():
 
 def twolevel_cuda(bt: BlockTable, ray, tmax_p, mask, order):
     """Launch the CUDA kernel; the contract of ``twolevel_plain``."""
+    build.refuse_grad("intersect_twolevel", *bt, ray)
     tensors = (*bt, ray, tmax_p, mask, order)
     if not all(x.is_cuda for x in tensors):
         raise ValueError("intersect_twolevel: all tensors must be on the card")

@@ -139,10 +139,6 @@ def _sss_row(ss: dict) -> np.ndarray:
     return row16
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
-
-
 def _rgb(x, default):
     if x is None:
         return np.array(default, dtype=np.float64)

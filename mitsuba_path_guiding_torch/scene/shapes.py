@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from mitsuba_path_guiding_torch.scene.animation import deformable_at
 from mitsuba_path_guiding_torch.scene.transforms import apply_normals, apply_points
 
 
@@ -521,15 +522,14 @@ SHAPE_BUILDERS = {
         bool(props.get("shading_normals", True)),
     ),
     "hair": make_hair,
-    # keyframed vertex animation (reference shapes/deformable.cpp) needs
-    # the animation loader, which this package has not ported yet
-    "deformable": lambda props: _not_ported(
-        "deformable shapes", "Queue 1 item 9 (the loaders: animation, with motion)"),
+    # keyframed vertex animation (Mitsuba's shapes/deformable.cpp); built
+    # directly it bakes at props["time"] (default 0), scene_at_time() bakes
+    # other times
+    "deformable": lambda props: Mesh(
+        deformable_at(props, float(props.get("time", 0.0)))["vertices"],
+        props["faces"], props.get("normals"), props.get("uvs"),
+    ),
 }
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} are not ported yet: ROADMAP {item}")
 
 
 def _heightfield_data(props):

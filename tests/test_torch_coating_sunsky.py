@@ -443,8 +443,9 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "mitsuba_path_guiding_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 40
     # the volume slice's, the chain and photon integrators', the scene
-    # files' and the multi-GPU, irradiance-cache and subsurface modules are
-    # among them
+    # files', the multi-GPU, irradiance-cache and subsurface modules and the
+    # spherical harmonics, spectral, manifold, motion and animation modules
+    # are among them
     names = {p.relative_to(ROOT).as_posix() for p in files}
     for mod in ("integrators/volpath.py", "models/medium.py", "models/phase.py",
                 "guiding/distance.py", "scene/volume.py", "scene/builder.py", "render.py",
@@ -455,7 +456,9 @@ def test_port_imports_no_jax():
                 "scene/xml_loader.py", "scene/vdb.py", "scene/collada.py",
                 "utils/checkpoint.py", "utils/preview.py", "utils/logger.py",
                 "film/tiled.py", "parallel/mesh.py", "integrators/irrcache.py",
-                "integrators/subsurface.py"):
+                "integrators/subsurface.py", "core/sh.py", "core/spectral.py",
+                "integrators/manifold.py", "integrators/spectral.py", "integrators/motion.py",
+                "scene/animation.py"):
         assert f"mitsuba_path_guiding_torch/{mod}" in names, mod
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):

@@ -48,6 +48,46 @@ def _rays(scene, n, seed):
 
 
 @pytest.mark.parametrize("r", [36, 512])
+def test_gather_rows_t_backward_bit_equal(card, r):
+    """GatherRowsT launches the kernel forward and its backward equals
+    autograd's gradient of the plain version bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(r + 1)
+    table = torch.rand((r, 32), generator=g, device="cuda")
+    idx = torch.randint(-5, r + 5, (100_003,), generator=g, device="cuda").to(torch.int32)
+    cot = torch.randn((32, 100_003), generator=g, device="cuda")
+    tab, plain = table.clone().requires_grad_(), table.clone().requires_grad_()
+    before = build.LAUNCHES["gather_rows_t"]
+    out = gather_rows_t(tab, idx)
+    assert build.LAUNCHES["gather_rows_t"] == before + 1
+    out.backward(cot)
+    gather_rows_t_plain(plain, idx).backward(cot)
+    torch.cuda.synchronize()
+    assert torch.equal(out.detach(), gather_rows_t_plain(table, idx))
+    assert torch.equal(tab.grad, plain.grad)
+
+
+def test_intersect_tiled_closest_hit_with_grad(card):
+    """With rays that require grad the kernel's hit comes back with t, u,
+    v re-evaluated at the winner: the kernel's bits, tiled_plain's
+    gradient."""
+    pack = pack_triangles(card.geo.p0, card.geo.e1, card.geo.e2)
+    o, d, tmax, _ = _rays(card, 20_000, 11)
+    n = card.geo.p0.shape[0]
+    with torch.no_grad():
+        want = intersect_tiled(pack, o, d, tmax, n)
+    grads = []
+    for fn in (intersect_tiled, tiled_plain):
+        o2, d2 = o.clone().requires_grad_(), d.clone().requires_grad_()
+        hit = fn(pack, o2, d2, tmax, n)
+        if fn is intersect_tiled:
+            for a, b in zip(hit, want):
+                assert torch.equal(a, b)
+        (hit[0].clamp_max(1e3).sum() + hit[2].sum() + hit[3].sum()).backward()
+        grads.append(torch.cat([o2.grad, d2.grad]))
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("r", [36, 512])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 def test_gather_rows_t_bit_equal(card, r, dtype):
     g = torch.Generator(device="cuda").manual_seed(r)

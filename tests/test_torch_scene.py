@@ -174,41 +174,62 @@ def test_generate_rays(name, w, h):
     np.testing.assert_array_equal(trng.event_uniform(kt, trng.TAG_CAMERA, 2).numpy(), u)
 
 
-@pytest.mark.parametrize("desc,match", [
-    ({"shapes": [{"type": "deformable", "bsdf": {"type": "bumpmap"}}],
-      "emitters": [{"type": "constant"}]}, "Queue 1 item 9"),
-    ({"shapes": [{"type": "deformable", "bsdf": {
-        "type": "diffuse", "texture": {"type": "checkerboard"}}}],
-      "emitters": [{"type": "sunsky"}]}, "Queue 1 item 9"),
-    ({"shapes": [{"type": "deformable"}], "emitters": [{"type": "constant"}], "medium": {
-        "sigma_s": [1.0] * 3}},
-     "Queue 1 item 9"),
-])
-def test_unported_features_raise(desc, match):
-    with pytest.raises(NotImplementedError, match=match):
-        build_scene(desc, device="cpu")
+# a deformable plane sliding by 1 along x (tests/test_motion.py's)
+_V0 = 0.35 * np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]], float)
+_FRAMES = {"vertices_frames": [_V0, _V0 + np.array([1.0, 0.0, 0.0])],
+           "faces": np.array([[0, 1, 2], [0, 2, 3]])}
+_CONSTANT = [{"type": "constant"}]
 
 
-@pytest.mark.parametrize("desc,match", [
-    ({"shapes": [{"type": "deformable", "bsdf": {"type": "normalmap"},
-                  "subsurface": {"type": "dipole"}}]}, "animation"),
-    ({"shapes": [{"type": "deformable", "bsdf": {"type": "coating", "bsdf": {
-        "type": "diffuse", "texture": {"type": "checkerboard"}}}}]}, "loaders"),
-    ({"shapes": [{"type": "deformable", "subsurface": {"type": "dipole"}}]}, "animation"),
-    ({"shapes": [{"type": "deformable"}], "emitters": [{"type": "sky"}],
-      "medium": {"sigma_s": [1.0] * 3}},
-     "the loaders"),
-    ({"shapes": [{"type": "deformable", "bsdf": {"type": "bumpmap", "bsdf": {"type": "hk"}}}]},
-     "animation"),
-    ({"shapes": [{"type": "deformable", "subsurface": {"type": "singlescatter"}}],
-      "emitters": [{"type": "envmap", "filename": "sky.exr"}]}, "animation"),
-    ({"shapes": [{"type": "deformable", "subsurface": {"type": "dipole"},
-                  "bsdf": {"type": "irawan"}}]},
-     "Queue 1 item 9"),
+def _deformable(**kw):
+    return {"type": "deformable", **_FRAMES, **kw}
+
+
+def _compiles_like_jax(desc):
+    ref = j_build_scene(desc)
+    port = build_scene(desc, device="cpu")
+    assert (port.sss_packed is None) == (ref.sss_packed is None)
+    _compare(port, ref, "desc")
+
+
+# Deformable shapes raised NotImplementedError until they were ported with
+# the animation module; each combination now compiles equal to the JAX
+# package's build (the ids are the cases' old ones).
+@pytest.mark.parametrize("desc", [
+    pytest.param({"shapes": [_deformable(bsdf={"type": "bumpmap"})], "emitters": _CONSTANT},
+                 id="desc0-Queue 1 item 9"),
+    pytest.param({"shapes": [_deformable(bsdf={"type": "diffuse",
+                                               "texture": {"type": "checkerboard"}})],
+                  "emitters": [{"type": "sunsky"}]}, id="desc1-Queue 1 item 9"),
+    pytest.param({"shapes": [_deformable()], "emitters": _CONSTANT,
+                  "medium": {"sigma_s": [1.0] * 3}}, id="desc2-Queue 1 item 9"),
 ])
-def test_next_slices_raise(desc, match):
-    with pytest.raises(NotImplementedError, match=match):
-        build_scene(desc, device="cpu")
+def test_unported_features_raise(desc):
+    _compiles_like_jax(desc)
+
+
+@pytest.mark.parametrize("desc", [
+    pytest.param({"shapes": [_deformable(bsdf={"type": "normalmap"},
+                                         subsurface={"type": "dipole"})],
+                  "emitters": _CONSTANT}, id="desc0-animation"),
+    pytest.param({"shapes": [_deformable(bsdf={"type": "coating", "bsdf": {
+        "type": "diffuse", "texture": {"type": "checkerboard"}}})], "emitters": _CONSTANT},
+        id="desc1-loaders"),
+    pytest.param({"shapes": [_deformable(subsurface={"type": "dipole"})], "emitters": _CONSTANT},
+                 id="desc2-animation"),
+    pytest.param({"shapes": [_deformable()], "emitters": [{"type": "sky"}],
+                  "medium": {"sigma_s": [1.0] * 3}}, id="desc3-the loaders"),
+    pytest.param({"shapes": [_deformable(bsdf={"type": "bumpmap", "bsdf": {"type": "hk"}})],
+                  "emitters": _CONSTANT}, id="desc4-animation"),
+    pytest.param({"shapes": [_deformable(subsurface={"type": "singlescatter"})],
+                  "emitters": [{"type": "point", "position": [0.0, 0.0, -2.0]}]},
+                 id="desc5-animation"),
+    pytest.param({"shapes": [_deformable(subsurface={"type": "dipole"},
+                                         bsdf={"type": "irawan"})], "emitters": _CONSTANT},
+                 id="desc6-Queue 1 item 9"),
+])
+def test_next_slices_raise(desc):
+    _compiles_like_jax(desc)
 
 
 @pytest.mark.parametrize("desc", [

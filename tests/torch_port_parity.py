@@ -52,6 +52,24 @@ def t(x, dtype=None):
     return out if dtype is None else out.to(dtype)
 
 
+def assert_tree_equal(a, b, path="tree"):
+    """Nested dicts, lists and tuples of numpy arrays and scalars equal,
+    type for type and value for value (scene descriptions)."""
+    assert type(a) is type(b), path
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            assert_tree_equal(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_tree_equal(x, y, f"{path}[{i}]")
+    elif isinstance(a, np.ndarray):
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    else:
+        assert a == b, path
+
+
 def frac_close(a, b, rtol, atol=1e-6):
     """Fraction of lanes whose every component agrees."""
     a, b = np.asarray(a), np.asarray(b)
