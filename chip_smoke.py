@@ -278,6 +278,22 @@ Phases:
      below 0.8 of the still sphere's, the blurred plane's tint covering
      more pixels); render_motion at 64x64 with the JAX test's checks and
      its summary against JAX's; seconds and launches of each render.
+  22. "denoiser_training" (slice 14): the reduced training recipe (its
+     cuts in the record): DN_SCENES, five of film/train_denoiser.py's
+     gen1 scenes covering its routes (trace_fused, the tiled wavefront,
+     door_room's pair route), at 64x64 with a 96-spp target and two 4-spp
+     images each, the seconds of each scene; 300 training steps (batch 8,
+     crop 32) from seed 0, steps/s; (a) the step-0 loss equal to the
+     zero-residual loss bit for bit (the zero head); (b) a fixed held-out
+     batch's loss below the untrained net's; (c) two 50-step runs of one
+     seed bit-equal; (d) one batch's loss and gradients on the card within
+     rtol 1e-4 of the CPU's; (e) the weights file with the checked-in
+     file's 22 keys, HWIO shapes and float16, and load_net on it equal to
+     the weights rounded to float16; the Cornell gate of the reduced and
+     of the checked-in weights (film/denoise_gate.py); (f) the numpy BVH
+     builder's veach_mis tree walked by the BVH kernel on a 256x256
+     camera wave: valid and t bit-equal to the native tree's walk, the
+     hit ids differing only at exact ties (counted).
 
 Each main-path route runs with the launch counts set to 0 just before it
 and read just after it, and is held to the kernels it must launch: the
@@ -326,7 +342,9 @@ sample a query and a gather); phase 21's traces and wavefront renders to
 two tiled queries and three gathers a bounce (wave_launches; the shading
 row's on a large table above 512 triangles), the spectral Cornell box to
 one trace_fused a bin a sample, a manifold walk to 13 tiled launches and
-render_motion to one.
+render_motion to one; the denoiser's reduced dataset to dn_launches (a
+fused scene's render one trace_fused a wave, a wavefront bounce two
+queries and three gathers) and its training to none.
 """
 from __future__ import annotations
 
@@ -6324,6 +6342,215 @@ def run_slice13(card):
     return counts, checks
 
 
+DN_SCENES = (0, 5, 8, 10, 14)  # of train_denoiser.recipe_descs(): a wavefront Cornell variant,
+# a diffuse one (trace_fused), veach_mis, a bounce-lamp variant (trace_fused) and a door_room
+# variant of 20198 triangles (the pair route), so that every route of the recipe runs
+DN_ROUTE_OF = ("tiled", "fused", "tiled", "fused", "pairs")
+DN_RES = 64
+DN_REF_SPP = 96
+DN_NOISY = 2
+DN_STEPS = 300
+DN_REPEAT_STEPS = 50
+DN_BATCH = 8
+DN_CROP = 32
+DN_HELD_OUT_SEED = 999
+DN_GRAD_RTOL = 1e-4   # the card's loss and gradients against the CPU's on one batch
+
+
+def dn_launches():
+    """The reduced dataset's launches: each scene renders DN_REF_SPP +
+    DN_NOISY x 4 waves of 4 bounces and traces 4 feature waves of 2
+    bounces (the wavefront, whatever the scene's render route); a fused
+    scene's render a trace_fused a wave, a wavefront bounce two queries
+    (tiled, or MT pair tiles on door_room with a blocklist launch for a
+    query that left rays unproven) and three gathers, some of them on
+    tables of more than 512 rows (veach_mis, door_room)."""
+    from mitsuba_path_guiding_torch.film import train_denoiser as td
+
+    waves = DN_REF_SPP + DN_NOISY * td.NOISY_SPP
+    render_b = td.RENDER_DEPTH * waves            # bounces of a wavefront scene's renders
+    aov_b = td.AOV_DEPTH * td.NOISY_SPP           # bounces of a scene's feature waves
+    n = {r: DN_ROUTE_OF.count(r) for r in ("tiled", "fused", "pairs")}
+    wavefront = n["tiled"] + n["pairs"]
+    return {**NONE_LAUNCHED, "trace_fused": n["fused"] * waves,
+            "intersect_tiled": 2 * (n["tiled"] * render_b + (n["tiled"] + n["fused"]) * aov_b),
+            "intersect_pairs_mt": 2 * n["pairs"] * (render_b + aov_b),
+            "gather_rows_t": 3 * (wavefront * render_b + len(DN_SCENES) * aov_b),
+            "gather_rows_t_large": None, "intersect_blocklist": None}
+
+def denoiser_dir():
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                        "denoiser")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def dn_grad_check(net, xb, yb):
+    """One batch's loss and gradients on the card against the port's CPU
+    result for the same weights and batch: the loss within DN_GRAD_RTOL,
+    each gradient within DN_GRAD_RTOL of its largest magnitude."""
+    import torch
+
+    from mitsuba_path_guiding_torch.film import neural_denoise as nd
+    from mitsuba_path_guiding_torch.film import train_denoiser as td
+
+    out = {}
+    for dev, (x, y) in (("card", (xb, yb)), ("cpu", (xb.cpu(), yb.cpu()))):
+        n = nd.DenoiserNet(net.params()).to(x.device)
+        with td.deterministic():
+            loss = td.loss_fn(td.net_residual(n), x, y)
+            grads = torch.autograd.grad(loss, list(n.parameters()))
+        out[dev] = (float(loss.detach()), [g.cpu() for g in grads])
+    (l_card, g_card), (l_cpu, g_cpu) = out["card"], out["cpu"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    grad_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(g_card, g_cpu))
+    check(loss_rel <= DN_GRAD_RTOL, f"denoiser training: card loss {l_card} against CPU {l_cpu}")
+    check(grad_rel <= DN_GRAD_RTOL, f"denoiser training: card gradients {grad_rel} off the CPU's")
+    return {"loss_card": l_card, "loss_cpu": l_cpu, "loss_rel": loss_rel,
+            "grad_max_rel_to_max": grad_rel, "rtol": DN_GRAD_RTOL}
+
+
+def dn_file_check(net, path):
+    """The written weights file: the checked-in file's 22 keys, its HWIO
+    shapes, float16; load_net on it holds the in-memory weights rounded to
+    float16, bit for bit."""
+    import numpy as np
+    import torch
+
+    from mitsuba_path_guiding_torch.film import neural_denoise as nd
+
+    with np.load(path) as z, np.load(nd._WEIGHTS_FILE) as ref:
+        check(sorted(z.files) == sorted(ref.files) and len(z.files) == 22,
+              f"weights file: keys {sorted(z.files)}")
+        for k in ref.files:
+            check(z[k].shape == ref[k].shape and z[k].dtype == np.float16,
+                  f"weights file: {k} {z[k].shape} {z[k].dtype}")
+    loaded = nd.load_net(DEVICE, path)
+    want = {k: v.half().float() for k, v in net.params().items()}
+    got = loaded.params()
+    check(all(torch.equal(got[k], want[k]) for k in want),
+          "weights file: load_net differs from the weights rounded to float16")
+    check(not any(p.requires_grad for p in loaded.parameters()), "load_net: weights require grad")
+    return {"keys": 22, "dtype": "float16", "bytes": os.path.getsize(path),
+            "load_net_equals_float16_rounding": True}
+
+
+def dn_bvh_check(veach):
+    """The numpy BVH builder's tree of veach_mis, packed and walked by the
+    card's BVH kernel on a 256x256 camera wave, against the native tree's
+    walk: valid and t bit-equal on every lane, hit ids equal but where two
+    triangles give the same t (an exact tie)."""
+    import numpy as np
+    import torch
+
+    from mitsuba_path_guiding_torch.accel.bvh import build_bvh, pack_bvh, to_device
+    from mitsuba_path_guiding_torch.accel.native import native_available
+    from mitsuba_path_guiding_torch.accel.traverse import intersect_bvh
+
+    geo = veach.geo
+    host = [a.cpu().numpy() for a in (geo.p0, geo.e1, geo.e2)]
+    t0 = time.time()
+    tree = build_bvh(*host, use_native=False)
+    build_s = time.time() - t0
+    native = build_bvh(*host)
+    py = pack_bvh(to_device(tree, geo.p0.device), geo.p0, geo.e1, geo.e2)
+    o, d, _ = camera_rays(veach, 1, 0)
+    tmax = torch.full((o.shape[0],), 3.0e38, device=o.device)
+    got = intersect_bvh(geo, py, o, d, tmax)
+    want = intersect_bvh(geo, veach.bvh, o, d, tmax)
+    torch.cuda.synchronize()
+    check(torch.equal(got.valid, want.valid), "python BVH: valid differs from the native tree's")
+    check(torch.equal(got.t.view(torch.int32), want.t.view(torch.int32)),
+          "python BVH: t differs from the native tree's walk")
+    ties = int((got.prim != want.prim).sum())
+    return {"triangles": int(geo.p0.shape[0]), "nodes": int(tree.child0.shape[0]),
+           "nodes_native": int(native.child0.shape[0]),
+           "same_tree_arrays": tree.child0.shape == native.child0.shape and all(
+               np.array_equal(getattr(tree, f), getattr(native, f))
+               for f in ("node_min", "node_max", "child0", "child1", "prim_idx")),
+           "build_seconds": round(build_s, 3), "rays": int(o.shape[0]),
+           "hits": int(want.valid.sum()), "t_bit_equal": True, "prim_ties": ties,
+           "native_available": native_available()}
+
+
+def run_denoiser_training(veach, card):
+    """Phase 22: the reduced training recipe on the card (its cuts in the
+    record), checks (a)-(f), the Cornell gate of the reduced weights.
+    Returns the launch counts of the dataset's renders by route."""
+    import numpy as np
+    import torch
+
+    from mitsuba_path_guiding_torch.film import denoise_gate as dg
+    from mitsuba_path_guiding_torch.film import neural_denoise as nd
+    from mitsuba_path_guiding_torch.film import train_denoiser as td
+
+    t_phase = time.time()
+    all_descs = td.recipe_descs()
+    descs = [all_descs[i] for i in DN_SCENES]
+    t0 = time.time()
+    (x, y, secs), counts = drive("denoiser_dataset", lambda: td.render_dataset(
+        descs, res=DN_RES, ref_spp=DN_REF_SPP, n_noisy=DN_NOISY, device=DEVICE,
+        log=lambda s: None), dn_launches())
+    dataset_s = time.time() - t0
+    check(np.isfinite(x).all() and np.isfinite(y).all() and (y.mean(axis=(1, 2, 3)) > 0).all(),
+          "denoiser dataset: non-finite or black images")
+    out = os.path.join(denoiser_dir(), "denoiser_weights.npz")
+    (net, rec), _ = drive("denoiser_training", lambda: td.train(
+        (x, y), steps=DN_STEPS, batch=DN_BATCH, crop=DN_CROP, seed=0, device=DEVICE, out=out,
+        log=lambda s: None), NONE_LAUNCHED)
+    # (a) the zero head: the first loss is the a-trous base's, exactly
+    check(rec["loss0"] == rec["loss0_zero_residual"],
+          f"denoiser training: step-0 loss {rec['loss0']} != zero-residual "
+          f"{rec['loss0_zero_residual']}")
+    # (b) a held-out batch's loss falls
+    X = td.with_bases(x, DEVICE)
+    Y = torch.as_tensor(y, device=DEVICE)
+    xb, yb = td.draw_batch(X, Y, torch.Generator(DEVICE).manual_seed(DN_HELD_OUT_SEED),
+                           DN_BATCH, DN_CROP)
+    net0 = nd.DenoiserNet(nd.init_params(torch.Generator(DEVICE).manual_seed(0))).to(DEVICE)
+    with torch.no_grad(), td.deterministic():
+        before = float(td.loss_fn(td.net_residual(net0), xb, yb))
+        after = float(td.loss_fn(td.net_residual(net), xb, yb))
+    check(after < before, f"denoiser training: held-out loss {after} not below {before}")
+    # (c) one seed, one set of weights
+    runs = [td.train((x, y), steps=DN_REPEAT_STEPS, batch=DN_BATCH, crop=DN_CROP, seed=0,
+                     device=DEVICE, log=lambda s: None)[0] for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(runs[0].parameters(), runs[1].parameters()))
+    check(same, "denoiser training: two runs of one seed differ")
+    moved = not all(torch.equal(a, b) for a, b in zip(runs[0].parameters(), net0.parameters()))
+    check(moved, "denoiser training: the repeat runs did not move the weights")
+    # (d) the card's loss and gradients against the CPU's
+    grad = dn_grad_check(net, xb, yb)
+    # (e) the weights file
+    wfile = dn_file_check(net, out)
+    # the Cornell gate of the reduced weights, beside the checked-in ones'
+    t0 = time.time()
+    gate = dg.evaluate(net.params(), device=DEVICE, gates=("cornell",))["cornell"]
+    shipped = dg.evaluate(nd.load_params(), device=DEVICE, gates=("cornell",))["cornell"]
+    gate_s = time.time() - t0
+    # (f) the numpy BVH builder
+    bvh = dn_bvh_check(veach)
+    emit({"phase": "denoiser_training", "card": card,
+          "reduced": {"scenes": f"{len(descs)} of the 16 of gen1 (indices {list(DN_SCENES)})",
+                      "resolution": f"{DN_RES}x{DN_RES} (gen1 {td.RES})",
+                      "reference_spp": f"{DN_REF_SPP} (gen1 {td.REF_SPP})",
+                      "noisy_images": f"{DN_NOISY} a scene (gen1 {td.N_NOISY})",
+                      "steps": f"{DN_STEPS} (3000)", "crop": f"{DN_CROP} (64)",
+                      "batch": DN_BATCH},
+          "images": int(x.shape[0]), "dataset_seconds": round(dataset_s, 3),
+          "scene_seconds": [round(s, 3) for s in secs], "dataset_launches": counts,
+          "train_seconds": round(rec["seconds"], 3), "steps_per_s": rec["steps_per_s"],
+          "losses": rec["losses"], "loss0": rec["loss0"],
+          "loss0_zero_residual": rec["loss0_zero_residual"],
+          "held_out_loss_before": before, "held_out_loss_after": after,
+          "repeat_steps": DN_REPEAT_STEPS, "repeat_bit_equal": same, "card_vs_cpu": grad,
+          "weights_file": wfile, "gate_cornell_reduced": gate,
+          "gate_cornell_checked_in": shipped, "gate_seconds": round(gate_s, 3),
+          "python_bvh": bvh, "seconds": round(time.time() - t_phase, 3)})
+    return {"denoiser_dataset": counts}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -6470,13 +6697,16 @@ def main(argv=None):
     # motion: the kernel checks (the gather's backward among them), then the
     # gradients and renders
     c_s13, s13_checks = run_slice13(card)
+    # the denoiser's training: the dataset's renders through every route,
+    # then the training on the card and its checks, the numpy BVH builder
+    c_dn = run_denoiser_training(veach, card)
     routes = {"progressive": c_prog, "frozen_render": c_frozen, "unguided_render": c_render,
               "progressive_adaptive": c_adaptive, "guiding_gain_bounce_lamp": c_bounce,
               "guiding_gain_door_room": c_door_gain,
               "door_room_progressive": c_door, "door_room_plk": c_plk, **interior["launches"],
               "door_room_twolevel": door_tl["launches"], "door_room_sorted_blocklist": c_sorted,
               "door_room_bvh": c_bvh, **c_shading, **c_vocab, **c_vol, **c_tex, **c_int,
-              **c_chain, **c_files, **c_sharded, **c_irr, **c_s13}
+              **c_chain, **c_files, **c_sharded, **c_irr, **c_s13, **c_dn}
     launches = {k: {r: c[k] for r, c in routes.items()} for k in c_prog}
 
     entries = phase_timings(scene, veach, tables, grid, checks, launches, card)

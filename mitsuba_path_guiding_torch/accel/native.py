@@ -9,7 +9,8 @@ at first use with
 (the reference's flags, so both packages build the same tree on one
 machine) into ``build/torch_kernels/libbvh_builder-<hash>.so`` at the
 repository root; the hash covers the source.  Without a C++ compiler
-``build_bvh_native`` raises.
+``native_available`` is False and ``build_bvh_native`` raises
+(``accel/bvh.py`` then builds the same tree in numpy).
 """
 from __future__ import annotations
 
@@ -40,6 +41,8 @@ def _load():
     with _LOCK:
         if "lib" in _STATE:
             return _STATE["lib"]
+        if "error" in _STATE:  # a failed build is not tried again
+            raise RuntimeError(_STATE["error"])
         so = _lib_path()
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
@@ -50,8 +53,9 @@ def _load():
                 subprocess.run(["g++", *GXX_FLAGS, SRC, "-o", tmp],
                                check=True, capture_output=True, text=True, timeout=120)
             except (OSError, subprocess.SubprocessError) as e:
-                raise RuntimeError(f"cannot build {SRC} with g++: "
-                                   f"{getattr(e, 'stderr', None) or e}") from e
+                _STATE["error"] = (f"cannot build {SRC} with g++: "
+                                   f"{getattr(e, 'stderr', None) or e}")
+                raise RuntimeError(_STATE["error"]) from e
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         f = lib.build_bvh_native
@@ -62,6 +66,15 @@ def _load():
                       ctypes.c_int, ip, ip]
         _STATE["lib"] = lib
         return lib
+
+
+def native_available() -> bool:
+    """Whether the library builds (or was built) and loads."""
+    try:
+        _load()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def build_bvh_native(p0: np.ndarray, e1: np.ndarray, e2: np.ndarray, box_pad: float):

@@ -1,6 +1,7 @@
 """Neural denoiser: a small U-Net over albedo-demodulated log radiance
 with albedo, normal and depth feature buffers (port of the reference's
-film/neural_denoise.py, inference only).
+film/neural_denoise.py: the net, its initialisation and its functional
+form for training, ``film/train_denoiser.py``).
 
 The network refines the a-trous filter's result (``film/denoise.py``
 ``denoise_hdr``): its output is a residual over the demodulated log of
@@ -8,7 +9,9 @@ that base, clipped to +-0.35, so its worst case is the classical filter.
 Eleven 3x3 convolutions (``_conv_spec``) in an encoder of three levels
 (two of them at stride 2) and a decoder with nearest 2x upsampling and
 skip connections.  The weights are the reference's trained ones, float16
-in ``data/denoiser_weights.npz`` (HWIO), float32 here (OIHW).
+in ``data/denoiser_weights.npz`` (HWIO); ``DenoiserNet`` holds them as
+float32 parameters (OIHW), and ``params`` dicts hold them as float32
+HWIO tensors, the reference's layout.
 
 The convolutions reproduce XLA's "SAME" padding: a stride-2 layer on an
 even size pads 0 before and 1 after (``F.conv2d``'s symmetric padding
@@ -54,48 +57,108 @@ def _same_pad(size: int, k: int, stride: int):
     return total // 2, total - total // 2
 
 
+def init_params(generator: torch.Generator) -> dict:
+    """He-normal weights std sqrt(2 / (k k cin)) in HWIO, zero biases, and
+    a zero ``out`` head, drawn on the generator's device.  The zero head
+    makes the untrained net the identity over the a-trous base, so
+    training descends from the classical filter (the reference found
+    seeds with a noisy head collapsing into the zero-residual minimum)."""
+    dev = generator.device
+    params = {}
+    for name, k, cin, cout, _ in _conv_spec():
+        w = torch.randn((k, k, cin, cout), generator=generator, device=dev) * float(
+            np.sqrt(2.0 / (k * k * cin)))
+        if name == "out":
+            w = torch.zeros_like(w)
+        params[name + "_w"] = w
+        params[name + "_b"] = torch.zeros((cout,), device=dev)
+    return params
+
+
+def n_params(params) -> int:
+    return int(sum(np.prod(tuple(v.shape)) for v in params.values()))
+
+
+def _conv(w, b, x, stride=1):
+    """One "SAME" convolution of NCHW ``x`` with OIHW ``w``."""
+    k = w.shape[-1]
+    top, bottom = _same_pad(x.shape[2], k, stride)
+    left, right = _same_pad(x.shape[3], k, stride)
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), w, stride=stride) + b[:, None, None]
+
+
+def _up2(x):
+    """Nearest 2x upsampling of NCHW ``x`` (a broadcast, so its backward is
+    a sum and not an index_add)."""
+    n, c, h, w = x.shape
+    return x[:, :, :, None, :, None].expand(n, c, h, 2, w, 2).reshape(n, c, 2 * h, 2 * w)
+
+
+def _unet(conv, x):
+    """The U-Net on NCHW ``x``; ``conv(name, x, stride)`` is one layer."""
+    r = F.relu
+    e1 = r(conv("e1b", r(conv("e1a", x))))
+    e2 = r(conv("e2b", r(conv("e2a", e1, 2))))
+    e3 = r(conv("e3b", r(conv("e3a", e2, 2))))
+    d2 = torch.cat([_up2(e3), e2], dim=1)
+    d2 = r(conv("d2b", r(conv("d2a", d2))))
+    d1 = torch.cat([_up2(d2), e1], dim=1)
+    d1 = r(conv("d1b", r(conv("d1a", d1))))
+    return conv("out", d1)
+
+
+def _f32(v) -> torch.Tensor:
+    """A numpy array or tensor as a float32 tensor (tensors keep their
+    device)."""
+    return v.detach().float() if torch.is_tensor(v) else torch.from_numpy(np.array(v, np.float32))
+
+
 class DenoiserNet(torch.nn.Module):
     """The U-Net on (N, IN_CH, H, W), H and W multiples of 4 -> the
-    residual (N, 3, H, W)."""
+    residual (N, 3, H, W); its weights are trainable parameters."""
 
     def __init__(self, params: dict):
         super().__init__()
         self.spec = _conv_spec()
         for name, k, cin, cout, _ in self.spec:
-            w = torch.as_tensor(np.asarray(params[name + "_w"], np.float32))
+            w, b = _f32(params[name + "_w"]), _f32(params[name + "_b"])
             if tuple(w.shape) != (k, k, cin, cout):
                 raise ValueError(f"{name}_w: shape {tuple(w.shape)}, expected {(k, k, cin, cout)}")
-            self.register_buffer(name + "_w", w.permute(3, 2, 0, 1).contiguous())  # HWIO -> OIHW
-            self.register_buffer(name + "_b", torch.as_tensor(
-                np.asarray(params[name + "_b"], np.float32)))
-
-    def _conv(self, name, x, stride=1):
-        w = getattr(self, name + "_w")
-        k = w.shape[-1]
-        top, bottom = _same_pad(x.shape[2], k, stride)
-        left, right = _same_pad(x.shape[3], k, stride)
-        x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, w, stride=stride) + getattr(self, name + "_b")[:, None, None]
-
-    @staticmethod
-    def _up2(x):
-        return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+            # HWIO -> OIHW
+            self.register_parameter(name + "_w", torch.nn.Parameter(
+                w.permute(3, 2, 0, 1).contiguous()))
+            self.register_parameter(name + "_b", torch.nn.Parameter(b.clone()))
 
     def forward(self, x):
-        c, r = self._conv, F.relu
-        e1 = r(c("e1b", r(c("e1a", x))))
-        e2 = r(c("e2b", r(c("e2a", e1, 2))))
-        e3 = r(c("e3b", r(c("e3a", e2, 2))))
-        d2 = torch.cat([self._up2(e3), e2], dim=1)
-        d2 = r(c("d2b", r(c("d2a", d2))))
-        d1 = torch.cat([self._up2(d2), e1], dim=1)
-        d1 = r(c("d1b", r(c("d1a", d1))))
-        return c("out", d1)
+        return _unet(lambda name, y, stride=1: _conv(
+            getattr(self, name + "_w"), getattr(self, name + "_b"), y, stride), x)
+
+    def params(self) -> dict:
+        """The weights as a params dict (float32 HWIO, detached)."""
+        out = {}
+        for name, *_ in self.spec:
+            out[name + "_w"] = getattr(self, name + "_w").detach().permute(2, 3, 1, 0)
+            out[name + "_b"] = getattr(self, name + "_b").detach()
+        return out
+
+
+def _apply_nchw(params: dict, x):
+    """HWIO ``params`` on NCHW ``x``."""
+    def conv(name, y, stride=1):
+        return _conv(params[name + "_w"].permute(3, 2, 0, 1), params[name + "_b"], y, stride)
+
+    return _unet(conv, x)
+
+
+def apply_net(params: dict, x):
+    """The reference's functional net: HWIO ``params``, x (N, H, W,
+    IN_CH) -> residual (N, H, W, 3); H, W multiples of 4."""
+    return _apply_nchw(params, x.permute(0, 3, 1, 2).contiguous()).permute(0, 2, 3, 1)
 
 
 def pack_inputs(color, base, albedo, normal, depth):
-    """(H, W, 3) colour, base, albedo, normal and (H, W) depth -> the
-    (H, W, IN_CH) network input, the demodulated log base the output is a
+    """(..., 3) colour, base, albedo, normal and (...) depth -> the
+    (..., IN_CH) network input, the demodulated log base the output is a
     residual over, and the clamped albedo."""
     alb = torch.clamp_min(albedo, ALBEDO_EPS)
     demod = torch.log1p(torch.clamp_min(color, 0.0) / alb)
@@ -105,8 +168,9 @@ def pack_inputs(color, base, albedo, normal, depth):
     return x, demob, alb
 
 
-def denoise_neural_net(net: DenoiserNet, color, albedo, normal, depth):
-    """Denoise one (H, W, 3) HDR image with its feature buffers."""
+def _denoise(residual, color, albedo, normal, depth):
+    """Denoise one (H, W, 3) HDR image with ``residual``, a function of the
+    padded (1, IN_CH, H', W') input giving (1, 3, H', W')."""
     from mitsuba_path_guiding_torch.film.denoise import denoise_hdr
 
     base = denoise_hdr(color, albedo, normal, depth)
@@ -115,9 +179,32 @@ def denoise_neural_net(net: DenoiserNet, color, albedo, normal, depth):
     x = x.permute(2, 0, 1)[None]  # (1, IN_CH, H, W)
     x = F.pad(x, (0, (-w) % 4, 0, (-h) % 4), mode="replicate")
     with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled, allow_tf32=False):
-        res = net(x)[0, :, :h, :w].permute(1, 2, 0)
+        res = residual(x)[0, :, :h, :w].permute(1, 2, 0)
     out_log = torch.clamp_min(demob + torch.clamp(res, -RES_CLIP, RES_CLIP), 0.0)
     return torch.expm1(out_log) * alb
+
+
+def denoise_neural_net(net: DenoiserNet, color, albedo, normal, depth):
+    """Denoise one (H, W, 3) HDR image with its feature buffers."""
+    return _denoise(net, color, albedo, normal, depth)
+
+
+def denoise_neural_params(params: dict, color, albedo, normal, depth):
+    """``denoise_neural_net`` with HWIO ``params`` (on the image's device)."""
+    return _denoise(lambda x: _apply_nchw(params, x), color, albedo, normal, depth)
+
+
+def save_params(params: dict, path: str):
+    """Write HWIO ``params`` as the weights file: float16 arrays under the
+    22 names of the checked-in file, which the reference's ``load_params``
+    reads too."""
+    want = [n + s for n, *_ in _conv_spec() for s in ("_w", "_b")]
+    if sorted(params) != sorted(want):
+        raise ValueError(f"params: keys {sorted(params)}, expected {sorted(want)}")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, **{k: np.asarray(
+        v.detach().cpu().numpy() if torch.is_tensor(v) else v, np.float32).astype(np.float16)
+        for k, v in params.items()})
 
 
 def load_params(path: str | None = None):
@@ -134,12 +221,13 @@ _NETS: dict = {}
 
 
 def load_net(device=None, path: str | None = None):
-    """The DenoiserNet of the weights file on ``device`` (cached), or None
-    where the file is missing."""
+    """The DenoiserNet of the weights file on ``device`` (cached, its
+    parameters frozen), or None where the file is missing."""
     key = (str(torch.device(device or "cpu")), path)
     if key not in _NETS:
         params = load_params(path)
-        _NETS[key] = None if params is None else DenoiserNet(params).to(device)
+        _NETS[key] = None if params is None else DenoiserNet(params).requires_grad_(False).to(
+            device)
     return _NETS[key]
 
 

@@ -4,7 +4,8 @@ JAX package on the CPU, on door_room(20000) (17510 triangles): the plain
 version of the kernel gives JAX's ``intersect_bvh`` hits and occlusion on
 camera and random rays; ``trace(accel="bvh")`` gives JAX's; the scene
 without pair tables takes the Morton-sorted blocklist and gives the pair
-route's radiance."""
+route's radiance; the numpy BVH builder gives JAX's numpy builder's arrays
+bit for bit, and its tree's hits are the native tree's."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -183,3 +184,73 @@ def test_routes_of_a_small_scene():
     assert frac_close(L_bvh.numpy(), L_tiled.numpy(), rtol=1e-4) >= 0.99
     with pytest.raises(ValueError, match="block tables"):
         trace(scene, o, d, keys, accel="twolevel", **kw)
+
+
+def _mesh(name):
+    """(p0, e1, e2) float32 triangles: the Cornell box's, or 500 random
+    ones in a 4-unit cube."""
+    if name == "cornell":
+        g = build_scene(cornell_box(), device="cpu").geo
+        return tuple(a.numpy() for a in (g.p0, g.e1, g.e2))
+    rs = np.random.default_rng(5)
+    p0 = (4.0 * rs.random((500, 3))).astype(np.float32)
+    e1, e2 = ((1.5 * (rs.random((500, 3)) - 0.5)).astype(np.float32) for _ in range(2))
+    return p0, e1, e2
+
+
+MESHES = ["cornell", "random500"]
+TREE_FIELDS = ("node_min", "node_max", "child0", "child1", "prim_idx")
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_numpy_builder_matches_the_reference(mesh):
+    """accel/bvh.py's numpy builder against JAX's build_bvh(...,
+    use_native=False): every array bit-equal, the depth equal."""
+    from mitsuba_path_guiding_torch.accel.bvh import build_bvh
+    from mitsuba_path_guiding_tpu.accel.bvh import build_bvh as j_build_bvh
+
+    tris = _mesh(mesh)
+    got = build_bvh(*tris, use_native=False)
+    want = j_build_bvh(*tris, use_native=False)
+    for f in TREE_FIELDS:
+        a, b = getattr(got, f), np.asarray(getattr(want, f))
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32), err_msg=f)
+    assert got.max_depth == want.max_depth
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_numpy_tree_hits_match_the_native_tree(mesh):
+    """Both trees packed and walked by the plain BVH walk on 2000 random
+    rays: valid and t bit-equal, hit ids equal but at exact ties; without
+    the native library build_bvh builds the numpy tree."""
+    from mitsuba_path_guiding_torch.accel import bvh as bvh_mod
+    from mitsuba_path_guiding_torch.accel.native import native_available
+
+    tris = _mesh(mesh)
+    p0, e1, e2 = (torch.from_numpy(a) for a in tris)
+    trees = [bvh_mod.pack_bvh(bvh_mod.to_device(bvh_mod.build_bvh(*tris, use_native=native), "cpu"),
+                              p0, e1, e2) for native in (True, False)]
+    assert native_available()
+    rs = np.random.default_rng(11)
+    lo, hi = tris[0].min(axis=0), tris[0].max(axis=0)
+    o = t((lo + (hi - lo) * rs.random((2000, 3))).astype(np.float32))
+    d = torch.nn.functional.normalize(t(rs.normal(size=(2000, 3)).astype(np.float32)), dim=-1)
+    tmax = torch.full((2000,), 3.0e38)
+    (tn, pn), (tp, pp) = (bvh_plain(tree, o, d, tmax)[:2] for tree in trees)
+    assert (pn >= 0).float().mean() > 0.3
+    assert torch.equal(tn.view(torch.int32), tp.view(torch.int32))
+    assert torch.equal(pn >= 0, pp >= 0)
+    # with t bit-equal, an id that differs is a second triangle at the same
+    # t: an exact tie, which a shared edge makes now and then
+    assert (pn != pp).float().mean() < 0.01
+
+    saved = bvh_mod.native_available
+    bvh_mod.native_available = lambda: False
+    try:
+        fallback = bvh_mod.build_bvh(*tris)
+    finally:
+        bvh_mod.native_available = saved
+    reference = bvh_mod.build_bvh(*tris, use_native=False)
+    for f in TREE_FIELDS:
+        np.testing.assert_array_equal(getattr(fallback, f), getattr(reference, f), err_msg=f)

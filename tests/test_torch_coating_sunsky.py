@@ -444,8 +444,8 @@ def test_port_imports_no_jax():
     assert len(files) > 40
     # the volume slice's, the chain and photon integrators', the scene
     # files', the multi-GPU, irradiance-cache and subsurface modules and the
-    # spherical harmonics, spectral, manifold, motion and animation modules
-    # are among them
+    # spherical harmonics, spectral, manifold, motion and animation modules,
+    # the denoiser's trainer and gates and the BVH builder are among them
     names = {p.relative_to(ROOT).as_posix() for p in files}
     for mod in ("integrators/volpath.py", "models/medium.py", "models/phase.py",
                 "guiding/distance.py", "scene/volume.py", "scene/builder.py", "render.py",
@@ -458,7 +458,8 @@ def test_port_imports_no_jax():
                 "film/tiled.py", "parallel/mesh.py", "integrators/irrcache.py",
                 "integrators/subsurface.py", "core/sh.py", "core/spectral.py",
                 "integrators/manifold.py", "integrators/spectral.py", "integrators/motion.py",
-                "scene/animation.py"):
+                "scene/animation.py", "film/train_denoiser.py", "film/denoise_gate.py",
+                "accel/bvh.py", "accel/native.py"):
         assert f"mitsuba_path_guiding_torch/{mod}" in names, mod
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
