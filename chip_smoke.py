@@ -294,6 +294,28 @@ Phases:
      builder's veach_mis tree walked by the BVH kernel on a 256x256
      camera wave: valid and t bit-equal to the native tree's walk, the
      hit ids differing only at exact ties (counted).
+  23. "pair_configs" (slice 15), on phase 5's door_room tables: (a) the
+     bf16 MT kernel (PAIR_DATA_BF16's loose test) bit-equal to its plain
+     version, t and prim on every pair, on the sorted pairs of phase 5's
+     262144 camera rays and of their first bounce, timed warm and L2-cold
+     beside the f32 MT kernel on the same rays' f32 pairs, with its
+     operations bound and its bytes; (b) on phase 5's 8192-ray sets,
+     intersect_pairs_full at list widths (12, 12), (5, 5) and (4, 4)
+     (prim equal to the dense oracle on every ray but PC_WIDTH_MISSES,
+     each a proven farther hit; occlusion on every ray), the route's shadow query under
+     SHADOW_BLOCKLIST (occlusion on every ray), the bf16 pipeline's rays
+     that differ from the oracle equal in number (and prim) to the same
+     pipeline's with the plain tiles; the reference's cap (shift 4) on the
+     131072 camera rays of the lower half of a 512x512 wave
+     (tools/pair_fallback_shortfall.py's rays): the re-traced set the
+     first cap unproven rays ascending, the others keeping their pair
+     result, the rays left with another hit than the BVH's beside the
+     JAX package's 9851; (c) phase 6's render once under each of
+     PC_CONFIGS (the peel, blocklist shadows, bf16, both shifts at 4):
+     seconds, Mrays/s, mean and launches beside phase 6's, the peel's and
+     blocklist shadows' means held to the reference as in phase 6, the
+     bf16 and capped means printed (the reference documents that both
+     lose light).
 
 Each main-path route runs with the launch counts set to 0 just before it
 and read just after it, and is held to the kernels it must launch: the
@@ -344,7 +366,13 @@ row's on a large table above 512 triangles), the spectral Cornell box to
 one trace_fused a bin a sample, a manifold walk to 13 tiled launches and
 render_motion to one; the denoiser's reduced dataset to dn_launches (a
 fused scene's render one trace_fused a wave, a wavefront bounce two
-queries and three gathers) and its training to none.
+queries and three gathers) and its training to none; phase 23's renders
+to the door_room render's gathers and one MT launch per closest-hit
+query (a bf16 MT launch under PAIR_DATA_BF16), a shadow query one MT
+launch (a sorted blocklist launch under SHADOW_BLOCKLIST), a blocklist
+launch per pair query that left a ray unproven (counted in the same run),
+or under the cap one of the cap's size per pair query; every other route
+to no bf16 MT launch.
 """
 from __future__ import annotations
 
@@ -416,11 +444,14 @@ DOOR_WAVES = (DOOR_W * DOOR_H // DOOR_WAVE) * DOOR_SPP * DOOR_PROGRESSIONS
 DOOR_QUERIES = 2 * DEPTH * DOOR_WAVES
 DOOR_E2E_RAYS = 8192
 # Rays of the 8192 lower-half camera rays whose proven pair result is not
-# the nearest triangle, by engine; none of the random rays.  The lists
-# slab-test unpadded block boxes, so a grazing hit just outside a block's
-# box is dropped (one ray, the base of the dividing wall), and the Pluecker
-# test is not watertight, so with engine "plk" one more ray slips between
-# two sphere triangles.  The JAX pair route misses the same rays
+# the nearest triangle, by engine; none of the random rays.  The proof
+# compares the hit and the first dropped candidate's entry as keys cut to
+# their top 16 bits, with <=, so a hit in the dropped entry's bucket (1/128
+# of its value) passes: one ray takes the floor behind the dividing wall's
+# base, whose block was dropped (tests/test_torch_pair_configs.py::
+# test_width_misses_are_the_references); and the Pluecker test is not
+# watertight, so with engine "plk" one more ray slips between two sphere
+# triangles.  The JAX pair route misses the same rays
 # (tests/test_torch_door_room.py::test_pair_route_misses_what_the_reference_misses).
 DOOR_E2E_MISSES = {"mt": 1, "plk": 2}
 # Image mean of door_room(), unguided, 128x128 x 32 spp (8 groups of 4 spp,
@@ -466,7 +497,8 @@ DOOR_FIT_WAVES = 8
 DOOR_SPLIT_THRESHOLD = 512.0
 DOOR_GAIN_BAR = 1.10
 NONE_LAUNCHED = {k: 0 for k in ("gather_rows_t", "gather_rows_t_large", "intersect_tiled",
-                                "trace_fused", "intersect_pairs_mt", "intersect_pairs_plk",
+                                "trace_fused", "intersect_pairs_mt", "intersect_pairs_mt_bf16",
+                                "intersect_pairs_plk",
                                 "intersect_blocklist", "intersect_twolevel", "intersect_bvh")}
 
 
@@ -770,7 +802,8 @@ def drive(name, fn, expect):
     torch.cuda.synchronize()
     counts = dict(build.LAUNCHES)
     emit({"phase": "launches", "route": name, **counts})
-    for kernel, want in expect.items():
+    # no route launches the bf16 pair tiles unless it names them
+    for kernel, want in {"intersect_pairs_mt_bf16": 0, **expect}.items():
         got = counts[kernel]
         want = want() if callable(want) else want
         if want is None:
@@ -1527,7 +1560,9 @@ def count_retraces(fn, route):
     return out, n
 
 
-def phase_door_progressive(scene, spp=DOOR_SPP, name="door_room_progressive"):
+def phase_door_progressive(scene, spp=DOOR_SPP, name="door_room_progressive", hold=True):
+    """The guided door_room render (phase 6's recipe); its mean is held to
+    the reference's unless ``hold`` is False (then printed only)."""
     import torch
 
     from mitsuba_path_guiding_torch.integrators.progressive import (
@@ -1567,10 +1602,12 @@ def phase_door_progressive(scene, spp=DOOR_SPP, name="door_room_progressive"):
     se_card = abs(halves[0] - halves[1]) / 2.0
     tol = max(MEAN_TOL, 4.0 * (DOOR_REFERENCE_SE**2 + se_card**2) ** 0.5 / DOOR_REFERENCE_MEAN)
     rel = abs(mean - DOOR_REFERENCE_MEAN) / DOOR_REFERENCE_MEAN
-    check(rel < tol, f"door_room mean {mean} vs reference {DOOR_REFERENCE_MEAN} (tol {tol})")
+    if hold:
+        check(rel < tol, f"door_room mean {mean} vs reference {DOOR_REFERENCE_MEAN} (tol {tol})")
     segs = renderer.stats.get("rays traced") / 2
     rec = {"phase": name, "seconds": round(dt, 3), "mean": mean,
            "reference_mean": DOOR_REFERENCE_MEAN, "rel_err": rel, "rel_tol": tol,
+           "mean_held": hold,
            "se_card": se_card, "progression_means": prog_means, "valid_cells": n_valid,
            "spp": renderer.sample_counter, "mrays_per_s": 2 * segs / dt / 1e6}
     emit(rec)
@@ -6551,6 +6588,293 @@ def run_denoiser_training(veach, card):
     return {"denoiser_dataset": counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the pair route's configurations (slice 15)
+# ---------------------------------------------------------------------------
+
+PC_WIDTHS = ((12, 12), (5, 5), (4, 4))   # (ksb, l_blk) besides the default (8, 8)
+# DOOR_E2E_MISSES["mt"] at the other widths: narrower lists drop the wall's
+# block from more rays, and the truncated-key proof passes more of them
+# with the floor behind it (each such ray proven, with a farther hit than
+# the oracle's); the JAX pair route proves the same rays with the same
+# triangle (tests/test_torch_pair_configs.py::test_width_misses_are_the_references).
+PC_WIDTH_MISSES = {(12, 12): 0, (5, 5): 2, (4, 4): 8}
+PC_SHIFT = 4                              # the reference's fallback shift
+# Rays of the lower half of door_room() at 512x512 (131072 camera rays) that
+# the JAX package's pair route leaves with another triangle than its BVH
+# under its cap (shift 4): tools/pair_fallback_shortfall.py, JAX on the CPU.
+PC_JAX_LEFT_WRONG = 9851
+# trace's knobs: (module, attribute, value) set for one render
+PC_CONFIGS = {
+    "peel": (("path", "PAIR_PEEL", True),),
+    "shadow_blocklist": (("path", "SHADOW_BLOCKLIST", True),),
+    "bf16": (("pairs", "PAIR_DATA_BF16", True),),
+    "capped": (("path", "CAM_FB_SHIFT", PC_SHIFT), ("path", "SCAN_FB_SHIFT", PC_SHIFT)),
+}
+PC_HELD = ("peel", "shadow_blocklist")    # means held to DOOR_REFERENCE_MEAN; the others printed
+
+
+class configured:
+    """Set the knobs of ``PC_CONFIGS[name]`` for a block, then restore them."""
+
+    def __init__(self, name):
+        from mitsuba_path_guiding_torch.integrators import path
+        from mitsuba_path_guiding_torch.ops import intersect_pairs
+
+        mods = {"path": path, "pairs": intersect_pairs}
+        self.sets = [(mods[m], k, v) for m, k, v in PC_CONFIGS[name]]
+
+    def __enter__(self):
+        self.saved = [(m, k, getattr(m, k)) for m, k, _ in self.sets]
+        for m, k, v in self.sets:
+            setattr(m, k, v)
+
+    def __exit__(self, *exc):
+        for m, k, v in self.saved:
+            setattr(m, k, v)
+
+
+def pc_bf16_kernel(door):
+    """Phase 23 (a): the bf16 MT kernel against its plain version on the
+    sorted pairs of phase 5's 262144 camera rays and of their first bounce
+    (t and prim bits on every pair), timed warm and with the L2 evicted
+    beside the f32 MT kernel on the same rays' f32 pairs, with its bound
+    (operations; the pair rows' bytes beside them).  Returns the kernels
+    line's entry (launches filled in by the caller)."""
+    import torch
+
+    from mitsuba_path_guiding_torch.integrators.path import PAIR_CAP
+    from mitsuba_path_guiding_torch.ops.intersect_pairs import (
+        INF,
+        LEAF,
+        TILE,
+        build_pair_lists,
+        loose_bounds,
+        mt_tiles,
+        mt_tiles_plain,
+        pair_tiles,
+        sorted_pairs,
+    )
+
+    pt = door.pairs
+    n = DOOR_W * DOOR_H
+    o, d, _ = camera_rays(door, 1, 0, w=DOOR_W, h=DOOR_H)
+    tmax = torch.full((n,), 3.0e37, device=o.device)
+    _, one, eps_lo, _ = loose_bounds()
+    sets = {"camera": (o, d, tmax), "first_bounce": first_bounce(door, o, d, tmax, 4)}
+    res = {}
+    for label, (oo, dd, tt) in sets.items():
+        ids, _ = build_pair_lists(pt, oo, dd, tt)
+        skeys, spays, _ = sorted_pairs(pt, ids, n, PAIR_CAP)
+        p16, tile_block = pair_tiles(skeys, spays, oo, dd, tt, bf16=True)
+        p32, _ = pair_tiles(skeys, spays, oo, dd, tt)
+        got = mt_tiles(pt.tri_rows, tile_block, p16, False)
+        want = mt_tiles_plain(pt.tri_rows, tile_block, p16, False)
+        torch.cuda.synchronize()
+        differ = (_bits(got) != _bits(want)).any(dim=0)
+        check(not bool(differ.any()), f"mt bf16 {label}: t or prim bits differ on "
+                                      f"{int(differ.sum())} of {differ.numel()} pairs")
+        # the work the data needs: per live tile, the pairs that can hit
+        # (t_hi = tmax (1 + s) above EPS_T (1 - s)) times its real triangles
+        live = tile_block >= 0
+        can_hit = (p16[6].float() * one > eps_lo).reshape(-1, TILE).sum(dim=1)
+        real = (pt.tri_rows[tile_block.clamp_min(0).long(), 9, :] >= 0).sum(dim=1)
+        tests = int(torch.where(live, can_hit * real, 0).sum())
+        hit_pairs = int(torch.where(live, can_hit, 0).sum())
+        blocks_used = int(torch.unique(tile_block[live]).numel())
+        n_pairs = p16.shape[1]
+        ops = tests * MT_OPS + hit_pairs       # + the t_hi product a pair
+        tables = tile_block.numel() * 4 + blocks_used * 10 * LEAF * 4
+        b16 = n_pairs * (7 * 2 + 2 * 4) + tables
+        b32 = n_pairs * (7 * 4 + 2 * 4) + tables
+        b_ms, b_by = bound(b16, ops)
+
+        def k16():
+            return mt_tiles(pt.tri_rows, tile_block, p16, False)
+
+        def k32():
+            return mt_tiles(pt.tri_rows, tile_block, p32, False)
+        res[label] = {
+            "pairs": n_pairs, "live_tiles": int(live.sum()), "blocks": blocks_used,
+            "hits_bf16": int((want[0] < INF).sum()),
+            "hits_f32": int((mt_tiles_plain(pt.tri_rows, tile_block, p32, False)[0] < INF).sum()),
+            "bit_equal": True, "ms": cuda_ms(k16), "ms_l2_cold": cuda_ms(k16, cold=True),
+            "f32_ms": cuda_ms(k32), "f32_ms_l2_cold": cuda_ms(k32, cold=True),
+            "plain_ms": cuda_ms(lambda: mt_tiles_plain(pt.tri_rows, tile_block, p16, False),
+                                reps=3, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "fp32_ops": ops, "triangle_tests": tests,
+            "bytes": b16, "bytes_bound_ms": bound(b16, 0)[0], "f32_bytes": b32,
+            "f32_bytes_bound_ms": bound(b32, 0)[0]}
+    cam = res["camera"]
+    entry = {
+        "name": "intersect_pairs_mt_bf16", "route": "cuda",
+        "source": "mitsuba_path_guiding_torch/csrc/intersect_pairs.cu",
+        "replaces": "mitsuba_path_guiding_tpu/ops/intersect_pairs.py:223",
+        "max_abs_err": 0.0, "ms": cam["ms"], "plain_ms": cam["plain_ms"],
+        "bound_ms": cam["bound_ms"], "bound_by": cam["bound_by"], "library_ms": None,
+        "library": "none: no single PyTorch call computes a per-pair best hit over a "
+                   "gathered triangle block",
+        "shape": f"{n} camera rays of door_room 512x512: {cam['pairs']} sorted pairs as "
+                 f"bfloat16, {cam['live_tiles']} live tiles, closest hit (the reference's "
+                 "PAIR_DATA_BF16 path, _mt_pallas_kernel with loose=True)",
+        "calls": res, "check": "t and prim bit-equal to the plain version's on every pair"}
+    emit({"phase": "pair_configs_bf16_kernel", **res})
+    return entry
+
+
+def pc_full_queries(door):
+    """Phase 23 (b): full queries against the dense oracle on phase 5's
+    8192-ray sets at other list widths and under SHADOW_BLOCKLIST; the
+    reference's cap (shift 4) on the lower half of a 512x512 wave, its
+    re-traced set the first ``cap`` unproven rays; bf16 against the same
+    pipeline with the plain version of its tiles."""
+    import torch
+
+    from mitsuba_path_guiding_torch.accel import traverse
+    from mitsuba_path_guiding_torch.accel.traverse import (
+        intersect_bvh,
+        intersect_pairs_full,
+        occluded_pairs_full,
+    )
+    from mitsuba_path_guiding_torch.integrators.path import PAIR_CAP, route_queries
+    from mitsuba_path_guiding_torch.ops import intersect_pairs as ip
+    from mitsuba_path_guiding_torch.ops.intersect_blocklist import intersect_blocklist_raw
+
+    pt, bl, dev = door.pairs, door.blocks, door.geo.p0.device
+    n, m = DOOR_W * DOOR_H, DOOR_E2E_RAYS
+    o_cam, d_cam, _ = camera_rays(door, 1, 0, w=DOOR_W, h=DOOR_H)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    sets = {"camera": (o_cam, d_cam, torch.full((n,), 3.0e37, device=dev)),
+            "random": random_rays(door, n, gen)}
+    res = {"widths": {}, "shadow_blocklist": {}, "bf16": {}}
+    for label, (o, d, tmax) in sets.items():
+        a = 3 * n // 4 if label == "camera" else 0
+        o, d, tmax = o[a:a + m], d[a:a + m], tmax[a:a + m]
+        t_ref, prim_ref = brute_chunked(door.geo, o, d, tmax)
+        occ_ref = brute_chunked(door.geo, o, d, tmax, any_hit=True)
+        for ksb, l_blk in PC_WIDTHS:
+            kw = dict(ksb=ksb, l_blk=l_blk, cap_factor=PAIR_CAP)
+            hit = intersect_pairs_full(pt, bl, o, d, tmax, **kw)
+            occ = occluded_pairs_full(pt, bl, o, d, tmax, **kw)
+            proven = ip.intersect_pairs_raw(pt, o, d, tmax, **kw)[-1]
+            torch.cuda.synchronize()
+            bad = hit.prim != prim_ref
+            missed, o_missed = int(bad.sum()), int((occ != occ_ref).sum())
+            allowed = PC_WIDTH_MISSES[(ksb, l_blk)] if label == "camera" else 0
+            # each miss the proof's: proven, with a farther hit than the oracle's
+            proofs = missed == 0 or bool((proven[bad] & (hit.t[bad] > t_ref[bad])).all())
+            check(missed <= allowed and proofs and o_missed == 0,
+                  f"pairs_full ({ksb}, {l_blk}) {label}: {missed} prim misses (allowed "
+                  f"{allowed}, all proven farther hits: {proofs}), {o_missed} occlusion misses")
+            res["widths"][f"{label}_{ksb}_{l_blk}"] = {
+                "prim_misses": missed, "allowed": allowed, "occlusion_misses": o_missed,
+                "unproven_retraced": int((~proven).sum())}
+        allowed = DOOR_E2E_MISSES["mt"] if label == "camera" else 0
+        with configured("shadow_blocklist"):
+            occ = route_queries(door, "auto")[1](o, d, tmax)
+        o_missed = int((occ != occ_ref).sum())
+        check(o_missed == 0, f"SHADOW_BLOCKLIST {label}: {o_missed} occlusion misses")
+        res["shadow_blocklist"][label] = {"occlusion_misses": o_missed}
+        # bf16: the kernel's pipeline against the same pipeline with the
+        # plain version of its tiles on the card's tensors
+        prims = {}
+        with configured("bf16"):
+            prims["kernel"] = intersect_pairs_full(pt, bl, o, d, tmax, cap_factor=PAIR_CAP).prim
+            real = ip.mt_tiles
+            ip.mt_tiles = ip.mt_tiles_plain
+            try:
+                prims["plain"] = intersect_pairs_full(pt, bl, o, d, tmax,
+                                                      cap_factor=PAIR_CAP).prim
+            finally:
+                ip.mt_tiles = real
+        torch.cuda.synchronize()
+        wrong = {k: int((v != prim_ref).sum()) for k, v in prims.items()}
+        check(wrong["kernel"] == wrong["plain"] and torch.equal(prims["kernel"], prims["plain"]),
+              f"bf16 {label}: {wrong} rays differ from the oracle (kernel, plain), or their "
+              "prims differ")
+        res["bf16"][label] = {"prim_misses_kernel": wrong["kernel"],
+                              "prim_misses_plain": wrong["plain"], "f32_allowed": allowed}
+
+    # the cap: the lower half of the 512x512 wave, as
+    # tools/pair_fallback_shortfall.py takes it
+    o, d = o_cam[n // 2:], d_cam[n // 2:]
+    tmax = torch.full((o.shape[0],), 3.0e37, device=dev)
+    raw = ip.intersect_pairs_raw(pt, o, d, tmax, cap_factor=PAIR_CAP)
+    proven = raw[-1].clone()
+    unproven = torch.nonzero(~proven).flatten()
+    cap = traverse._fallback_cap(o.shape[0], PC_SHIFT)
+    expect = unproven[:cap]
+    real = traverse._unproven_idx
+    sel = []
+    traverse._unproven_idx = lambda p, c: sel.append(real(p, c)) or sel[-1]
+    try:
+        capped = intersect_pairs_full(pt, bl, o, d, tmax, fb_shift=PC_SHIFT, cap_factor=PAIR_CAP)
+    finally:
+        traverse._unproven_idx = real
+    full = intersect_pairs_full(pt, bl, o, d, tmax, cap_factor=PAIR_CAP)
+    oracle = intersect_bvh(door.geo, door.bvh, o, d, tmax)
+    fb_prim = intersect_blocklist_raw(bl, o[expect], d[expect], tmax[expect])[1]
+    torch.cuda.synchronize()
+    check(len(sel) == 1 and sel[0].numel() == cap, f"capped query: selections {len(sel)}")
+    taken = sel[0][~proven[sel[0]]]
+    check(torch.equal(taken, expect), "capped query: the re-traced set is not the first cap "
+                                      "unproven rays in ascending order")
+    kept = torch.ones_like(proven)
+    kept[expect] = False
+    check(torch.equal(capped.prim[kept], raw[1][kept]) and torch.equal(capped.prim[expect], fb_prim),
+          "capped query: rays outside the set lost their pair result, or the set its re-trace")
+    res["capped"] = {
+        "rays": int(o.shape[0]), "unproven": int(unproven.numel()), "cap": cap,
+        "retraced": int(taken.numel()), "left_with_pair_result": int(unproven.numel() - cap)
+        if unproven.numel() > cap else 0,
+        "wrong_vs_bvh_capped": int((capped.prim != oracle.prim).sum()),
+        "wrong_vs_bvh_every_unproven_retraced": int((full.prim != oracle.prim).sum()),
+        "jax_left_wrong_vs_bvh": PC_JAX_LEFT_WRONG}
+    emit({"phase": "pair_configs_full_queries", **res})
+    return res
+
+
+def run_pair_configs(door, door_rec, route, timed, retraces):
+    """Phase 23, "pair_configs" (slice 15): (a) the bf16 MT kernel, (b) the
+    full queries, (c) phase 6's guided render once per configuration of
+    PC_CONFIGS beside phase 6's own (``door_rec``), each held to its exact
+    launches; ``route``, ``timed`` and ``retraces`` are main()'s wrappers of
+    the door_room routes.  Returns (launch counts by route, the bf16
+    kernel's entry of the kernels line)."""
+    t_phase = time.time()
+    entry = pc_bf16_kernel(door)
+    pc_full_queries(door)
+    none_of = {"intersect_tiled": 0, "trace_fused": 0, "intersect_twolevel": 0,
+               "intersect_bvh": 0, "intersect_pairs_plk": 0, **door_gathers(DOOR_WAVES)}
+    half = DOOR_QUERIES // 2
+    counts, recs = {}, {}
+    for name in PC_CONFIGS:
+        rname = f"door_room_{name}"
+        if name == "capped":
+            # one blocklist launch of the cap's size a query, no host read
+            wrap = timed(rname, lambda: phase_door_progressive(door, name=rname, hold=False))
+            want = {"intersect_pairs_mt": DOOR_QUERIES, "intersect_blocklist": DOOR_QUERIES}
+        else:
+            wrap = route(rname, lambda: phase_door_progressive(door, name=rname,
+                                                               hold=name in PC_HELD))
+            fb = (lambda r: lambda: retraces[r])(rname)
+            want = {"peel": {"intersect_pairs_mt": DOOR_QUERIES, "intersect_blocklist": fb},
+                    "shadow_blocklist": {"intersect_pairs_mt": half,
+                                         "intersect_blocklist": lambda: half + fb()},
+                    "bf16": {"intersect_pairs_mt": half, "intersect_pairs_mt_bf16": half,
+                             "intersect_blocklist": fb}}[name]
+        with configured(name):
+            recs[name], counts[rname] = drive(rname, wrap, {**none_of, **want})
+    ab = {"default": {k: door_rec[k] for k in ("seconds", "mrays_per_s", "mean")}}
+    for name, rec in recs.items():
+        ab[name] = {"seconds": rec["seconds"], "mrays_per_s": rec["mrays_per_s"],
+                    "mean": rec["mean"], "mean_held": name in PC_HELD,
+                    "rel_to_reference": rec["mean"] / DOOR_REFERENCE_MEAN - 1.0,
+                    "launches": {k: v for k, v in counts[f"door_room_{name}"].items() if v}}
+    emit({"phase": "pair_configs", "seconds": round(time.time() - t_phase, 3), "renders": ab})
+    return counts, entry
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -6612,19 +6936,21 @@ def main(argv=None):
 
     def timed(name, fn):
         def run():
-            (_, bl_render[name]), mt = mt_kernel_time(lambda: blocklist_kernel_time(fn))
+            (out, bl_render[name]), mt = mt_kernel_time(lambda: blocklist_kernel_time(fn))
             emit({"phase": "blocklist_kernel_time", "route": name, **bl_render[name]})
             if mt["launches"]:
                 mt_render[name] = mt
                 emit({"phase": "mt_kernel_time", "route": name, **mt})
+            return out
         return run
 
     def route(name, fn):
         def run():
-            retraces[name] = count_retraces(timed(name, fn), name)[1]
+            out, retraces[name] = count_retraces(timed(name, fn), name)
+            return out
         return run
 
-    _, c_door = drive("door_room_progressive",
+    door_rec, c_door = drive("door_room_progressive",
                       route("door_room_progressive", lambda: phase_door_progressive(door)), {
         **none_of, **door_gathers(DOOR_WAVES), "intersect_pairs_plk": 0,
         "intersect_pairs_mt": DOOR_QUERIES,
@@ -6700,13 +7026,17 @@ def main(argv=None):
     # the denoiser's training: the dataset's renders through every route,
     # then the training on the card and its checks, the numpy BVH builder
     c_dn = run_denoiser_training(veach, card)
+    # the pair route's configurations: the bf16 MT kernel, the full queries
+    # at other widths, blocklist shadows and the reference's cap, then phase
+    # 6's render once per configuration
+    c_pc, bf16_entry = run_pair_configs(door, door_rec, route, timed, retraces)
     routes = {"progressive": c_prog, "frozen_render": c_frozen, "unguided_render": c_render,
               "progressive_adaptive": c_adaptive, "guiding_gain_bounce_lamp": c_bounce,
               "guiding_gain_door_room": c_door_gain,
               "door_room_progressive": c_door, "door_room_plk": c_plk, **interior["launches"],
               "door_room_twolevel": door_tl["launches"], "door_room_sorted_blocklist": c_sorted,
               "door_room_bvh": c_bvh, **c_shading, **c_vocab, **c_vol, **c_tex, **c_int,
-              **c_chain, **c_files, **c_sharded, **c_irr, **c_s13, **c_dn}
+              **c_chain, **c_files, **c_sharded, **c_irr, **c_s13, **c_dn, **c_pc}
     launches = {k: {r: c[k] for r, c in routes.items()} for k in c_prog}
 
     entries = phase_timings(scene, veach, tables, grid, checks, launches, card)
@@ -6727,6 +7057,10 @@ def main(argv=None):
                                 "cornell_wave_hits": s13_checks["gather_rows_t_wave_hits"]})
     entries[0]["backward"] = s13_checks["gather_rows_t_backward"]
     entries += new_entries
+    bf16_entry["launches"] = sum(launches["intersect_pairs_mt_bf16"].values())
+    bf16_entry["launches_by_route"] = {r: c for r, c in
+                                       launches["intersect_pairs_mt_bf16"].items() if c}
+    entries.append(bf16_entry)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

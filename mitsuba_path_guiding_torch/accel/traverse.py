@@ -8,7 +8,8 @@ kernel's wrapper (the CUDA kernel on the card, its plain version
 (``ops/intersect_bvh.py``, the ``intersect_bvh`` kernel on the card).
 Scenes of 16384 triangles or more carry block tables: with pair tables
 they go through ``intersect_pairs_full`` / ``occluded_pairs_full``, the
-pair pipeline with the blocklist kernel re-tracing its unproven rays;
+pair pipeline with the blocklist kernel re-tracing its unproven rays (all
+of them, or with ``fb_shift`` the reference's capped share);
 without, through ``intersect_twolevel`` / ``occluded_twolevel``, the
 blocklist kernel on Morton-sorted rays.  On the card each query launches
 its kernels; on the CPU it runs their plain versions.
@@ -29,7 +30,12 @@ from mitsuba_path_guiding_torch.ops.intersect_blocklist import (
 )
 from mitsuba_path_guiding_torch.ops.gather import gather_rows_t
 from mitsuba_path_guiding_torch.ops.intersect_bvh import bvh_query
-from mitsuba_path_guiding_torch.ops.intersect_pairs import intersect_pairs_raw
+from mitsuba_path_guiding_torch.ops.intersect_pairs import (
+    IMAX,
+    PAIR_KSB,
+    PAIR_L,
+    intersect_pairs_raw,
+)
 from mitsuba_path_guiding_torch.ops.intersect_tiled import (
     any_plain,
     closest_plain,
@@ -90,36 +96,69 @@ def _retrace(proven):
     return torch.nonzero(~proven).flatten()
 
 
-def intersect_pairs_full(pairs: PairTable, blocks: BlockList, o, d, tmax=None, cap_factor=None,
-                         engine: str = "mt") -> Hit:
+def _fallback_cap(n: int, shift: int) -> int:
+    """The reference's re-trace budget of a query of n rays."""
+    return min(max(4096, n >> shift), n)
+
+
+def _unproven_idx(proven, cap: int):
+    """The reference's selection under its cap: the first ``cap`` unproven
+    ray indices, ascending, from one sort of (index, IMAX where proven);
+    where fewer rays are unproven the tail repeats index n - 1, which the
+    caller masks by ``~proven[idx]``.  A fixed size: no host read."""
+    n = proven.shape[0]
+    key = torch.where(proven, IMAX, torch.arange(n, dtype=torch.int32, device=proven.device))
+    return torch.sort(key).values[:cap].clamp(0, n - 1).long()
+
+
+def _fallback(proven, fb_shift):
+    """The rays to re-trace and the mask of those that take the re-trace:
+    every unproven ray (``fb_shift`` None, the port's default), or the
+    reference's capped selection (an int)."""
+    if fb_shift is None:
+        idx = _retrace(proven)
+        return idx, None
+    idx = _unproven_idx(proven, _fallback_cap(proven.shape[0], fb_shift))
+    return idx, ~proven[idx]
+
+
+def intersect_pairs_full(pairs: PairTable, blocks: BlockList, o, d, tmax=None, ksb=None,
+                         l_blk=None, fb_shift=None, cap_factor=None, engine: str = "mt") -> Hit:
     """Closest hit through the pair pipeline (ops/intersect_pairs.py), with
-    the blocklist kernel re-tracing, in one launch, every ray whose
-    nearest-L list was not proven complete.  The reference re-traces at
-    most max(4096, N >> 4) of them and lets the rest keep their pair result,
-    which can be a farther hit than the true one: on the lower half of
-    door_room() at 512x512 (131072 camera rays, tools/pair_fallback_shortfall.py)
-    26262 rays are unproven and 9851 of the 18070 beyond that cap keep a
-    wrong hit."""
+    the blocklist kernel re-tracing, in one launch, the rays whose
+    nearest-l_blk list was not proven complete.  ``ksb``, ``l_blk``: the
+    list widths (None: the pipeline's PAIR_KSB, PAIR_L).  ``fb_shift``
+    None (the default) re-traces every unproven ray.  An int gives the
+    reference's cap, at most max(4096, N >> fb_shift) rays, the first
+    unproven by index, one launch of that size a query; the rest keep their
+    pair result, which can be a farther hit than the true one: on the lower
+    half of door_room() at 512x512 (131072 camera rays,
+    tools/pair_fallback_shortfall.py) 26262 rays are unproven and 9851 of
+    the 18070 beyond the cap at shift 4 keep a wrong hit."""
     tmax = _full_tmax(o, tmax)
-    t, prim, u, v, valid, proven = intersect_pairs_raw(pairs, o, d, tmax, cap_factor=cap_factor,
-                                                       engine=engine)
-    idx = _retrace(proven)
+    t, prim, u, v, valid, proven = intersect_pairs_raw(
+        pairs, o, d, tmax, ksb=ksb or PAIR_KSB, l_blk=l_blk or PAIR_L, cap_factor=cap_factor,
+        engine=engine)
+    idx, take = _fallback(proven, fb_shift)
     if idx.numel():
         hit = intersect_blocklist_raw(blocks, o[idx], d[idx], tmax[idx])
         for dst, src in zip((t, prim, u, v, valid), hit):
-            dst[idx] = src
+            dst[idx] = src if take is None else torch.where(take, src, dst[idx])
     return Hit(t=t, prim=prim, u=u, v=v, valid=valid)
 
 
-def occluded_pairs_full(pairs: PairTable, blocks: BlockList, o, d, tmax, cap_factor=None,
-                        engine: str = "mt") -> torch.Tensor:
+def occluded_pairs_full(pairs: PairTable, blocks: BlockList, o, d, tmax, ksb=None, l_blk=None,
+                        fb_shift=None, cap_factor=None, engine: str = "mt") -> torch.Tensor:
     """Any-hit visibility through the pair pipeline, with the blocklist
-    kernel re-tracing every unproven ray."""
-    occ, proven = intersect_pairs_raw(pairs, o, d, tmax, any_hit=True, cap_factor=cap_factor,
-                                      engine=engine)
-    idx = _retrace(proven)
+    kernel re-tracing the unproven rays (``ksb``, ``l_blk``, ``fb_shift``
+    as in ``intersect_pairs_full``)."""
+    occ, proven = intersect_pairs_raw(pairs, o, d, tmax, ksb=ksb or PAIR_KSB,
+                                      l_blk=l_blk or PAIR_L, any_hit=True,
+                                      cap_factor=cap_factor, engine=engine)
+    idx, take = _fallback(proven, fb_shift)
     if idx.numel():
-        occ[idx] = occluded_blocklist_raw(blocks, o[idx], d[idx], tmax[idx])
+        occ2 = occluded_blocklist_raw(blocks, o[idx], d[idx], tmax[idx])
+        occ[idx] = occ2 if take is None else torch.where(take, occ2, occ[idx])
     return occ
 
 

@@ -302,6 +302,42 @@ PG_HD bool pg_mt_vt(float e1x, float e1y, float e1z, float e2x, float e2y, float
 }
 
 // ---------------------------------------------------------------------------
+// The two stages with the loose test of bf16 pair data (ops/intersect_pairs.py
+// loose_bounds: neg = -s, one = 1 + s, eps_lo = EPS_T (1 - s) as float32, s
+// the slack): a hit has inv_det != 0, u >= neg, v >= neg, u + v <= one,
+// t > eps_lo (and t < tmax one, the caller's).  The same operations in the
+// same order as pg_mt_u and pg_mt_vt.  pg_mt_u_loose keeps the pairs with
+// neg <= u <= u_hi, u_hi >= one - neg + 2^-8: a hit has v >= neg and
+// fl(u + v) <= one, and u > u_hi would give u + v >= u + neg > one + 2^-8
+// (exactly), above the float after one, so fl(u + v) > one (rounding is
+// monotone); so the first stage drops no pair the whole test admits.
+// ---------------------------------------------------------------------------
+PG_HD bool pg_mt_u_loose(float p0x, float p0y, float p0z, float e1x, float e1y, float e1z,
+                         float e2x, float e2y, float e2z, float ox, float oy, float oz,
+                         float dx, float dy, float dz, float neg, float u_hi, float* tv,
+                         float* inv_out, float* u_out) {
+  float det, num;
+  pg_mt_num(p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z, ox, oy, oz, dx, dy, dz, tv, &det, &num);
+  const float inv_det = fabsf(det) < 1e-12f ? 0.0f : 1.0f / (det == 0.0f ? 1.0f : det);
+  const float u = num * inv_det;
+  *inv_out = inv_det;
+  *u_out = u;
+  return (inv_det != 0.0f) && (u >= neg) && (u <= u_hi);
+}
+
+PG_HD bool pg_mt_vt_loose(float e1x, float e1y, float e1z, float e2x, float e2y, float e2z,
+                          float dx, float dy, float dz, const float* tv, float inv_det, float u,
+                          float neg, float one, float eps_lo, float* t_out) {
+  const float qvx = tv[1] * e1z - tv[2] * e1y;
+  const float qvy = tv[2] * e1x - tv[0] * e1z;
+  const float qvz = tv[0] * e1y - tv[1] * e1x;
+  const float v = ((dx * qvx + dy * qvy) + dz * qvz) * inv_det;
+  const float t = ((e2x * qvx + e2y * qvy) + e2z * qvz) * inv_det;
+  *t_out = t;
+  return (inv_det != 0.0f) && (u >= neg) && (v >= neg) && (u + v <= one) && (t > eps_lo);
+}
+
+// ---------------------------------------------------------------------------
 // The order of every closest-hit merge: the lesser t, and among equal t the
 // lesser triangle id.  On distinct ids it is a total order, so partial
 // winners merged in any grouping give the winner of one pass over the

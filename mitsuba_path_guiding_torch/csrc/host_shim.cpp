@@ -124,6 +124,38 @@ void host_mt_closest(const float* tri, int n_tri, const float* o, const float* d
   }
 }
 
+// The loose test of bf16 pair data on n (triangle i, ray i) pairs through
+// the bf16 pair kernel's two stages, pg_mt_u_loose then pg_mt_vt_loose (the
+// second only where the first passed) and t < tmax one, against the whole
+// test applied to pg_mt_test's t, u, v (the plain version's terms).  Writes
+// the staged hit, t and u of each pair; returns the pairs where the two
+// disagree, which must be none.
+int host_mt_loose_pairs(const float* tri, const float* o, const float* d, const float* tmax,
+                        int n, float neg, float one, float eps_lo, float u_hi, int* hit,
+                        float* t_out, float* u_out) {
+  int wrong = 0;
+  for (int i = 0; i < n; ++i) {
+    const float* c = tri + 9 * i;
+    const float* oi = o + 3 * i;
+    const float* di = d + 3 * i;
+    const float t_hi = tmax[i] * one;
+    float tv[3], inv, u, t = 0.0f;
+    const bool may = pg_mt_u_loose(c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], oi[0],
+                                   oi[1], oi[2], di[0], di[1], di[2], neg, u_hi, tv, &inv, &u);
+    const bool h = may && pg_mt_vt_loose(c[3], c[4], c[5], c[6], c[7], c[8], di[0], di[1], di[2],
+                                         tv, inv, u, neg, one, eps_lo, &t) && t < t_hi;
+    float t1, u1, v1;
+    pg_mt_test(c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], oi[0], oi[1], oi[2], di[0],
+               di[1], di[2], &t1, &u1, &v1);
+    const bool whole = u1 >= neg && v1 >= neg && u1 + v1 <= one && t1 > eps_lo && t1 < t_hi;
+    if (h != whole) ++wrong;
+    hit[i] = h;
+    t_out[i] = t1;
+    u_out[i] = u1;
+  }
+  return wrong;
+}
+
 // host_mt_closest through the two stages pg_mt_u and pg_mt_vt, the second
 // run only where the first passed, as the pair tile kernel runs them.
 // Returns the (ray, triangle) tests where pg_mt_u failed and pg_mt_test

@@ -57,6 +57,22 @@
 // (PERF.md section 6): without the vote 1.36x slower; at most 64 registers
 // (__launch_bounds__(128, 8)) 8% slower.
 //
+// bf16 MT design (pair_kernel<false, false, __nv_bfloat16>, closest hit
+// only): the reference's PAIR_DATA_BF16 path of _mt_pallas_kernel (its
+// `loose` build, the pair rows gathered as bfloat16 and the inside tests
+// widened by BF16_SLACK).  The same CTA, compaction, triangle split and
+// merge as the f32 kernel; each pair row is read as __nv_bfloat16 and
+// upcast on load (exact).  The loose test (device_math.cuh pg_mt_u_loose,
+// pg_mt_vt_loose) takes its float32 constants from the wrapper
+// (ops/intersect_pairs.py loose_bounds), which gives the same ones to the
+// plain version: u, v >= -s, u + v <= 1 + s, t > EPS_T (1 - s), t below
+// t_hi = tmax (1 + s), rounded once as the plain version rounds it.  A
+// pair is dead when t_hi <= EPS_T (1 - s): no t lies between.  The first
+// stage keeps -s <= u <= u_hi, wide enough never to drop a pair the whole
+// test admits (the proof is at pg_mt_u_loose); the f32 kernel's
+// division-free reject does not carry over.  Bound: operations, as the f32
+// kernel; the pair rows move 7 x 2 bytes a pair instead of 7 x 4.
+//
 // An inert tile (tile_block < 0: dummies or the sort's tail) writes
 // (INF, -1) and returns before touching the table.
 //
@@ -64,8 +80,11 @@
 // agree bit for bit with ops/intersect_pairs.py mt_tiles_plain /
 // plk_tiles_plain.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "device_math.cuh"
 
@@ -77,6 +96,15 @@
 #define FULL 0xffffffffu
 #define WARPS (PAIR_TILE / 32)  // warps of a tile's CTA, each with a share of the triangles
 #define SLOTS (PAIR_TILE / 32)  // 32-pair slots of a tile: live pairs a lane owns at most
+
+// the float32 constants of the loose test (bf16 pair data); unused by the
+// f32 kernels
+struct PgLoose {
+  float neg, one, eps_lo, u_hi;
+};
+
+__device__ __forceinline__ float pg_ld(const float* p) { return *p; }
+__device__ __forceinline__ float pg_ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
 __device__ __forceinline__ void pg_take(bool hit, float t, float tid, float* bt, float* bid) {
   if (hit && pg_nearer(t, tid, *bt, *bid)) {
@@ -95,12 +123,14 @@ __device__ __forceinline__ void pg_pair_out(float* out, int64_t P, int64_t p, fl
 // one warp's share of a tile: the live pairs of slots 0..S-1 (lane l,
 // slot s: live pair 32 s + l) against the staged triangles k = warp,
 // warp + WARPS, ... below n_tri; the best (t, id) of each slot and lane
-// goes to best[warp][s][lane]
-template <int S>
+// goes to best[warp][s][lane].  PD: float, or __nv_bfloat16 for the loose
+// test of bf16 pair data.
+template <int S, typename PD>
 __device__ __forceinline__ void mt_slots(const float4* __restrict__ rec, int n_tri,
                                          const int* live, int n_live,
-                                         const float* __restrict__ pd, int64_t P, int64_t base,
-                                         float2* best) {
+                                         const PD* __restrict__ pd, int64_t P, int64_t base,
+                                         PgLoose lz, float2* best) {
+  constexpr bool LOOSE = std::is_same<PD, __nv_bfloat16>::value;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float ox[S], oy[S], oz[S], dx[S], dy[S], dz[S], tmax[S], bt[S], bid[S];
   bool has[S];
@@ -109,13 +139,14 @@ __device__ __forceinline__ void mt_slots(const float4* __restrict__ rec, int n_t
     const int j = 32 * s + lane;
     has[s] = j < n_live;
     const int64_t p = base + (has[s] ? live[j] : 0);
-    ox[s] = pd[p];
-    oy[s] = pd[P + p];
-    oz[s] = pd[2 * P + p];
-    dx[s] = pd[3 * P + p];
-    dy[s] = pd[4 * P + p];
-    dz[s] = pd[5 * P + p];
-    tmax[s] = pd[6 * P + p];
+    ox[s] = pg_ld(pd + p);
+    oy[s] = pg_ld(pd + P + p);
+    oz[s] = pg_ld(pd + 2 * P + p);
+    dx[s] = pg_ld(pd + 3 * P + p);
+    dy[s] = pg_ld(pd + 4 * P + p);
+    dz[s] = pg_ld(pd + 5 * P + p);
+    tmax[s] = pg_ld(pd + 6 * P + p);
+    if constexpr (LOOSE) tmax[s] = tmax[s] * lz.one;  // t_hi
     bt[s] = INF_T;
     bid[s] = NO_ID;
   }
@@ -125,15 +156,29 @@ __device__ __forceinline__ void mt_slots(const float4* __restrict__ rec, int n_t
     float tv[S][3], inv[S], u[S];
     bool may[S];
 #pragma unroll
-    for (int s = 0; s < S; ++s)
-      may[s] = pg_mt_u(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, ox[s], oy[s], oz[s], dx[s],
-                       dy[s], dz[s], tv[s], &inv[s], &u[s]) && has[s];
+    for (int s = 0; s < S; ++s) {
+      if constexpr (LOOSE) {
+        may[s] = pg_mt_u_loose(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, ox[s], oy[s], oz[s],
+                               dx[s], dy[s], dz[s], lz.neg, lz.u_hi, tv[s], &inv[s], &u[s]) &&
+                 has[s];
+      } else {
+        may[s] = pg_mt_u(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, ox[s], oy[s], oz[s], dx[s],
+                         dy[s], dz[s], tv[s], &inv[s], &u[s]) && has[s];
+      }
+    }
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       if (__any_sync(FULL, may[s])) {
-        float t, v;
-        const bool hit = pg_mt_vt(a.w, b.x, b.y, b.z, b.w, c.x, dx[s], dy[s], dz[s], tv[s],
-                                  inv[s], u[s], &t, &v);
+        float t;
+        bool hit;
+        if constexpr (LOOSE) {
+          hit = pg_mt_vt_loose(a.w, b.x, b.y, b.z, b.w, c.x, dx[s], dy[s], dz[s], tv[s], inv[s],
+                               u[s], lz.neg, lz.one, lz.eps_lo, &t);
+        } else {
+          float v;
+          hit = pg_mt_vt(a.w, b.x, b.y, b.z, b.w, c.x, dx[s], dy[s], dz[s], tv[s], inv[s], u[s],
+                         &t, &v);
+        }
         pg_take(may[s] && hit && t < tmax[s] && c.y >= 0.0f, t, c.y, &bt[s], &bid[s]);
       }
     }
@@ -195,24 +240,27 @@ __device__ __forceinline__ void plk_slots(const float4* __restrict__ rec, int n_
   for (int s = 0; s < S; ++s) best[(warp * SLOTS + s) * 32 + lane] = make_float2(bt[s], bid[s]);
 }
 
-template <bool PLK, bool ANY_HIT, int S>
+template <bool PLK, bool ANY_HIT, int S, typename PD>
 __device__ __forceinline__ void run_slots(const float4* rec, int n_tri, const int* live,
-                                          int n_live, const float* pd, int64_t P, int64_t base,
-                                          float2* best) {
+                                          int n_live, const PD* pd, int64_t P, int64_t base,
+                                          PgLoose lz, float2* best) {
   if constexpr (PLK) {
     plk_slots<S, ANY_HIT>(rec, n_tri, live, n_live, pd, P, base, best);
   } else {
-    mt_slots<S>(rec, n_tri, live, n_live, pd, P, base, best);
+    mt_slots<S, PD>(rec, n_tri, live, n_live, pd, P, base, lz, best);
   }
 }
 
 // One CTA of 4 warps per tile, for both tests: PLK selects the table
-// (tri_cols and tri_rows, or tri_rows alone), the record and the slot loop.
-template <bool PLK, bool ANY_HIT>
+// (tri_cols and tri_rows, or tri_rows alone), the record and the slot loop;
+// PD the type of the pair rows (__nv_bfloat16: the loose MT test, lz).
+template <bool PLK, bool ANY_HIT, typename PD = float>
 __global__ void __launch_bounds__(PAIR_TILE)
 pair_kernel(const float* __restrict__ table, const float* __restrict__ tri_rows, int n_blocks,
-            const int* __restrict__ tile_block, const float* __restrict__ pd,
-            float* __restrict__ out, int64_t P) {
+            const int* __restrict__ tile_block, const PD* __restrict__ pd,
+            float* __restrict__ out, int64_t P, PgLoose lz) {
+  constexpr bool LOOSE = std::is_same<PD, __nv_bfloat16>::value;
+  static_assert(!LOOSE || (!PLK && !ANY_HIT), "bf16 pair data: MT closest hit only");
   constexpr int R = PLK ? 7 : 3;        // float4 words of a triangle's record
   __shared__ float4 rec[R * LEAF];      // MT: p0 e1 e2 id, 2 floats of padding; PLK: pg_plk_record
   __shared__ int live[PAIR_TILE];       // the tile's live pairs, in order
@@ -226,7 +274,12 @@ pair_kernel(const float* __restrict__ table, const float* __restrict__ tri_rows,
     return;
   }
   // thread i: pair i's liveness and triangle i's record
-  const bool is_live = pd[6 * P + base + i] > PG_EPS_T;
+  bool is_live;
+  if constexpr (LOOSE) {
+    is_live = pg_ld(pd + 6 * P + base + i) * lz.one > lz.eps_lo;
+  } else {
+    is_live = pd[6 * P + base + i] > PG_EPS_T;
+  }
   const unsigned m = __ballot_sync(FULL, is_live);
   const int64_t b = min(blk, n_blocks - 1);
   float r[4 * R];
@@ -263,10 +316,10 @@ pair_kernel(const float* __restrict__ table, const float* __restrict__ tri_rows,
   if (n_live == 0) return;  // uniform over the CTA
   __syncthreads();
   switch ((n_live + 31) / 32) {
-    case 1: run_slots<PLK, ANY_HIT, 1>(rec, n_tri, live, n_live, pd, P, base, best); break;
-    case 2: run_slots<PLK, ANY_HIT, 2>(rec, n_tri, live, n_live, pd, P, base, best); break;
-    case 3: run_slots<PLK, ANY_HIT, 3>(rec, n_tri, live, n_live, pd, P, base, best); break;
-    default: run_slots<PLK, ANY_HIT, 4>(rec, n_tri, live, n_live, pd, P, base, best); break;
+    case 1: run_slots<PLK, ANY_HIT, 1>(rec, n_tri, live, n_live, pd, P, base, lz, best); break;
+    case 2: run_slots<PLK, ANY_HIT, 2>(rec, n_tri, live, n_live, pd, P, base, lz, best); break;
+    case 3: run_slots<PLK, ANY_HIT, 3>(rec, n_tri, live, n_live, pd, P, base, lz, best); break;
+    default: run_slots<PLK, ANY_HIT, 4>(rec, n_tri, live, n_live, pd, P, base, lz, best); break;
   }
   __syncthreads();
   // thread i merges live pair i over the warps' shares (an order-free
@@ -285,16 +338,18 @@ pair_kernel(const float* __restrict__ table, const float* __restrict__ tri_rows,
 // C entry points: (table, tri_rows, n_blocks, tile_block, n_tiles, pdata
 // (7, n_tiles*128), out (2, n_tiles*128), stream) -> cudaError_t.  The MT
 // table is tri_rows (B, 10, 128); the Pluecker table is tri_cols
-// (B, 16, 640), with the ids read from tri_rows row 9.
-template <bool PLK, bool ANY_HIT>
+// (B, 16, 640), with the ids read from tri_rows row 9.  pair_mt_closest_bf16
+// takes bfloat16 pair data and the loose test's four float32 constants
+// (neg, one, eps_lo, u_hi) after the stream.
+template <bool PLK, bool ANY_HIT, typename PD = float>
 static int pair_launch(const void* table, const void* tri_rows, int n_blocks,
                        const void* tile_block, int n_tiles, const void* pdata, void* out,
-                       void* stream) {
+                       void* stream, PgLoose lz = PgLoose{}) {
   if (n_tiles > 0) {
     const int64_t P = (int64_t)n_tiles * PAIR_TILE;
-    pair_kernel<PLK, ANY_HIT><<<n_tiles, PAIR_TILE, 0, (cudaStream_t)stream>>>(
+    pair_kernel<PLK, ANY_HIT, PD><<<n_tiles, PAIR_TILE, 0, (cudaStream_t)stream>>>(
         (const float*)table, (const float*)tri_rows, n_blocks, (const int*)tile_block,
-        (const float*)pdata, (float*)out, P);
+        (const PD*)pdata, (float*)out, P, lz);
   }
   return (int)cudaGetLastError();
 }
@@ -308,3 +363,6 @@ extern "C" int pair_mt_closest(PAIR_ARGS) { return pair_launch<false, false>(PAI
 extern "C" int pair_mt_any(PAIR_ARGS) { return pair_launch<false, true>(PAIR_PASS); }
 extern "C" int pair_plk_closest(PAIR_ARGS) { return pair_launch<true, false>(PAIR_PASS); }
 extern "C" int pair_plk_any(PAIR_ARGS) { return pair_launch<true, true>(PAIR_PASS); }
+extern "C" int pair_mt_closest_bf16(PAIR_ARGS, float neg, float one, float eps_lo, float u_hi) {
+  return pair_launch<false, false, __nv_bfloat16>(PAIR_PASS, PgLoose{neg, one, eps_lo, u_hi});
+}

@@ -64,6 +64,21 @@ INFD = 3.0e37
 # (cap*N + dummies sorted pairs run) and the tile engine ("mt" or "plk").
 PAIR_CAP = 5
 PAIR_ENGINE = "mt"
+# The reference's pair-route configurations (its measurement knobs, read at
+# call time).  (ksb, l_blk) list widths of the camera wave, taken at depth 0
+# when PAIR_PEEL is on, and of every other query; the fallback shifts of
+# each: None re-traces every unproven ray, an int n the reference's cap of
+# max(4096, N >> n) rays.  The reference's shifts are 4, a cap that leaves
+# rays with a farther hit than the true one (door_room() got brighter);
+# the port departs from it by default (ROADMAP.md Queue 3).
+# SHADOW_BLOCKLIST sends the shadow rays of a scene with pair tables to the
+# Morton-sorted blocklist (``occluded_twolevel``) instead of the pairs.
+CAM_PAIR_CFG = (12, 12)
+SCAN_PAIR_CFG = (8, 8)
+PAIR_PEEL = False
+CAM_FB_SHIFT = None
+SCAN_FB_SHIFT = None
+SHADOW_BLOCKLIST = False
 # route_dense_or_bvh's "auto" takes the dense tiled intersector up to this
 # many triangles and the BVH above, as the reference routes its volumetric
 # and light-path integrators
@@ -164,19 +179,37 @@ def _surface_textures(scene, row, mrow, hit, prim, ns, ng, dist, prev_delta, tex
     return ns, tex, cloth_aux
 
 
+def _blocks_route(scene: SceneData, accel: str) -> bool:
+    return accel == "twolevel" or (accel == "auto" and scene.blocks is not None)
+
+
+def pair_route(scene: SceneData, accel: str) -> bool:
+    """Whether ``route_queries`` takes the pair route."""
+    return _blocks_route(scene, accel) and scene.pairs is not None
+
+
 def route_queries(scene: SceneData, accel: str, use_bvh: bool = False):
     """The (intersect, occluded) queries of one route, each taking
-    (o, d, tmax); ``trace``'s docstring gives the routing."""
+    (o, d, tmax); ``trace``'s docstring gives the routing.  On the pair
+    route ``intersect`` also takes ``pair_cfg`` = (ksb, l_blk, fb_shift),
+    by default SCAN_PAIR_CFG + (SCAN_FB_SHIFT,); shadows take that too, or
+    the sorted blocklist with SHADOW_BLOCKLIST."""
     geo = scene.geo
-    blocks_route = accel == "twolevel" or (accel == "auto" and scene.blocks is not None)
-    if blocks_route and scene.pairs is not None:
-        kw = dict(cap_factor=PAIR_CAP, engine=PAIR_ENGINE)
-
-        def intersect(o, d, tmax):
-            return intersect_pairs_full(scene.pairs, scene.blocks, o, d, tmax, **kw)
+    blocks_route = _blocks_route(scene, accel)
+    if pair_route(scene, accel):
+        def intersect(o, d, tmax, pair_cfg=None):
+            ksb, l_blk, fb = pair_cfg or SCAN_PAIR_CFG + (SCAN_FB_SHIFT,)
+            return intersect_pairs_full(scene.pairs, scene.blocks, o, d, tmax, ksb=ksb,
+                                        l_blk=l_blk, fb_shift=fb, cap_factor=PAIR_CAP,
+                                        engine=PAIR_ENGINE)
 
         def occluded(o, d, tmax):
-            return occluded_pairs_full(scene.pairs, scene.blocks, o, d, tmax, **kw)
+            if SHADOW_BLOCKLIST:
+                return occluded_twolevel(scene.blocks, o, d, tmax)
+            return occluded_pairs_full(scene.pairs, scene.blocks, o, d, tmax,
+                                       ksb=SCAN_PAIR_CFG[0], l_blk=SCAN_PAIR_CFG[1],
+                                       fb_shift=SCAN_FB_SHIFT, cap_factor=PAIR_CAP,
+                                       engine=PAIR_ENGINE)
     elif blocks_route:
         def intersect(o, d, tmax):
             return intersect_twolevel(scene.blocks, o, d, tmax)
@@ -256,7 +289,10 @@ def trace(
     on the CPU):
     - "auto" or "twolevel" on a scene with block tables (16384 triangles
       or more): the pair route if it has pair tables, else the blocklist
-      on Morton-sorted rays ("twolevel" raises without block tables);
+      on Morton-sorted rays ("twolevel" raises without block tables); on
+      the pair route depth 0 takes CAM_PAIR_CFG and CAM_FB_SHIFT when
+      PAIR_PEEL is on and ``max_depth`` > 1, every other closest hit
+      SCAN_PAIR_CFG and SCAN_FB_SHIFT (``route_queries``);
     - "bvh", or "auto" on a smaller scene with ``use_bvh``: the BVH, for
       shadows too;
     - "pallas", or "auto" otherwise: the tiled intersector;
@@ -274,6 +310,8 @@ def trace(
     dev = ray_o.device
     geo, mats, em = scene.geo, scene.mats, scene.emitters
     intersect, occluded = route_queries(scene, accel, use_bvh)
+    # the camera peel: depth 0, the one coherent wave, with its own widths
+    peel = PAIR_PEEL and pair_route(scene, accel) and max_depth > 1
 
     # null and mask surfaces transmit shadow rays; boolean occlusion where
     # the scene has no transparent material
@@ -309,7 +347,11 @@ def trace(
             u = bounce_uniform(rkeys, depth, 9)
         else:
             u = uniforms[depth * 9:(depth + 1) * 9].T
-        hit = intersect(o, d, torch.where(alive, INFD, -1.0))
+        tmax = torch.where(alive, INFD, -1.0)
+        if peel and depth == 0:
+            hit = intersect(o, d, tmax, pair_cfg=CAM_PAIR_CFG + (CAM_FB_SHIFT,))
+        else:
+            hit = intersect(o, d, tmax)
         escaped = alive & ~hit.valid
 
         env_L = em_mod.eval_env(em, d, kinds=em_kinds)

@@ -18,7 +18,9 @@ Every wrapper counts its launches in ``LAUNCHES`` (one per kernel launch,
 nowhere else), so a run can show that the main path went through the
 kernels.  ``gather_rows_t_large`` counts, among the ``gather_rows_t``
 launches, those on a table of more than 512 rows (a scene's shading
-table; the JAX package gives only smaller tables to its Pallas kernel).
+table; the JAX package gives only smaller tables to its Pallas kernel);
+``intersect_pairs_mt_bf16`` the MT pair tiles' launches on bfloat16 pair
+data (``PAIR_DATA_BF16``), apart from ``intersect_pairs_mt``.
 """
 from __future__ import annotations
 
@@ -40,8 +42,9 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"gather_rows_t": 0, "gather_rows_t_large": 0, "intersect_tiled": 0,
-            "trace_fused": 0, "intersect_pairs_mt": 0, "intersect_pairs_plk": 0,
-            "intersect_blocklist": 0, "intersect_twolevel": 0, "intersect_bvh": 0}
+            "trace_fused": 0, "intersect_pairs_mt": 0, "intersect_pairs_mt_bf16": 0,
+            "intersect_pairs_plk": 0, "intersect_blocklist": 0, "intersect_twolevel": 0,
+            "intersect_bvh": 0}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

@@ -6,18 +6,22 @@ around the tile kernels is torch ops, in the reference's order:
 
   1. superblock candidates: slab tests of every ray against all S
      superblock boxes, packed into monotonic (entry distance | id) int32
-     keys; the PAIR_KSB+1 nearest extracted by iterative min;
+     keys; the ksb+1 nearest extracted by iterative min;
   2. block lists: per candidate slot, the superblock's 32 block boxes
      (columns of the bf16-rounded ``tblT``, gathered: the reference's
      one-hot matrix select is exact, so the values are the same) slab-
-     tested per ray; the PAIR_L+1 nearest blocks kept, the (PAIR_L+1)-th key
-     is the dropped bound of the completeness proof;
-  3. the (PAIR_L, N) slots sorted by block id, with 128 dummy pairs per
+     tested per ray; the l_blk+1 nearest blocks kept, the (l_blk+1)-th key
+     is the dropped bound of the completeness proof (the widths ksb and
+     l_blk default to PAIR_KSB and PAIR_L; a call site may pass others);
+  3. the (l_blk, N) slots sorted by block id, with 128 dummy pairs per
      non-empty block so that every tile of 128 sorted pairs holds real
      pairs of one block only; with ``cap_factor`` only a prefix of the
      sorted pairs is run;
   4. the tile kernel (``mt_tiles`` or ``plk_tiles``): per pair its best
-     (t, prim) in its block;
+     (t, prim) in its block.  With ``PAIR_DATA_BF16`` the closest-hit MT
+     query gathers its pair rows as bfloat16 and the kernel widens its
+     inside tests by ``BF16_SLACK`` (the reference's measurement knob; its
+     TPU measurements call it a dead end);
   5. the un-sort (a scatter: the payloads are a permutation of the slots),
      the per-ray min over slots, the exact Moeller-Trumbore re-evaluation
      of the winner and the completeness proof.
@@ -34,7 +38,9 @@ a CPU tensor it runs the plain version beside it (``mt_tiles_plain``,
 from __future__ import annotations
 
 import ctypes
+import os
 
+import numpy as np
 import torch
 
 from mitsuba_path_guiding_torch.ops import build
@@ -50,6 +56,15 @@ TILE = 128     # pairs per tile
 LEAF = 128     # triangles per block
 PLK_EPS = 1e-6  # closest-hit Pluecker inside-test slack (relative)
 PLAIN_CHUNK = 256  # tiles per step of the plain versions (bounds memory)
+# bf16 pair data, the reference's environment switch: the closest-hit MT
+# query gathers its (7, P) pair rows as bfloat16 (half the bytes) and the
+# tile test admits u, v >= -BF16_SLACK, u + v <= 1 + BF16_SLACK and
+# t in (EPS_T (1 - BF16_SLACK), tmax (1 + BF16_SLACK)); the exact f32
+# re-evaluation of the winner keeps confirmed hits exact, and a
+# slack-admitted impostor becomes unproven and is re-traced.  Any-hit and
+# the Pluecker engine stay f32.  Both are read at call time.
+PAIR_DATA_BF16 = os.environ.get("PAIR_DATA_BF16", "0") == "1"
+BF16_SLACK = 0.02
 
 _FN: dict = {}
 
@@ -104,14 +119,14 @@ def _extract_min(keys, k):
     return torch.stack(outs)
 
 
-def build_pair_lists(pt: PairTable, o, d, tmax):
-    """Stages 1-2: per-ray nearest-PAIR_L block lists.  Returns (ids
-    (PAIR_L, N) int32, -1 for an empty slot; dropped (N,) int32, the packed
-    entry key of the first candidate not in the list, IMAX if none)."""
+def build_pair_lists(pt: PairTable, o, d, tmax, ksb: int = PAIR_KSB, l_blk: int = PAIR_L):
+    """Stages 1-2: per-ray nearest-l_blk block lists from the ksb nearest
+    superblocks.  Returns (ids (l_blk, N) int32, -1 for an empty slot;
+    dropped (N,) int32, the packed entry key of the first candidate not in
+    the list, IMAX if none)."""
     n = o.shape[0]
     s = pt.sb_lo.shape[0]
     dev = o.device
-    ksb, l_blk = PAIR_KSB, PAIR_L
     sb_keys = _slab_keys(pt.sb_lo, pt.sb_hi, o, d, tmax,
                          torch.arange(s, dtype=torch.int32, device=dev))
     sb_min = _extract_min(sb_keys, ksb + 1)
@@ -155,10 +170,30 @@ def _tile_chunks(n_tiles):
         yield a, min(a + PLAIN_CHUNK, n_tiles)
 
 
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def loose_bounds():
+    """The float32 constants of the loose inside test of bf16 pair data,
+    from BF16_SLACK s at call time, rounded as the reference's weak-typed
+    Python scalars round them: (neg, one, eps_lo, u_hi) = (-s, 1 + s,
+    EPS_T (1 - s), one - neg + 2^-7).  The kernel and the plain version
+    both take them from here; only the kernel's first stage reads u_hi
+    (device_math.cuh pg_mt_u_loose)."""
+    s = BF16_SLACK
+    neg, one = _f32(-s), _f32(1.0 + s)
+    return neg, one, _f32(EPS_T * (1.0 - s)), _f32(one - neg + 2.0 ** -7)
+
+
 def _mt_tile_chunk(tri, pd, any_hit):
     """Dense Moeller-Trumbore of one chunk: tri (T, 10, 128) blocks, pd
-    (7, T, 128) pair rows [o, d, tmax].  Returns (t_best, prim) (T, 128)
-    in the Pallas kernel's output convention."""
+    (7, T, 128) pair rows [o, d, tmax], float32 or bfloat16 (upcast once,
+    then the loose test of ``loose_bounds``).  Returns (t_best, prim)
+    (T, 128) in the Pallas kernel's output convention."""
+    loose = pd.dtype == torch.bfloat16
+    pd = pd.float()
+
     def tcol(c):
         return tri[:, c, :][:, :, None]   # (T, 128 tris, 1)
 
@@ -183,8 +218,13 @@ def _mt_tile_chunk(tri, pd, any_hit):
     qvz = tvx * e1y - tvy * e1x
     v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
     t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
-    hit = ((inv_det != 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > EPS_T)
-           & (t < rrow(6)) & (tid >= 0.0))
+    if loose:
+        neg, one, eps_lo, _ = loose_bounds()
+        hit = ((inv_det != 0.0) & (u >= neg) & (v >= neg) & (u + v <= one) & (t > eps_lo)
+               & (t < rrow(6) * one) & (tid >= 0.0))
+    else:
+        hit = ((inv_det != 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > EPS_T)
+               & (t < rrow(6)) & (tid >= 0.0))
     return _best(torch.where(hit, t, INF), tid, any_hit)
 
 
@@ -201,8 +241,13 @@ def _best(t, tid, any_hit):
 def mt_tiles_plain(tri_rows, tile_block, pdata, any_hit: bool):
     """Plain version of the MT tile kernel.  tri_rows (B, 10, 128);
     tile_block (T,) int32 (< 0: inert tile); pdata (7, T*128) rows o, d,
-    tmax (0 for dead pairs).  Returns (2, T*128): best t and the prim as
-    float (closest) or +-1 (any-hit); (INF, -1) for a miss or inert tile."""
+    tmax (0 for dead pairs), float32, or bfloat16 for a closest hit with
+    the loose test of ``loose_bounds``.  Returns (2, T*128): best t and the
+    prim as float (closest) or +-1 (any-hit); (INF, -1) for a miss or
+    inert tile."""
+    if any_hit and pdata.dtype == torch.bfloat16:
+        raise ValueError("mt_tiles: bf16 pair data is for closest hits only (any-hit stays "
+                         "float32, as in the reference)")
     n_tiles = tile_block.shape[0]
     out = torch.empty((2, n_tiles * TILE), dtype=torch.float32, device=pdata.device)
     for a, b in _tile_chunks(n_tiles):
@@ -273,14 +318,16 @@ def plk_tiles_plain(tri_cols, tri_rows, tile_block, pdata, any_hit: bool):
     return out
 
 
-def _kernel_fn(engine: str, any_hit: bool):
-    key = f"pair_{engine}_{'any' if any_hit else 'closest'}"
+def _kernel_fn(engine: str, any_hit: bool, bf16: bool = False):
+    key = f"pair_{engine}_{'any' if any_hit else 'closest'}{'_bf16' if bf16 else ''}"
     f = _FN.get(key)
     if f is None:
         f = getattr(build.load("intersect_pairs"), key)
-        # (table, tri_rows, n_blocks, tile_block, n_tiles, pdata, out, stream)
+        # (table, tri_rows, n_blocks, tile_block, n_tiles, pdata, out, stream
+        # [, the four floats of loose_bounds])
         f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p
+                      ] + [ctypes.c_float] * (4 if bf16 else 0)
         f.restype = ctypes.c_int
         _FN[key] = f
     return f
@@ -292,8 +339,12 @@ def _launch(engine, table, tri_rows, tile_block, pdata, any_hit):
     n_tiles = tile_block.shape[0]
     if not (table.is_cuda and tile_block.is_cuda and pdata.is_cuda):
         raise ValueError(f"{engine}_tiles: all tensors must be on the card")
-    if table.dtype != torch.float32 or pdata.dtype != torch.float32:
-        raise TypeError(f"{engine}_tiles: expected float32 tables and pair data")
+    bf16 = pdata.dtype == torch.bfloat16
+    if bf16 and (engine != "mt" or any_hit):
+        raise TypeError(f"{engine}_tiles: bf16 pair data is for the MT closest hit only")
+    if table.dtype != torch.float32 or pdata.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{engine}_tiles: expected float32 tables and float32 or bfloat16 "
+                        "pair data")
     if tile_block.dtype != torch.int32 or tile_block.dim() != 1:
         raise TypeError(f"{engine}_tiles: tile_block must be (T,) int32")
     if pdata.shape != (7, n_tiles * TILE):
@@ -310,17 +361,20 @@ def _launch(engine, table, tri_rows, tile_block, pdata, any_hit):
     pdata, tile_block = pdata.contiguous(), tile_block.contiguous()
     out = torch.empty((2, n_tiles * TILE), dtype=torch.float32, device=pdata.device)
     stream = build.stream_ptr(pdata.device)
-    build.check(_kernel_fn(engine, any_hit)(build.ptr(table), build.ptr(tri_rows),
-                                             table.shape[0], build.ptr(tile_block), n_tiles,
-                                             build.ptr(pdata), build.ptr(out), stream),
-                f"intersect_pairs {engine}")
-    build.LAUNCHES[f"intersect_pairs_{engine}"] += 1
+    build.check(_kernel_fn(engine, any_hit, bf16)(build.ptr(table), build.ptr(tri_rows),
+                                                   table.shape[0], build.ptr(tile_block),
+                                                   n_tiles, build.ptr(pdata), build.ptr(out),
+                                                   stream, *(loose_bounds() if bf16 else ())),
+                f"intersect_pairs {engine}{' bf16' if bf16 else ''}")
+    build.LAUNCHES[f"intersect_pairs_{engine}{'_bf16' if bf16 else ''}"] += 1
     return out
 
 
 def mt_tiles(tri_rows, tile_block, pdata, any_hit: bool):
     """Stage 4, Moeller-Trumbore tiles (contract of ``mt_tiles_plain``):
-    the CUDA kernel for a CUDA tensor, the plain version for a CPU one."""
+    the CUDA kernel for a CUDA tensor (bfloat16 pair data: the bf16 kernel,
+    counted as ``intersect_pairs_mt_bf16``), the plain version for a CPU
+    one."""
     if pdata.is_cuda:
         return _launch("mt", tri_rows, tri_rows, tile_block, pdata, any_hit)
     return mt_tiles_plain(tri_rows, tile_block, pdata, any_hit)
@@ -367,13 +421,18 @@ def sorted_pairs(pt: PairTable, ids, n: int, cap_factor=None):
     return skeys, pays[order], cut_rays
 
 
-def pair_tiles(skeys, spays, o, d, tmax):
+def pair_tiles(skeys, spays, o, d, tmax, bf16: bool = False):
     """Pair rows (7, P) [o, d, tmax; tmax 0 for all but real pairs] and
-    the block of each 128-pair tile (-1 for an inert tile)."""
+    the block of each 128-pair tile (-1 for an inert tile).  With ``bf16``
+    the (7, N) ray rows are rounded to bfloat16 before the gather, as the
+    reference's PAIR_DATA_BF16 path rounds them."""
     n = o.shape[0]
     is_real = (skeys != IMAX) & (skeys % 2 == 0)
     ray_idx = torch.where(spays != IMAX, spays % n, 0).long()
-    pdata = torch.cat([o.T, d.T, tmax[None, :]], dim=0)[:, ray_idx]
+    rows = torch.cat([o.T, d.T, tmax[None, :]], dim=0)
+    if bf16:
+        rows = rows.to(torch.bfloat16)
+    pdata = rows[:, ray_idx]
     pdata[6] = torch.where(is_real, pdata[6], 0.0)
     tk = skeys.reshape(-1, TILE)
     tile_block = torch.max(torch.where((tk != IMAX) & (tk % 2 == 0), tk // 2, -1), dim=1).values
@@ -404,37 +463,41 @@ def _hi16(x):
     return x.contiguous().view(torch.int32) & -65536
 
 
-def intersect_pairs_raw(pt: PairTable, o, d, tmax, any_hit: bool = False, cap_factor=None,
-                        engine: str = "mt"):
+def intersect_pairs_raw(pt: PairTable, o, d, tmax, ksb: int = PAIR_KSB, l_blk: int = PAIR_L,
+                        any_hit: bool = False, cap_factor=None, engine: str = "mt"):
     """Closest hit (or any-hit) through the pair pipeline.
 
     Returns (t, prim int32, u, v, valid, proven), or (occluded, proven)
     with ``any_hit``; ``proven`` False marks rays the caller must re-trace.
-    ``cap_factor``: run only the first cap_factor*N + dummies sorted pairs;
-    rays whose lists reach past the cut are unproven.  ``engine``: "mt"
-    (Moeller-Trumbore tiles) or "plk" (Pluecker tiles and the exact winner
-    re-evaluation)."""
+    ``ksb``, ``l_blk``: the candidate-list widths (superblocks, blocks a
+    ray).  ``cap_factor``: run only the first cap_factor*N + dummies sorted
+    pairs; rays whose lists reach past the cut are unproven.  ``engine``:
+    "mt" (Moeller-Trumbore tiles) or "plk" (Pluecker tiles and the exact
+    winner re-evaluation).  With ``PAIR_DATA_BF16`` the MT closest hit runs
+    on bf16 pair data (the reference applies it where its Pallas kernel
+    runs; the port wherever the tile kernel or its plain version runs)."""
     if engine not in ("mt", "plk"):
         raise ValueError(f"unknown pair engine '{engine}'")
     if pt.leaf != LEAF:
         raise ValueError(f"pair tiles expect blocks of {LEAF} triangles")
     n = o.shape[0]
-    ids, dropped = build_pair_lists(pt, o, d, tmax)
+    ids, dropped = build_pair_lists(pt, o, d, tmax, ksb, l_blk)
     skeys, spays, cut_rays = sorted_pairs(pt, ids, n, cap_factor)
-    pdata, tile_block = pair_tiles(skeys, spays, o, d, tmax)
+    bf16 = PAIR_DATA_BF16 and not any_hit and engine == "mt"
+    pdata, tile_block = pair_tiles(skeys, spays, o, d, tmax, bf16=bf16)
     if engine == "plk":
         res = plk_tiles(pt.tri_cols, pt.tri_rows, tile_block, pdata, any_hit)
     else:
         res = mt_tiles(pt.tri_rows, tile_block, pdata, any_hit)
 
-    # stage 5: un-sort the run prefix into the (PAIR_L, N) slots; cut and
+    # stage 5: un-sort the run prefix into the (l_blk, N) slots; cut and
     # empty slots read as misses
-    ln = PAIR_L * n
+    ln = l_blk * n
     slot = spays < ln
     dst = spays[slot].long()
     t_ray = torch.full((ln,), INF, dtype=torch.float32, device=o.device)
     t_ray[dst] = res[0][slot]
-    t_ray = t_ray.reshape(PAIR_L, n)
+    t_ray = t_ray.reshape(l_blk, n)
     if any_hit:
         occ = torch.any(t_ray < INF, dim=0)
         # a found occluder proves itself; a miss only when nothing closer
@@ -445,7 +508,7 @@ def intersect_pairs_raw(pt: PairTable, o, d, tmax, any_hit: bool = False, cap_fa
         return occ, proven
     prim_ray = torch.full((ln,), -1.0, dtype=torch.float32, device=o.device)
     prim_ray[dst] = res[1][slot]
-    prim_ray = prim_ray.reshape(PAIR_L, n)
+    prim_ray = prim_ray.reshape(l_blk, n)
     t_best = torch.min(t_ray, dim=0).values
     prim_best = torch.min(torch.where(t_ray == t_best[None, :], prim_ray, 2.0e9), dim=0).values
     hit_valid = t_best < INF

@@ -229,6 +229,42 @@ def test_mt_two_stages(lib, rays):
     assert valid.numpy().mean() > 0.5
 
 
+def test_mt_loose_two_stages(lib):
+    """The bf16 pair kernel's loose test in its two stages (pg_mt_u_loose,
+    then pg_mt_vt_loose) against the whole test on the same t, u, v: equal
+    on 2e5 (triangle, ray) pairs of bf16-rounded rays aimed at barycentrics
+    in [-0.06, 1.1] (half of them at the corner p0 + e1), so that hits
+    fill the slack beyond the triangle's edges, with u up to 1 + 2 s and
+    the first stage's u_hi above them."""
+    rs = np.random.default_rng(21)
+    n = 200_000
+    p0 = rs.uniform(-3, 3, (n, 3))
+    e1, e2 = rs.normal(0, 0.3, (n, 3)), rs.normal(0, 0.3, (n, 3))
+    b = rs.uniform(-0.06, 1.1, (n, 2))
+    # half at the corner p0 + e1, where the slack lets u reach 1 + 2 s
+    b[: n // 2] = rs.uniform((0.95, -0.04), (1.08, 0.04), (n // 2, 2))
+    target = p0 + b[:, :1] * e1 + b[:, 1:] * e2
+    o = target + rs.normal(0, 2.0, (n, 3))
+    d = target - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tri = np.concatenate([p0, e1, e2], axis=1).astype(np.float32)
+    o, d = (torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16).float().numpy()
+            for x in (o, d))
+    tmax = np.where(rs.random(n) < 0.8, 3.0e37, rs.uniform(0.0, 4.0, n)).astype(np.float32)
+    tmax = torch.from_numpy(tmax).to(torch.bfloat16).float().numpy()
+    neg, one, eps_lo, u_hi = tpairs.loose_bounds()
+    hit = np.zeros(n, np.int32)
+    t, u = np.zeros(n, np.float32), np.zeros(n, np.float32)
+    lib.host_mt_loose_pairs.restype = ctypes.c_int
+    wrong = lib.host_mt_loose_pairs(_p(tri), _p(o), _p(d), _p(tmax), ctypes.c_int(n),
+                                    *(ctypes.c_float(x) for x in (neg, one, eps_lo, u_hi)),
+                                    _p(hit), _p(t), _p(u))
+    assert wrong == 0
+    h = hit.astype(bool)
+    assert h.mean() > 0.2 and (h & (u > 1.0)).sum() > 1000 and (h & (u < 0.0)).sum() > 1000
+    assert u[h].max() > 1.0 + 1.5 * tpairs.BF16_SLACK and u[h].max() < u_hi
+
+
 @pytest.fixture(scope="module")
 def bvh_scenes():
     """door_room(20000) (17510 triangles) and the Cornell box, each with

@@ -91,8 +91,10 @@ def test_one_guided_progression_matches_the_reference(scenes):
 # Camera rays of the full door_room() at 512x512 (seed 0, sample 0) that the
 # pair route, proven complete, gives a farther triangle than the dense
 # oracle, as float32 bits: origin (2.4, 1.5, -3.4), then the direction and
-# the engines that miss.  Pixel 201098 grazes the base of the dividing wall
-# just outside an unpadded block box; at pixel 197718 the Pluecker test,
+# the engines that miss.  At pixel 201098 the block of the dividing wall's
+# base is a dropped candidate, and the proof, on keys cut to 16 bits, passes
+# the floor behind it (tests/test_torch_pair_configs.py::
+# test_width_misses_are_the_references); at pixel 197718 the Pluecker test,
 # which is not watertight, slips between two sphere triangles.
 MISS_ORIGIN = (1075419546, 1069547520, 3227097498)
 MISSES = {201098: ((3196194156, 3198133219, 1063936656), ("mt", "plk")),

@@ -309,6 +309,39 @@ def test_pair_tiles_match_plain(door, engine, any_hit, case):
         assert ((got[0] < ip.INF) & ~dead).sum() < (~dead).sum()   # live misses too
 
 
+@pytest.mark.parametrize("case", ["door", "edges"])
+def test_intersect_pairs_mt_bf16_bit_equal(door, case):
+    """The bf16 MT kernel (PAIR_DATA_BF16's loose test) against its plain
+    version: t and prim bits on every pair, one launch counted as
+    intersect_pairs_mt_bf16 and none as intersect_pairs_mt; on the edge
+    tiles a tmax of 1e-4 rounds to a live pair and 5e-5 to a dead one."""
+    from mitsuba_path_guiding_torch.ops import intersect_pairs as ip
+
+    if case == "door":
+        o, d, tmax, _ = _rays(door, 20_000, 3)
+        ids, _ = ip.build_pair_lists(door.pairs, o, d, tmax)
+        skeys, spays, _ = ip.sorted_pairs(door.pairs, ids, o.shape[0], 5)
+        pdata, tile_block = ip.pair_tiles(skeys, spays, o, d, tmax, bf16=True)
+        rows = door.pairs.tri_rows
+    else:
+        rows, _, tile_block, pdata = _edge_tiles(door, torch.Generator(device="cuda")
+                                                 .manual_seed(8))
+        pdata = pdata.to(torch.bfloat16)
+    before = dict(build.LAUNCHES)
+    got = ip.mt_tiles(rows, tile_block, pdata, False)
+    want = ip.mt_tiles_plain(rows, tile_block, pdata, False)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["intersect_pairs_mt_bf16"] == before["intersect_pairs_mt_bf16"] + 1
+    assert build.LAUNCHES["intersect_pairs_mt"] == before["intersect_pairs_mt"]
+    assert (got[0] < ip.INF).sum() > 100
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if case == "edges":
+        _, one, eps_lo, _ = ip.loose_bounds()
+        dead = ~(pdata[6].float() * one > eps_lo) | (tile_block.repeat_interleave(ip.TILE) < 0)
+        assert bool((got[0][dead] == ip.INF).all() and (got[1][dead] == -1.0).all())
+        assert bool((~dead & (pdata[6].float() < 2e-4)).any() and (dead & (pdata[6] > 0)).any())
+
+
 @pytest.mark.parametrize("any_hit", [False, True])
 @pytest.mark.parametrize("k", [128, 1])
 @pytest.mark.parametrize("n", [3000, 1500])   # 12 tiles, and 6: clusters of 16 CTAs
