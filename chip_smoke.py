@@ -316,6 +316,18 @@ Phases:
      blocklist shadows' means held to the reference as in phase 6, the
      bf16 and capped means printed (the reference documents that both
      lose light).
+  24. "api_surface" (slice 16): render_tiled with a render_band that calls
+     render_wave (Cornell 128x128, 4 spp, bands of 32 rows, trace_fused)
+     against render()'s image, bit-equal; reinhard_tonemap(burn=1) on the
+     card against the CPU's (rtol 1e-4); shadow_transmittance with
+     max_hits 1 and 2 through intersect_tiled on the masked Cornell box
+     against the same march on the CPU (the plain tiled version), equal on
+     >= 99.9% of 65536 rays, each march step one tiled launch and two
+     gathers; Cornell renders with RenderConfig(integrator="volpath")
+     (the tiled route), with use_bvh=True too (the BVH), and the guided
+     ProgressiveRenderer with use_bvh=True (the BVH), each mean held to
+     the JAX package's CPU mean in API_REFERENCE; the phase's launches
+     per kernel on a line of their own.
 
 Each main-path route runs with the launch counts set to 0 just before it
 and read just after it, and is held to the kernels it must launch: the
@@ -6875,6 +6887,194 @@ def run_pair_configs(door, door_rec, route, timed, retraces):
     return counts, entry
 
 
+# ---- phase 24, "api_surface" (slice 16)
+
+API_RES = 128
+API_SPP = 4
+API_BAND_ROWS = 32
+API_SHADOW_RAYS = 65536
+API_MAX_HITS = (1, 2)
+API_PROGRESSIONS = (2, 2)   # samples a progression, progressions: API_SPP waves
+API_TONEMAP_RTOL = 1e-4
+API_RUNS = {  # name: (RenderConfig fields beyond API_RES, API_SPP, DEPTH, seed 0; progressive)
+    "volpath": ({"integrator": "volpath"}, False),
+    "volpath_bvh": ({"integrator": "volpath", "use_bvh": True}, False),
+    "progressive_bvh": ({"use_bvh": True}, True),
+}
+# run: (the JAX CPU mean at seed 0, the SE of a render's mean over seeds
+# 0-3), from JAX_PLATFORMS=cpu python tools/api_surface_reference_means.py
+# (about 2 minutes); the volumetric tracer by the BVH gives the dense
+# route's images to the bit in the JAX package
+API_REFERENCE = {
+    "volpath": (0.11561346799135208, 0.0013160373849701267),
+    "volpath_bvh": (0.11561346799135208, 0.0013160373849701267),
+    "progressive_bvh": (0.115684874355793, 0.001158284074201482),
+}
+
+
+def api_descs(mod):
+    """The phase's scenes from a scenes module: the Cornell box, and the
+    Cornell box with a 0.4-opacity mask on the tall box and a null short
+    box (tests/test_torch_shading_path.py's transmittance scene)."""
+    masked = mod.cornell_box()
+    masked["shapes"][5]["bsdf"] = {"type": "mask", "opacity": 0.4, "bsdf": {"type": "diffuse"}}
+    masked["shapes"][4]["bsdf"] = {"type": "null"}
+    return {"cornell": mod.cornell_box(), "masked": masked}
+
+
+def api_config(run, config_cls, progressive_cls=None, seed=0):
+    """The RenderConfig (or, for a progressive run, the ProgressiveConfig)
+    of an API_RUNS run, from either package's classes."""
+    fields, progressive = API_RUNS[run]
+    spp = 0 if progressive else API_SPP
+    cfg = config_cls(width=API_RES, height=API_RES, spp=spp, max_depth=DEPTH, seed=seed,
+                     **fields)
+    if not progressive:
+        return cfg
+    per, n = API_PROGRESSIONS
+    return progressive_cls(render=cfg, samples_per_progression=per, n_progressions=n,
+                           guiding=True, grid_res=8, n_lobes=4)
+
+
+def api_run_launches(run):
+    """The launches of an API_RUNS run: API_SPP waves (2 x 2 progressions
+    of the guided renderer), each bounce a closest-hit and a shadow query
+    of the tiled kernel or, with use_bvh, of the BVH, and three gathers
+    (wave_launches); never trace_fused."""
+    fields, _ = API_RUNS[run]
+    want = wave_launches(DEPTH, API_SPP)
+    if fields.get("use_bvh"):
+        want["intersect_bvh"], want["intersect_tiled"] = want["intersect_tiled"], 0
+    return want
+
+
+def api_shadow_rays(scene, n, seed=4):
+    """n rays from points in the box toward random directions, a third
+    unbounded, a third short and a third dead, on the scene's device."""
+    import numpy as np
+    import torch
+
+    rs = np.random.default_rng(seed)
+    lo, hi = scene.aabb_min.cpu().numpy(), scene.aabb_max.cpu().numpy()
+    o = (lo + (hi - lo) * rs.random((n, 3))).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    sel = rs.integers(0, 3, n)
+    tmax = np.where(sel == 0, 3.0e37, np.where(sel == 1, 2.0 * rs.random(n), -1.0))
+    dev = scene.geo.p0.device
+    return tuple(torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev)
+                 for x in (o, d, tmax))
+
+
+def api_march(scene, rays, max_hits):
+    """shadow_transmittance of ``rays`` through the tiled route's query."""
+    from mitsuba_path_guiding_torch.accel.traverse import intersect_pallas, shadow_transmittance
+
+    geo = scene.geo
+    return shadow_transmittance(geo, scene.mats.packed, *rays,
+                                lambda o_, d_, t_: intersect_pallas(geo, o_, d_, t_),
+                                max_hits=max_hits)
+
+
+def api_dir():
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                        "api_surface")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def run_api_surface(card):
+    """Phase 24: the parameters and fields ported last, on the card
+    (the docstring's phase list).  Returns the launch counts by route."""
+    import numpy as np
+    import torch
+
+    from mitsuba_path_guiding_torch.core.spectrum import reinhard_tonemap
+    from mitsuba_path_guiding_torch.film.exr import read_exr_rgb
+    from mitsuba_path_guiding_torch.film.tiled import render_tiled
+    from mitsuba_path_guiding_torch.integrators.progressive import (
+        ProgressiveConfig,
+        ProgressiveRenderer,
+    )
+    from mitsuba_path_guiding_torch.integrators.render import RenderConfig, render, render_wave
+    from mitsuba_path_guiding_torch.scene import scenes as port_scenes
+    from mitsuba_path_guiding_torch.scene.builder import build_scene
+
+    t0 = time.time()
+    descs = api_descs(port_scenes)
+    cornell = build_scene(descs["cornell"], device=DEVICE)
+    counts, rec = {}, {}
+
+    # render_tiled's band renderer against render()
+    cfg = RenderConfig(width=API_RES, height=API_RES, spp=API_SPP, max_depth=DEPTH)
+    bands = -(-API_RES // API_BAND_ROWS)
+    fused = {**NONE_LAUNCHED, "trace_fused": API_SPP}
+    img, counts["api_render"] = drive("api_render", lambda: render(cornell, cfg), fused)
+    path = os.path.join(api_dir(), "tiled.exr")
+    _, counts["api_render_tiled_band"] = drive(
+        "api_render_tiled_band",
+        lambda: render_tiled(cornell, cfg, path, band_rows=API_BAND_ROWS,
+                             render_band=lambda s, c, p, i: render_wave(s, c, p, i)[:2]),
+        {**fused, "trace_fused": bands * API_SPP})
+    img = img.cpu().numpy()
+    tiled = read_exr_rgb(path)
+    check(bool(np.isfinite(img).all()) and img.mean() > 0.0, "render(): not finite or black")
+    check(np.array_equal(tiled, img), "render_tiled's bands differ from render()'s image: max "
+                                      f"{float(np.abs(tiled - img).max())}")
+    rec["render_tiled"] = {"bands": bands, "mean": float(img.mean())}
+
+    # the tonemap's white point on the card against the CPU
+    hdr = torch.from_numpy(img * 4.0)
+    tm_cpu = reinhard_tonemap(hdr, burn=1.0)
+    tm_card = reinhard_tonemap(hdr.to(DEVICE), burn=1.0).cpu()
+    err = float(torch.max(torch.abs(tm_card - tm_cpu) / torch.clamp_min(tm_cpu.abs(), 1e-6)))
+    check(err <= API_TONEMAP_RTOL, f"tonemap burn=1: card against CPU, rel {err}")
+    check(not torch.equal(tm_cpu, reinhard_tonemap(hdr)), "burn=1 changed nothing")
+    rec["tonemap_burn"] = {"max_rel_err": err, "rtol": API_TONEMAP_RTOL}
+
+    # shadow_transmittance's march length through the tiled kernel
+    masked = build_scene(descs["masked"], device=DEVICE)
+    masked_cpu = build_scene(descs["masked"], device="cpu")
+    rays = api_shadow_rays(masked, API_SHADOW_RAYS)
+    rays_cpu = tuple(x.cpu() for x in rays)
+    rec["max_hits"] = {}
+    for k in API_MAX_HITS:
+        got, counts[f"api_max_hits_{k}"] = drive(
+            f"api_max_hits_{k}", lambda: api_march(masked, rays, k),
+            {**NONE_LAUNCHED, "intersect_tiled": k, "gather_rows_t": 2 * k})
+        got = got.cpu()
+        want = api_march(masked_cpu, rays_cpu, k)
+        same = float((got == want).float().mean())
+        worst = float(torch.max(torch.abs(got - want)))
+        check(same >= 0.999, f"max_hits {k}: {same} of the rays equal the plain march")
+        rec["max_hits"][k] = {"equal_frac": same, "max_abs_err": worst,
+                              "mean": float(want.mean())}
+
+    # RenderConfig.integrator and use_bvh, each mean against the JAX CPU mean
+    rec["renders"] = {}
+    for run, (fields, progressive) in API_RUNS.items():
+        if progressive:
+            pcfg = api_config(run, RenderConfig, ProgressiveConfig)
+            fn = lambda: ProgressiveRenderer(cornell, pcfg).render()  # noqa: E731
+        else:
+            rcfg = api_config(run, RenderConfig)
+            fn = lambda: render(cornell, rcfg)  # noqa: E731
+        (out, secs, _, _), counts[f"api_{run}"] = drive(
+            f"api_{run}", lambda: timed_render(fn), api_run_launches(run))
+        mean = float(out.mean())
+        check(bool(torch.isfinite(out).all()) and mean > 0.0, f"{run}: not finite or black")
+        ref, se = API_REFERENCE[run]
+        tol = max(MEAN_TOL, 4.0 * se / ref)
+        rel = abs(mean - ref) / ref
+        check(rel < tol, f"{run}: mean {mean} vs the JAX CPU mean {ref} (tol {tol})")
+        rec["renders"][run] = {"seconds": round(secs, 3), "mean": mean, "reference_mean": ref,
+                               "rel_err": rel, "rel_tol": tol}
+    totals = {k: sum(c[k] for c in counts.values()) for k in NONE_LAUNCHED}
+    emit({"phase": "api_surface_launches", **totals})
+    emit({"phase": "api_surface", "card": card, "seconds": round(time.time() - t0, 3), **rec})
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -7030,13 +7230,17 @@ def main(argv=None):
     # at other widths, blocklist shadows and the reference's cap, then phase
     # 6's render once per configuration
     c_pc, bf16_entry = run_pair_configs(door, door_rec, route, timed, retraces)
+    # the JAX package's last public parameters: render_tiled's band
+    # renderer, the tonemap's burn, the march length of transparent
+    # shadows, RenderConfig.integrator and use_bvh
+    c_api = run_api_surface(card)
     routes = {"progressive": c_prog, "frozen_render": c_frozen, "unguided_render": c_render,
               "progressive_adaptive": c_adaptive, "guiding_gain_bounce_lamp": c_bounce,
               "guiding_gain_door_room": c_door_gain,
               "door_room_progressive": c_door, "door_room_plk": c_plk, **interior["launches"],
               "door_room_twolevel": door_tl["launches"], "door_room_sorted_blocklist": c_sorted,
               "door_room_bvh": c_bvh, **c_shading, **c_vocab, **c_vol, **c_tex, **c_int,
-              **c_chain, **c_files, **c_sharded, **c_irr, **c_s13, **c_dn, **c_pc}
+              **c_chain, **c_files, **c_sharded, **c_irr, **c_s13, **c_dn, **c_pc, **c_api}
     launches = {k: {r: c[k] for r, c in routes.items()} for k in c_prog}
 
     entries = phase_timings(scene, veach, tables, grid, checks, launches, card)

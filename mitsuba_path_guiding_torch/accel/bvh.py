@@ -140,6 +140,12 @@ def _build_bvh_numpy(p0, e1, e2) -> BVH:
                prim_idx=np.asarray(prim_order, dtype=np.int32), max_depth=max_depth_seen[0] + 2)
 
 
+def bvh_host_arrays(bvh):
+    """(child0, child1, prim_idx) as host numpy arrays."""
+    return tuple(np.asarray(x.cpu()) if torch.is_tensor(x) else np.asarray(x)
+                 for x in (bvh.child0, bvh.child1, bvh.prim_idx))
+
+
 def to_device(tables, dev):
     """A NamedTuple of numpy arrays (and host ints) on ``dev``."""
     return type(tables)(*(torch.as_tensor(np.ascontiguousarray(x), device=dev)

@@ -29,7 +29,11 @@ from mitsuba_path_guiding_torch.ops.intersect_blocklist import (
     occluded_blocklist_sorted,
 )
 from mitsuba_path_guiding_torch.ops.gather import gather_rows_t
-from mitsuba_path_guiding_torch.ops.intersect_bvh import bvh_query
+from mitsuba_path_guiding_torch.ops.intersect_bvh import (  # noqa: F401
+    STACK_SIZE,
+    bvh_query,
+    moeller_trumbore,
+)
 from mitsuba_path_guiding_torch.ops.intersect_pairs import (
     IMAX,
     PAIR_KSB,
@@ -191,13 +195,11 @@ def occluded_twolevel(blocks: BlockList, o, d, tmax) -> torch.Tensor:
     return occluded_blocklist_sorted(blocks, o, d, tmax)
 
 
-MAX_HITS = 4  # closest hits a shadow ray marches through, as in the reference
-
-
-def shadow_transmittance(geo: Geometry, mats_packed, o, d, tmax, intersect) -> torch.Tensor:
+def shadow_transmittance(geo: Geometry, mats_packed, o, d, tmax, intersect,
+                         max_hits: int = 4) -> torch.Tensor:
     """Transmittance of shadow rays through transparent surfaces (the
     surface part of the reference's Scene::evalTransmittance): up to
-    ``MAX_HITS`` closest hits, each multiplying the (N,) transmittance by
+    ``max_hits`` closest hits, each multiplying the (N,) transmittance by
     its material's straight-through fraction, NULL 1, MASK 1 - opacity,
     any other material 0.  ``intersect(o, d, tmax)`` is the closest-hit
     query of the caller's route (the path tracer passes its wave's own,
@@ -207,7 +209,7 @@ def shadow_transmittance(geo: Geometry, mats_packed, o, d, tmax, intersect) -> t
     ``gather_rows_t``."""
     tr = torch.ones((o.shape[0],), dtype=torch.float32, device=o.device)
     o_cur, t_rem = o, tmax
-    for _ in range(MAX_HITS):
+    for _ in range(max_hits):
         h = intersect(o_cur, d, t_rem)
         mid = gather_rows_t(geo.shade_packed, torch.clamp_min(h.prim, 0))[18].to(torch.int32)
         mrow = gather_rows_t(mats_packed, mid)

@@ -6,9 +6,14 @@ card sum in the same order as the CUDA kernels do.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
+
+EPS = 1e-6
+INF = math.inf
+
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
@@ -36,6 +41,10 @@ def normalize(v: torch.Tensor) -> torch.Tensor:
 
 def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.clamp_min(x, 0.0))
+
+
+def lerp(a, b, t):
+    return a + (b - a) * t
 
 
 def safe_rcp(x: torch.Tensor) -> torch.Tensor:
@@ -83,14 +92,34 @@ def sin_theta2(v):
     return torch.clamp_min(1.0 - v[..., 2] * v[..., 2], 0.0)
 
 
+def sin_theta(v):
+    return safe_sqrt(sin_theta2(v))
+
+
+def tan_theta(v):
+    return sin_theta(v) / torch.where(torch.abs(v[..., 2]) < 1e-12, 1e-12, v[..., 2])
+
+
 def tan_theta2(v):
     c2 = v[..., 2] * v[..., 2]
     return sin_theta2(v) / torch.clamp_min(c2, 1e-20)
 
 
+def sphdir(theta: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
+    """Spherical (theta from +z, phi about z) to cartesian."""
+    st, ct = torch.sin(theta), torch.cos(theta)
+    return torch.stack([st * torch.cos(phi), st * torch.sin(phi), ct], dim=-1)
+
+
 def reflect_local(wi: torch.Tensor) -> torch.Tensor:
     """Specular reflection in the local frame (negate x, y)."""
     return torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], dim=-1)
+
+
+def reflect(w: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Reflect the direction ``w`` (pointing away from the surface) about
+    the normal ``n``."""
+    return 2.0 * dot(w, n)[..., None] * n - w
 
 
 def refract_local(wi: torch.Tensor, eta: torch.Tensor):
@@ -136,6 +165,19 @@ def fresnel_conductor(cos_i: torch.Tensor, eta: torch.Tensor, k: torch.Tensor) -
     t4 = t2 * si2
     rp = rs * (t3 - t4) / torch.clamp_min(t3 + t4, 1e-12)
     return 0.5 * (rp + rs)
+
+
+def face_forward(n: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Flip n so that it lies in the hemisphere of d."""
+    return torch.where(dot(n, d)[..., None] < 0.0, -n, n)
+
+
+def spherical_phi_theta(d: torch.Tensor):
+    """Cartesian -> (phi in [0, 2 pi), theta in [0, pi])."""
+    theta = torch.arccos(torch.clamp(d[..., 2], -1.0, 1.0))
+    phi = torch.atan2(d[..., 1], d[..., 0])
+    phi = torch.where(phi < 0.0, phi + 2.0 * math.pi, phi)
+    return phi, theta
 
 
 def power_heuristic(pdf_a: torch.Tensor, pdf_b: torch.Tensor) -> torch.Tensor:

@@ -43,6 +43,13 @@ def mean_cosine_to_kappa(r: torch.Tensor) -> torch.Tensor:
     return torch.clamp(kappa, 0.0, KAPPA_MAX)
 
 
+def kappa_to_mean_cosine(kappa: torch.Tensor) -> torch.Tensor:
+    """coth(kappa) - 1/kappa, the vMF mean resultant length (kappa / 3 for
+    small kappa)."""
+    k = torch.clamp_min(kappa, 1e-4)
+    return torch.where(kappa > 1e-3, 1.0 / torch.tanh(k) - 1.0 / k, kappa / 3.0)
+
+
 def vmf_fit_from_moments(weighted_dir_sum: torch.Tensor, weight_sum: torch.Tensor):
     """(mu, kappa) from the sufficient statistics sum(w d), sum(w)."""
     norm = torch.linalg.norm(weighted_dir_sum, dim=-1)
@@ -53,3 +60,12 @@ def vmf_fit_from_moments(weighted_dir_sum: torch.Tensor, weight_sum: torch.Tenso
     mu = torch.where(bad[..., None], up, mu)
     kappa = torch.where(bad, 0.0, mean_cosine_to_kappa(r))
     return normalize(mu), kappa
+
+
+def vmf_product_kappa_mu(mu_a, kappa_a, mu_b, kappa_b):
+    """The unnormalised product of two vMFs is a vMF: kappa* mu* = ka mu_a
+    + kb mu_b.  Returns (mu*, kappa*)."""
+    v = kappa_a[..., None] * mu_a + kappa_b[..., None] * mu_b
+    kappa = torch.linalg.norm(v, dim=-1)
+    mu = v / torch.clamp_min(kappa, 1e-12)[..., None]
+    return mu, kappa

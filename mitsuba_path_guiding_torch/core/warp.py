@@ -1,5 +1,5 @@
 """Sample warping, unit square -> disks/spheres/triangles (port of the
-reference's core/warp.py; the warps the port's paths and tests call)."""
+reference's core/warp.py)."""
 from __future__ import annotations
 
 import math
@@ -89,3 +89,16 @@ def square_to_uniform_triangle(u):
     """Barycentric coords uniform on the unit triangle."""
     su = safe_sqrt(u[..., 0])
     return torch.stack([1.0 - su, u[..., 1] * su], dim=-1)
+
+
+def square_to_std_normal(u):
+    """Box-Muller transform to a 2D standard normal."""
+    r = safe_sqrt(-2.0 * torch.log(torch.clamp_min(1.0 - u[..., 0], 1e-20)))
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
+
+
+def interval_to_tent(u):
+    """[0, 1) -> [-1, 1], tent-distributed (the monotone inverse CDF)."""
+    return torch.where(u < 0.5, safe_sqrt(2.0 * u) - 1.0,
+                       1.0 - safe_sqrt(torch.clamp_min(2.0 - 2.0 * u, 0.0)))

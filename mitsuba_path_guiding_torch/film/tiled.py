@@ -74,9 +74,10 @@ class TiledEXRWriter:
         self.f.close()
 
 
-def render_tiled(scene, cfg, path: str, band_rows: int = 64) -> None:
+def render_tiled(scene, cfg, path: str, band_rows: int = 64, render_band=None) -> None:
     """Render to ``path`` one row band at a time (tiledhdrfilm's streaming
-    develop), each band by ``render_wave``, the wavefront path tracer."""
+    develop), each band's waves by ``render_wave``, or by the caller's
+    ``render_band(scene, cfg, pix, sidx) -> (film_xy (n, 2), L (n, 3))``."""
     from mitsuba_path_guiding_torch.film.film import splat
     from mitsuba_path_guiding_torch.integrators.render import render_wave
 
@@ -89,7 +90,10 @@ def render_tiled(scene, cfg, path: str, band_rows: int = 64) -> None:
         rgbw = torch.zeros((rows * w, 4), dtype=torch.float32, device=dev)
         for s in range(max(cfg.spp, 1)):
             sidx = torch.full_like(pix, s)
-            film_xy, L, _ = render_wave(scene, cfg, pix, sidx)
+            if render_band is None:
+                film_xy, L, _ = render_wave(scene, cfg, pix, sidx)
+            else:
+                film_xy, L = render_band(scene, cfg, pix, sidx)
             # band-local splat (box): film_xy rows shift by y0
             xy = film_xy - torch.tensor([0.0, float(y0)], device=dev)
             rgbw = splat(rgbw, xy, L, w, rows, "box")

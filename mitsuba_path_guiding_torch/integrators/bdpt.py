@@ -86,6 +86,7 @@ def trace_bdpt(
     width: int,
     height: int,
     max_depth: int = 5,
+    use_bvh: bool = False,
     accel: str = "auto",
     em_kinds=FINITE_KINDS,
     mat_types=bsdf_mod.PORTED_TYPES,
@@ -96,7 +97,7 @@ def trace_bdpt(
     of camera segments, a 0-d tensor)."""
     bsdf_mod.check_types(mat_types)
     geo, mats, em = scene.geo, scene.mats, scene.emitters
-    intersect, occluded = route_dense_or_bvh(scene, accel)
+    intersect, occluded = route_dense_or_bvh(scene, accel, use_bvh)
     has_env = EmitterKind.CONSTANT in em_kinds or EmitterKind.ENVMAP in em_kinds
     # the infinite emitters' disk, as sample_ray draws it
     radius = em_mod.scene_radius(scene.aabb_min, scene.aabb_max)

@@ -17,8 +17,8 @@ pixel with no usable record takes the nearest valid one.  Direct light
 stays exact per pixel.
 
 Queries route as ``integrators.path.route_dense_or_bvh`` (the tiled
-kernel up to BRUTE_FORCE_MAX_TRIS triangles, else the BVH; the reference's
-``use_bvh`` is ``RenderConfig.accel`` here), the gather rays' paths
+kernel up to BRUTE_FORCE_MAX_TRIS triangles, else the BVH, or as
+``RenderConfig.accel`` and ``use_bvh`` say), the gather rays' paths
 through ``trace`` on the same route.
 """
 from __future__ import annotations
@@ -36,6 +36,7 @@ from mitsuba_path_guiding_torch.integrators.path import (
     INFD,
     _offset_ray,
     dense_or_bvh_accel,
+    resolve_use_bvh,
     route_dense_or_bvh,
     trace,
 )
@@ -125,8 +126,9 @@ def build_irradiance_cache(scene: SceneData, cfg, n_records: int = 1024,
                            rays_per_record: int = 64) -> IrradianceCache:
     """Overture pass: records at a sqrt(n) x sqrt(n) camera grid."""
     dev = scene.geo.p0.device
-    accel = dense_or_bvh_accel(scene, cfg.accel)
-    _, occluded = route_dense_or_bvh(scene, cfg.accel)
+    use_bvh = resolve_use_bvh(scene, cfg)
+    accel = dense_or_bvh_accel(scene, cfg.accel, use_bvh)
+    _, occluded = route_dense_or_bvh(scene, cfg.accel, use_bvh)
     em_kinds = em_mod.kinds_present(scene.emitters)
     mat_types = bsdf_mod.types_present(scene.mats)
 
@@ -263,8 +265,9 @@ def render_irrcache(scene: SceneData, cfg, n_records: int = 1024, rays_per_recor
     dev = scene.geo.p0.device
     w, h = cfg.width, cfg.height
     n_pix = w * h
-    accel = dense_or_bvh_accel(scene, cfg.accel)
-    _, occluded = route_dense_or_bvh(scene, cfg.accel)
+    use_bvh = resolve_use_bvh(scene, cfg)
+    accel = dense_or_bvh_accel(scene, cfg.accel, use_bvh)
+    _, occluded = route_dense_or_bvh(scene, cfg.accel, use_bvh)
     em_kinds = em_mod.kinds_present(scene.emitters)
     mat_types = bsdf_mod.types_present(scene.mats)
     if cache is None:

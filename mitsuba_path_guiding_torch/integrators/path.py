@@ -239,6 +239,16 @@ def route_queries(scene: SceneData, accel: str, use_bvh: bool = False):
     return intersect, occluded
 
 
+def resolve_use_bvh(scene: SceneData, cfg) -> bool:
+    """A RenderConfig's ``use_bvh``, or when None whether the scene has
+    more than BRUTE_FORCE_MAX_TRIS triangles (the reference's rule).  The
+    routes take it as ``trace``'s ``use_bvh``: a scene with block tables
+    keeps its block route, and a non-"auto" ``accel`` wins."""
+    if cfg.use_bvh is not None:
+        return bool(cfg.use_bvh)
+    return int(scene.geo.p0.shape[0]) > BRUTE_FORCE_MAX_TRIS
+
+
 def dense_or_bvh_accel(scene: SceneData, accel: str = "auto", use_bvh: bool = False) -> str:
     """The route named for ``route_queries`` by ``route_dense_or_bvh``:
     "auto" becomes "pallas" at BRUTE_FORCE_MAX_TRIS triangles or fewer and

@@ -10,9 +10,11 @@ waves and makes one EM update of the vMF grid, then, with
 ``refine_threshold`` samples.  Per-pixel sample counters persist across
 progressions, so the random sequences continue, with every sampler of
 ``RenderConfig.sampler``; the film takes ``RenderConfig.filter_name``.
-A scene with a medium runs the volumetric tracer (with guided distance
-sampling when ``guide_distance``), and ``RenderConfig.max_component_value``
-clamps each sample's radiance.  ``train_progressions`` > 0 stops the fit
+A scene with a medium, or any scene with ``RenderConfig.integrator`` =
+"volpath", runs the volumetric tracer (with guided distance sampling when
+``guide_distance``); ``RenderConfig.use_bvh`` reaches the tracers'
+routes, and ``RenderConfig.max_component_value`` clamps each sample's
+radiance.  ``train_progressions`` > 0 stops the fit
 after that many progressions; ``on_preprogression`` and
 ``on_postprogression`` are called with the renderer around each
 progression; ``queue`` (a ``utils.logger.RenderQueue``) receives the
@@ -38,7 +40,7 @@ from mitsuba_path_guiding_torch.guiding.fit import (
 )
 from mitsuba_path_guiding_torch.guiding.grid import GuidingGrid, make_grid
 from mitsuba_path_guiding_torch.guiding.sampler import make_guide_fn
-from mitsuba_path_guiding_torch.integrators.path import trace
+from mitsuba_path_guiding_torch.integrators.path import resolve_use_bvh, trace
 from mitsuba_path_guiding_torch.integrators.render import (
     RenderConfig,
     texture_flags,
@@ -96,6 +98,7 @@ class ProgressiveRenderer:
             self.grid = make_grid(
                 scene.aabb_min, scene.aabb_max, res=cfg.grid_res, n_lobes=cfg.n_lobes,
                 capacity=(cfg.capacity_factor if cfg.adaptive_refine else 1) * cfg.grid_res**3)
+        self.use_bvh = resolve_use_bvh(scene, r)
         self.em_kinds = kinds_present(scene.emitters)
         self.mat_types = types_present(scene.mats)
         self.tex_flags = texture_flags(scene)
@@ -113,11 +116,11 @@ class ProgressiveRenderer:
         _, rkeys, u_cam, u_pos = wave_keys_and_jitter(r, pixel_id, sample_idx)
         o, d, film_xy = generate_rays(self.scene.sensor, r.width, r.height, pixel_id, u_pos,
                                       u_cam[..., 2:4], kind=self.scene.sensor.kind)
-        kw = dict(max_depth=r.max_depth, rr_depth=r.rr_depth, use_nee=r.use_nee, accel=r.accel,
-                  guide=self.guide_fn, guide_state=self.grid,
+        kw = dict(max_depth=r.max_depth, rr_depth=r.rr_depth, use_nee=r.use_nee,
+                  use_bvh=self.use_bvh, accel=r.accel, guide=self.guide_fn, guide_state=self.grid,
                   record_paths=train and self.grid is not None, em_kinds=self.em_kinds,
                   mat_types=self.mat_types)
-        if self.scene.medium.enabled:
+        if self.scene.medium.enabled or r.integrator == "volpath":
             med = self.scene.medium
             L, aux, rec = trace_vol(
                 self.scene, o, d, rkeys, hetero=med.heterogeneous, phase_kind=med.phase_kind,

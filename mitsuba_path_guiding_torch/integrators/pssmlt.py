@@ -30,7 +30,7 @@ from mitsuba_path_guiding_torch.core import rng
 from mitsuba_path_guiding_torch.core.device import resolve_device
 from mitsuba_path_guiding_torch.core.spectrum import luminance
 from mitsuba_path_guiding_torch.film.film import splat_raw
-from mitsuba_path_guiding_torch.integrators.path import dense_or_bvh_accel, trace
+from mitsuba_path_guiding_torch.integrators.path import dense_or_bvh_accel, resolve_use_bvh, trace
 from mitsuba_path_guiding_torch.models.sensor import generate_rays
 from mitsuba_path_guiding_torch.scene.types import SceneData
 
@@ -55,7 +55,8 @@ def scene_statics(scene: SceneData, cfg) -> Statics:
     from mitsuba_path_guiding_torch.models.emitter import kinds_present
 
     return Statics(kinds_present(scene.emitters), types_present(scene.mats),
-                   dense_or_bvh_accel(scene, cfg.accel), texture_flags(scene),
+                   dense_or_bvh_accel(scene, cfg.accel, resolve_use_bvh(scene, cfg)),
+                   texture_flags(scene),
                    int(scene.sensor.kind), rng.base_key(0, device=scene.geo.p0.device))
 
 

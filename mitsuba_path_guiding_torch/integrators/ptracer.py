@@ -20,7 +20,12 @@ import torch
 
 from mitsuba_path_guiding_torch.core.math import Frame, dot, normalize
 from mitsuba_path_guiding_torch.core.rng import bounce_uniform, event_uniform
-from mitsuba_path_guiding_torch.integrators.path import INFD, _offset_ray, route_dense_or_bvh
+from mitsuba_path_guiding_torch.integrators.path import (
+    INFD,
+    _offset_ray,
+    resolve_use_bvh,
+    route_dense_or_bvh,
+)
 from mitsuba_path_guiding_torch.models import bsdf as bsdf_mod
 from mitsuba_path_guiding_torch.models import emitter as em_mod
 from mitsuba_path_guiding_torch.models.sensor import connect_to_sensor
@@ -65,6 +70,7 @@ def trace_light(
     height: int,
     max_depth: int = 5,
     rr_depth: int = 5,
+    use_bvh: bool = False,
     accel: str = "auto",
     em_kinds=em_mod.PORTED_KINDS,
     mat_types=bsdf_mod.PORTED_TYPES,
@@ -74,7 +80,7 @@ def trace_light(
     (D + 1, 3, N), ok (D + 1, N))."""
     bsdf_mod.check_types(mat_types)
     geo, mats, em = scene.geo, scene.mats, scene.emitters
-    intersect, occluded = route_dense_or_bvh(scene, accel)
+    intersect, occluded = route_dense_or_bvh(scene, accel, use_bvh)
 
     u0 = event_uniform(rkeys, TAG_EMITTER_RAY, 5)
     rs = em_mod.sample_ray(em, scene.aabb_min, scene.aabb_max, u0, kinds=em_kinds)
@@ -155,6 +161,7 @@ def render_ptracer(scene: SceneData, cfg, n_particles: int | None = None):
     n_total = n_particles or (w * h * cfg.spp)
     em_kinds = kinds_present(scene.emitters)
     mat_types = types_present(scene.mats)
+    use_bvh = resolve_use_bvh(scene, cfg)
     key = rng.base_key(cfg.seed, device=dev)
     batch = min(n_total, cfg.pixel_batch)
     acc = torch.zeros((h * w, 3), dtype=torch.float32, device=dev)
@@ -164,7 +171,8 @@ def render_ptracer(scene: SceneData, cfg, n_particles: int | None = None):
         pid = torch.arange(m, dtype=torch.int64, device=dev)
         rkeys = rng.ray_keys(key, pid, torch.full_like(pid, wave))
         splats = trace_light(scene, rkeys, w, h, max_depth=cfg.max_depth, rr_depth=cfg.rr_depth,
-                             accel=cfg.accel, em_kinds=em_kinds, mat_types=mat_types)
+                             use_bvh=use_bvh, accel=cfg.accel, em_kinds=em_kinds,
+                             mat_types=mat_types)
         acc = splat_light(acc, splats, w, h)
         done += m
         wave += 1

@@ -2,13 +2,16 @@
 reference's integrators/render.py ``RenderConfig``, ``wave_keys_and_jitter``,
 ``camera_jitter``, ``render_wave`` and ``render``).
 
-A scene with a medium runs the volumetric tracer
-``integrators.volpath.trace_vol``, unguided with BSDF sampling as in the
-reference.  Otherwise, on the card, unguided waves with NEE and the
-independent sampler, without Sobol' bounce dimensions, of a supported
-scene (diffuse materials, area lights, at most 2048 triangles) take the
-fused megakernel (``ops.fused_path.trace_fused``), as the reference does
-on the TPU; every other wave runs the wavefront ``integrators.path.trace``.
+A scene with a medium, or any scene with ``integrator="volpath"``, runs
+the volumetric tracer ``integrators.volpath.trace_vol``, unguided with
+BSDF sampling as in the reference.  Otherwise, on the card, unguided
+waves with NEE and the independent sampler, without Sobol' bounce
+dimensions, of a supported scene (diffuse materials, area lights, at most
+2048 triangles) take the fused megakernel (``ops.fused_path.trace_fused``),
+as the reference does on the TPU; every other wave runs the wavefront
+``integrators.path.trace``.  ``use_bvh`` (None: above BRUTE_FORCE_MAX_TRIS
+triangles) sends a scene without block tables through the BVH when true,
+and a non-"auto" ``accel`` overrides it (``trace``'s routing).
 ``max_component_value`` > 0 clamps every radiance component of a sample
 (the firefly clamp).  A scene with textures, vertex colours, bump or
 normal maps or cloth (``texture_flags``) turns those on in ``trace``, and
@@ -35,7 +38,11 @@ import torch
 from mitsuba_path_guiding_torch.core import qmc, rng
 from mitsuba_path_guiding_torch.core.rng import TAG_CAMERA
 from mitsuba_path_guiding_torch.film.film import Film, develop, new_film, splat
-from mitsuba_path_guiding_torch.integrators.path import trace
+from mitsuba_path_guiding_torch.integrators.path import (  # noqa: F401
+    BRUTE_FORCE_MAX_TRIS,
+    resolve_use_bvh,
+    trace,
+)
 from mitsuba_path_guiding_torch.integrators.volpath import trace_vol
 from mitsuba_path_guiding_torch.models.sensor import generate_rays
 from mitsuba_path_guiding_torch.scene.types import BSDFType, SceneData
@@ -110,6 +117,8 @@ class RenderConfig(NamedTuple):
     filter_name: str = "box"  # reconstruction filter (film/rfilter.py)
     max_component_value: float = 0.0  # firefly clamp; 0 disables it
     pixel_batch: int = PIXEL_BATCH     # most pixels in one wave
+    use_bvh: bool | None = None  # None: by triangle count (resolve_use_bvh)
+    integrator: str = "path"     # "volpath" takes the volumetric tracer on any scene
 
 
 def camera_jitter(cfg, sample_idx, u_cam, u_pix=None):
@@ -162,11 +171,11 @@ def wants_grad(scene: SceneData) -> bool:
 
 def _fused_gate(scene: SceneData, cfg: RenderConfig, guide, device):
     """The fused kernel's tables when a wave takes it (unguided, no
-    medium, NEE, the independent sampler without Sobol' bounces, on the
-    card, a supported scene, no gradient wanted: the kernel has no
-    backward), else None."""
-    if (guide is None and not scene.medium.enabled and cfg.use_nee
-            and cfg.sampler == "independent" and cfg.qmc_bounces == 0
+    medium and not ``integrator="volpath"``, NEE, the independent sampler
+    without Sobol' bounces, on the card, a supported scene, no gradient
+    wanted: the kernel has no backward), else None."""
+    if (guide is None and not scene.medium.enabled and cfg.integrator != "volpath"
+            and cfg.use_nee and cfg.sampler == "independent" and cfg.qmc_bounces == 0
             and device.type == "cuda" and not wants_grad(scene)):
         return _fused_tables_for(scene)
     return None
@@ -178,8 +187,8 @@ def _unguided_wavefront(scene: SceneData, cfg: RenderConfig, guide, guide_state,
     wavefront gets the guided code with selection probability 0 (the
     trivial guide); the fused kernel and the volumetric tracer (which
     samples the BSDF itself) take none."""
-    if guide is None and not scene.medium.enabled and _fused_gate(
-            scene, cfg, None, device) is None:
+    if (guide is None and not scene.medium.enabled and cfg.integrator != "volpath"
+            and _fused_gate(scene, cfg, None, device) is None):
         from mitsuba_path_guiding_torch.guiding.sampler import make_guide_fn
         from mitsuba_path_guiding_torch.guiding.trivial import trivial_grid
 
@@ -202,15 +211,16 @@ def render_wave(scene: SceneData, cfg: RenderConfig, pixel_id, sample_idx,
     if tex_flags is None:
         tex_flags = texture_flags(scene)
     fused_tables = _fused_gate(scene, cfg, guide, pixel_id.device)
+    use_bvh = resolve_use_bvh(scene, cfg)
     guide, guide_state = _unguided_wavefront(scene, cfg, guide, guide_state, mat_types,
                                              pixel_id.device)
     pkeys, rkeys, u_cam, u_pos = wave_keys_and_jitter(cfg, pixel_id, sample_idx)
     o, d, film_xy = generate_rays(scene.sensor, cfg.width, cfg.height, pixel_id, u_pos,
                                   u_lens=u_cam[..., 2:4], kind=scene.sensor.kind)
-    if scene.medium.enabled:
+    if cfg.integrator == "volpath" or (cfg.integrator == "path" and scene.medium.enabled):
         L, aux, _ = trace_vol(scene, o, d, rkeys, max_depth=cfg.max_depth, rr_depth=cfg.rr_depth,
-                              use_nee=cfg.use_nee, guide=guide, guide_state=guide_state,
-                              em_kinds=em_kinds, mat_types=mat_types,
+                              use_nee=cfg.use_nee, use_bvh=use_bvh, guide=guide,
+                              guide_state=guide_state, em_kinds=em_kinds, mat_types=mat_types,
                               hetero=scene.medium.heterogeneous,
                               phase_kind=scene.medium.phase_kind, accel=cfg.accel)
     elif fused_tables is not None:
@@ -224,9 +234,9 @@ def render_wave(scene: SceneData, cfg: RenderConfig, pixel_id, sample_idx,
             uniforms = qmc.sobol_path_uniforms(rkeys, pkeys, sample_idx, cfg.max_depth,
                                                cfg.qmc_bounces)
         L, aux, _ = trace(scene, o, d, rkeys, max_depth=cfg.max_depth, rr_depth=cfg.rr_depth,
-                          use_nee=cfg.use_nee, guide=guide, guide_state=guide_state,
-                          em_kinds=em_kinds, mat_types=mat_types, uniforms=uniforms,
-                          accel=cfg.accel,
+                          use_nee=cfg.use_nee, use_bvh=use_bvh, guide=guide,
+                          guide_state=guide_state, em_kinds=em_kinds, mat_types=mat_types,
+                          uniforms=uniforms, accel=cfg.accel,
                           cone_angle=_cone_angle(scene, cfg) if tex_flags["textured"] else 0.0,
                           **tex_flags)
     if cfg.max_component_value > 0.0:

@@ -39,7 +39,12 @@ from mitsuba_path_guiding_torch.core import rng
 from mitsuba_path_guiding_torch.core.device import resolve_device
 from mitsuba_path_guiding_torch.core.math import Frame, dot
 from mitsuba_path_guiding_torch.core.rng import bounce_uniform, event_uniform
-from mitsuba_path_guiding_torch.integrators.path import INFD, _offset_ray, route_dense_or_bvh
+from mitsuba_path_guiding_torch.integrators.path import (
+    INFD,
+    _offset_ray,
+    resolve_use_bvh,
+    route_dense_or_bvh,
+)
 from mitsuba_path_guiding_torch.integrators.ptracer import TAG_EMITTER_RAY, _decode_hit
 from mitsuba_path_guiding_torch.models import bsdf as bsdf_mod
 from mitsuba_path_guiding_torch.models import emitter as em_mod
@@ -96,12 +101,13 @@ class Hitpoints(NamedTuple):
 
 
 def camera_pass(scene: SceneData, rkeys, width: int, height: int, u_pos, pixel_id,
-                max_depth: int = 4, accel: str = "auto", em_kinds=em_mod.PORTED_KINDS,
-                mat_types=bsdf_mod.PORTED_TYPES, sensor_kind: int = 0) -> Hitpoints:
+                max_depth: int = 4, use_bvh: bool = False, accel: str = "auto",
+                em_kinds=em_mod.PORTED_KINDS, mat_types=bsdf_mod.PORTED_TYPES,
+                sensor_kind: int = 0) -> Hitpoints:
     """Camera rays through their specular chains to the first non-delta
     vertex."""
     geo, em = scene.geo, scene.emitters
-    intersect, _ = route_dense_or_bvh(scene, accel)
+    intersect, _ = route_dense_or_bvh(scene, accel, use_bvh)
     o, d, _ = generate_rays(scene.sensor, width, height, pixel_id, u_pos, kind=sensor_kind)
     n, dev = o.shape[0], o.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -151,15 +157,16 @@ def camera_pass(scene: SceneData, rkeys, width: int, height: int, u_pos, pixel_i
     return Hitpoints(hp_pos, hp_ns, hp_alb, hp_T, hp_valid, L, hp_mid, hp_wol)
 
 
-def photon_pass(scene: SceneData, rkeys, max_depth: int = 5, accel: str = "auto",
-                em_kinds=em_mod.PORTED_KINDS, mat_types=bsdf_mod.PORTED_TYPES):
+def photon_pass(scene: SceneData, rkeys, max_depth: int = 5, use_bvh: bool = False,
+                accel: str = "auto", em_kinds=em_mod.PORTED_KINDS,
+                mat_types=bsdf_mod.PORTED_TYPES):
     """One wave of photons, one a key.  Returns the deposits of every
     bounce flattened (depth-major): (pos (D M, 3), wi (D M, 3) the
     incident direction, power (D M, 3), ok (D M,), caustic (D M,)), a
     caustic deposit reached through one or more all-specular bounces (the
     caustic map's membership)."""
     geo = scene.geo
-    intersect, _ = route_dense_or_bvh(scene, accel)
+    intersect, _ = route_dense_or_bvh(scene, accel, use_bvh)
     rs = em_mod.sample_ray(scene.emitters, scene.aabb_min, scene.aabb_max,
                            event_uniform(rkeys, TAG_EMITTER_RAY, 5), kinds=em_kinds)
     o, d = rs.o, rs.d
@@ -359,7 +366,8 @@ def render_sppm(scene: SceneData, cfg, n_iterations: int = 8, photons_per_iter: 
     n_pix = w * h
     em_kinds = kinds_present(scene.emitters)
     mat_types = types_present(scene.mats)
-    kw = dict(accel=cfg.accel, em_kinds=em_kinds, mat_types=mat_types)
+    kw = dict(use_bvh=resolve_use_bvh(scene, cfg), accel=cfg.accel, em_kinds=em_kinds,
+              mat_types=mat_types)
     if r_init is None:
         r_init = 2.5 * scene_extent(scene) / max(w, h)
     lo, inv_cell, G = grid_params(scene, 2.0 * r_init)

@@ -33,6 +33,7 @@ from mitsuba_path_guiding_torch.integrators.irrcache import nee_sample
 from mitsuba_path_guiding_torch.integrators.path import (
     INFD,
     _offset_ray,
+    resolve_use_bvh,
     route_dense_or_bvh,
 )
 from mitsuba_path_guiding_torch.models import bsdf as bsdf_mod
@@ -94,7 +95,7 @@ def sample_surface_points(scene: SceneData, n: int, seed: int = 0) -> SSSamples:
 def compute_irradiance(scene: SceneData, pts: SSSamples, cfg, n_nee: int = 8) -> SSSamples:
     """Direct irradiance at the sample points, ``n_nee`` NEE samples."""
     dev = pts.pos.device
-    _, occluded = route_dense_or_bvh(scene, cfg.accel)
+    _, occluded = route_dense_or_bvh(scene, cfg.accel, resolve_use_bvh(scene, cfg))
     em_kinds = em_mod.kinds_present(scene.emitters)
     n = pts.pos.shape[0]
     key = rng.base_key(cfg.seed + 1234, device=dev)
@@ -144,7 +145,8 @@ def render_subsurface(scene: SceneData, cfg, n_points: int = 2048, n_nee: int = 
     if scene.sss_packed is None:
         raise ValueError("scene has no subsurface shapes")
     dev = scene.geo.p0.device
-    intersect, occluded = route_dense_or_bvh(scene, cfg.accel)
+    use_bvh = resolve_use_bvh(scene, cfg)
+    intersect, occluded = route_dense_or_bvh(scene, cfg.accel, use_bvh)
     em_kinds = em_mod.kinds_present(scene.emitters)
     mat_types = bsdf_mod.types_present(scene.mats)
     single = (scene.sss_packed[:, 9] >= 0.5).tolist()
@@ -174,7 +176,8 @@ def render_subsurface(scene: SceneData, cfg, n_points: int = 2048, n_nee: int = 
             sss_row = scene.sss_packed[r]
             mine = is_sss & (sid == r)
             if single[r]:
-                lo = singlescatter_lo(scene, sss_row, r, p, d, ng, mine, rk, accel=cfg.accel)
+                lo = singlescatter_lo(scene, sss_row, r, p, d, ng, mine, rk, accel=cfg.accel,
+                                      use_bvh=use_bvh)
             else:
                 mo = torch.cat([dipole_mo(sss_row, p[i:i + chunk], pts)
                                 for i in range(0, n_pix, chunk)], dim=0)
@@ -197,16 +200,16 @@ def render_subsurface(scene: SceneData, cfg, n_points: int = 2048, n_nee: int = 
 
 
 def singlescatter_lo(scene: SceneData, sss_row, sid_row: int, p, d, ng, valid, rk,
-                     accel: str = "auto", n_dist: int = 4):
+                     use_bvh: bool = False, n_dist: int = 4, accel: str = "auto"):
     """Single scattering inside a refractive boundary (the reference's
     singlescatter): exact refraction and Fresnel at the entry point, then
     ``n_dist`` stratified truncated-exponential distances along the
     internal ray, each with a light connection that crosses the boundary
     in a straight line (internal attenuation to the exit point, the exit's
     Fresnel transmittance, occlusion outside).  First-order scattering
-    only.  ``accel`` is ``RenderConfig.accel``."""
+    only.  ``use_bvh`` and ``accel`` route as ``route_dense_or_bvh``."""
     geo, em = scene.geo, scene.emitters
-    intersect, occluded = route_dense_or_bvh(scene, accel)
+    intersect, occluded = route_dense_or_bvh(scene, accel, use_bvh)
     em_kinds = em_mod.kinds_present(em)
 
     scale = sss_row[7]

@@ -38,14 +38,14 @@ TAG_TRACK_PHOTON = 977
 PHOTON_ORDER_SEED = 23
 
 
-def volume_photon_pass(scene, rkeys, max_depth: int = 8, accel: str = "auto",
-                       em_kinds=em_mod.PORTED_KINDS, hetero: bool = False):
+def volume_photon_pass(scene, rkeys, max_depth: int = 8, use_bvh: bool = False,
+                       accel: str = "auto", em_kinds=em_mod.PORTED_KINDS, hetero: bool = False):
     """A light wave through the medium, one photon a key.  Returns the
     deposits of every bounce flattened (depth-major): (pos (D M, 3), the
     propagation direction at the event (D M, 3), power (D M, 3), ok
     (D M,))."""
     med = scene.medium
-    intersect, _ = route_dense_or_bvh(scene, accel)
+    intersect, _ = route_dense_or_bvh(scene, accel, use_bvh)
     rs = em_mod.sample_ray(scene.emitters, scene.aabb_min, scene.aabb_max,
                            event_uniform(rkeys, TAG_EMITTER_RAY, 5), kinds=em_kinds)
     o, d = rs.o, rs.d

@@ -25,7 +25,12 @@ import torch
 
 from mitsuba_path_guiding_torch.core.math import Frame, dot
 from mitsuba_path_guiding_torch.core.rng import TAG_CAMERA, bounce_uniform, event_uniform
-from mitsuba_path_guiding_torch.integrators.path import INFD, _offset_ray, route_dense_or_bvh
+from mitsuba_path_guiding_torch.integrators.path import (
+    INFD,
+    _offset_ray,
+    resolve_use_bvh,
+    route_dense_or_bvh,
+)
 from mitsuba_path_guiding_torch.integrators.ptracer import TAG_EMITTER_RAY, _decode_hit, live_tmax
 from mitsuba_path_guiding_torch.models import bsdf as bsdf_mod
 from mitsuba_path_guiding_torch.models import emitter as em_mod
@@ -45,7 +50,7 @@ class VPLs(NamedTuple):
 
 
 def generate_vpls(scene: SceneData, n_paths: int, seed: int = 0, max_depth: int = 3,
-                  accel: str = "auto", em_kinds=em_mod.PORTED_KINDS,
+                  use_bvh: bool = False, accel: str = "auto", em_kinds=em_mod.PORTED_KINDS,
                   mat_types=bsdf_mod.PORTED_TYPES) -> VPLs:
     """Deterministic VPL random walks: one emission VPL and up to
     max_depth surface VPLs a path, depth-major (V = (max_depth + 1) *
@@ -54,7 +59,7 @@ def generate_vpls(scene: SceneData, n_paths: int, seed: int = 0, max_depth: int 
 
     geo, mats, em = scene.geo, scene.mats, scene.emitters
     dev = geo.p0.device
-    intersect, _ = route_dense_or_bvh(scene, accel)
+    intersect, _ = route_dense_or_bvh(scene, accel, use_bvh)
     pid = torch.arange(n_paths, dtype=torch.int64, device=dev)
     lkeys = rng.ray_keys(rng.base_key(seed, device=dev), pid, torch.zeros_like(pid))
 
@@ -192,11 +197,12 @@ def render_vpl(scene: SceneData, cfg, n_vpl_paths: int = 256, clamp_dist: float 
     dev = scene.geo.p0.device
     em_kinds = kinds_present(scene.emitters)
     mat_types = types_present(scene.mats)
-    intersect, occluded = route_dense_or_bvh(scene, cfg.accel)
+    use_bvh = resolve_use_bvh(scene, cfg)
+    intersect, occluded = route_dense_or_bvh(scene, cfg.accel, use_bvh)
     diag = float(torch.linalg.vector_norm(scene.aabb_max - scene.aabb_min))
     d_min = clamp_dist * diag
     vpls = generate_vpls(scene, n_vpl_paths, seed=cfg.seed + 1,
-                         max_depth=max(cfg.max_depth - 2, 1), accel=cfg.accel,
+                         max_depth=max(cfg.max_depth - 2, 1), use_bvh=use_bvh, accel=cfg.accel,
                          em_kinds=em_kinds, mat_types=mat_types)
     n_vpl = int(vpls.pos.shape[0])
     chunk = _chunk_size(n_vpl, n_pix, vpl_chunk)

@@ -78,6 +78,9 @@ PORTED_TYPES = (T.DIFFUSE, T.CONDUCTOR, T.DIELECTRIC, T.ROUGH_CONDUCTOR, T.PLAST
                 T.ROUGH_DIELECTRIC, T.NULL, T.ROUGH_PLASTIC, T.ROUGH_DIFFUSE, T.PHONG, T.MASK,
                 T.WARD, T.DIFFTRANS, T.BLEND, T.COATING, T.HK, T.THINDIELECTRIC, T.CLOTH)
 NESTED_TYPES = (T.BLEND, T.MASK, T.COATING)
+# The reference's tuple of every type.  TWO_SIDED is a build-time flag that
+# no material row holds: ``check_types`` lets it pass, and no branch reads it.
+ALL_TYPES = tuple(range(T.N_TYPES))
 
 
 class BSDFSample(NamedTuple):
@@ -109,7 +112,7 @@ class _P(NamedTuple):
 
 
 def check_types(types) -> None:
-    missing = sorted(set(types) - set(PORTED_TYPES))
+    missing = sorted(set(types) - set(PORTED_TYPES) - {T.TWO_SIDED})
     if missing:
         raise NotImplementedError(
             f"BSDF families {missing} are not ported")
@@ -1150,3 +1153,9 @@ def sample(mats: Materials, mid, wi, u, types=PORTED_TYPES, tex=None, cloth_aux=
 
 def albedo(mats: Materials, mid, types=PORTED_TYPES):
     return albedo_p(gather_params(mats, mid, types=types))
+
+
+# the reference's unjitted names of the three entry points; eager here
+eval_pdf_raw = eval_pdf
+sample_raw = sample
+albedo_raw = albedo

@@ -34,8 +34,14 @@ from mitsuba_path_guiding_torch.ops.gather import gather_rows_t
 from mitsuba_path_guiding_torch.scene.types import EmitterKind, Emitters, Geometry
 
 INFD = 3.0e37
+DELTA_EPS = 1e-7
 K = EmitterKind
+# Every kind: the default ``kinds`` of the port's samplers and tracers.
 PORTED_KINDS = (K.AREA, K.POINT, K.CONSTANT, K.DIRECTIONAL, K.SPOT, K.ENVMAP, K.COLLIMATED)
+# The reference's default tuple, which leaves ENVMAP out: a call with it
+# gives an envmap's lanes no light (the reference's result; its renders
+# pass ``kinds_present`` and are not affected).
+ALL_KINDS = (K.AREA, K.POINT, K.CONSTANT, K.DIRECTIONAL, K.SPOT, K.COLLIMATED)
 
 
 class DirectSample(NamedTuple):
@@ -220,6 +226,10 @@ def eval_env(em: Emitters, wo_world, kinds=None):
     return em.env_radiance.expand(wo_world.shape)
 
 
+# the reference's jitted variant of sample_direct; eager here, the same call
+sample_direct_jit = sample_direct
+
+
 class RaySample(NamedTuple):
     """Emitter-ray sample for adjoint transport (the light-path
     integrators' start)."""
@@ -230,10 +240,10 @@ class RaySample(NamedTuple):
     normal: torch.Tensor  # (N, 3) emitter normal at o (0 for point-like)
     valid: torch.Tensor   # (N,) bool
     emit_weight: torch.Tensor  # (N, 3) Le / (pdf_pos pmf), emitter-to-sensor connections
-    emission_pdf_w: torch.Tensor  # (N,) pick * pdf_pos_A * pdf_dir_W
-    direct_pdf_a: torch.Tensor    # (N,) pick * pdf_pos_A (infinite: solid-angle NEE pdf)
-    cos_light: torch.Tensor       # (N,) cos between the emitter normal and d
-    infinite: torch.Tensor        # (N,) bool: constant, envmap, directional
+    emission_pdf_w: torch.Tensor = None  # (N,) pick * pdf_pos_A * pdf_dir_W
+    direct_pdf_a: torch.Tensor = None    # (N,) pick * pdf_pos_A (infinite: solid-angle NEE pdf)
+    cos_light: torch.Tensor = None       # (N,) cos between the emitter normal and d
+    infinite: torch.Tensor = None        # (N,) bool: constant, envmap, directional
 
 
 def scene_radius(aabb_min, aabb_max):

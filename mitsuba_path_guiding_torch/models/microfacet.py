@@ -1,6 +1,6 @@
 """GGX microfacet distribution with Smith shadowing and visible-normal
-sampling (port of the GGX part of the reference's models/microfacet.py;
-Beckmann waits for the families that use it).
+sampling, and Beckmann's D and G1 (port of the reference's
+models/microfacet.py).
 
 Directions are in the local shading frame (+z = normal).
 """
@@ -10,7 +10,8 @@ import math
 
 import torch
 
-from mitsuba_path_guiding_torch.core.math import cos_theta, cross, dot, normalize, safe_sqrt
+from mitsuba_path_guiding_torch.core.math import (abs_cos_theta, cos_theta, cross, dot, normalize,
+                                                   safe_sqrt)
 
 ALPHA_MIN = 1e-4
 
@@ -69,3 +70,22 @@ def ggx_vndf_pdf(wi: torch.Tensor, m: torch.Tensor, alpha: torch.Tensor) -> torc
     G1(wi) D(m) max(0, wi.m) / cos_theta(wi)."""
     ci = torch.clamp_min(cos_theta(wi), 1e-6)
     return ggx_g1(wi, alpha) * ggx_d(m, alpha) * torch.clamp_min(dot(wi, m), 0.0) / ci
+
+
+def beckmann_d(m: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Beckmann NDF D(m), isotropic."""
+    a2 = alpha * alpha
+    c = cos_theta(m)
+    c2 = torch.clamp_min(c * c, 1e-12)
+    t2 = (1.0 - c2) / c2
+    return torch.where(c > 0.0,
+                       torch.exp(-t2 / a2) / torch.clamp_min(math.pi * a2 * c2 * c2, 1e-20), 0.0)
+
+
+def beckmann_g1(w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Smith G1 of Beckmann, Walter et al.'s rational fit."""
+    c = abs_cos_theta(w)
+    t = safe_sqrt(1.0 - c * c) / torch.clamp_min(c, 1e-12)
+    a = 1.0 / torch.clamp_min(alpha * t, 1e-12)
+    poly = (3.535 * a + 2.181 * a * a) / (1.0 + 2.276 * a + 2.577 * a * a)
+    return torch.where(a < 1.6, poly, 1.0)

@@ -37,7 +37,7 @@ import torch.distributed as dist
 from mitsuba_path_guiding_torch.core.device import resolve_device
 from mitsuba_path_guiding_torch.film.film import Film, develop, splat
 from mitsuba_path_guiding_torch.guiding.fit import accumulate_stats, update_grid
-from mitsuba_path_guiding_torch.integrators.path import BRUTE_FORCE_MAX_TRIS, trace
+from mitsuba_path_guiding_torch.integrators.path import resolve_use_bvh, trace
 from mitsuba_path_guiding_torch.integrators.render import RenderConfig, wave_keys_and_jitter
 from mitsuba_path_guiding_torch.models import bsdf as bsdf_mod
 from mitsuba_path_guiding_torch.models import emitter as em_mod
@@ -119,10 +119,10 @@ def make_sharded_step(scene: SceneData, cfg: RenderConfig, mesh: DeviceMesh, gui
     (the rank's slice of the reference's (n_dev, ...) arrays); ``n_seg``
     its path segments.  No collective runs in a step.  With
     ``train=False`` the guide still samples but no records or statistics
-    are made.  Scenes above BRUTE_FORCE_MAX_TRIS triangles trace through
-    the BVH unless ``cfg.accel`` or block tables route them otherwise
-    (``integrators.path.trace``)."""
-    use_bvh = int(scene.geo.p0.shape[0]) > BRUTE_FORCE_MAX_TRIS
+    are made.  ``cfg.use_bvh`` (None: above BRUTE_FORCE_MAX_TRIS
+    triangles) sends the waves through the BVH unless ``cfg.accel`` or
+    block tables route them otherwise (``integrators.path.trace``)."""
+    use_bvh = resolve_use_bvh(scene, cfg)
     em_kinds = em_mod.kinds_present(scene.emitters)
     mat_types = bsdf_mod.types_present(scene.mats)
     record = train and guide is not None

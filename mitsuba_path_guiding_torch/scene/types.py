@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -250,3 +251,11 @@ class SceneData(NamedTuple):
     sss_packed: Optional[torch.Tensor] = None
     blocks: Optional[BlockList] = None  # None below 16384 triangles
     pairs: Optional[PairTable] = None
+
+
+def pad_to(arr: np.ndarray, n: int, fill=0):
+    """Pad a host array's leading axis to n with ``fill``."""
+    if arr.shape[0] == n:
+        return arr
+    pad = np.full((n - arr.shape[0],) + arr.shape[1:], fill, dtype=arr.dtype)
+    return np.concatenate([arr, pad], axis=0)

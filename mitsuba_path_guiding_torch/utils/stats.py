@@ -32,6 +32,11 @@ class StatsRegistry:
             return s[0] / max(s[1], 1e-12)
         return self._counters[name]
 
+    def reset(self):
+        self._counters.clear()
+        self._averages.clear()
+        self._t0 = time.time()
+
     def report(self) -> str:
         """Formatted report (reference Statistics::printStats)."""
         lines = ["  Render statistics:"]
@@ -51,3 +56,5 @@ class StatsRegistry:
         lines.append(f"    {'elapsed':<32s} {elapsed:10.1f} s")
         return "\n".join(lines)
 
+
+GLOBAL_STATS = StatsRegistry()
