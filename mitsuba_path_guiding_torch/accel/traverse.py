@@ -47,6 +47,7 @@ from mitsuba_path_guiding_torch.ops.intersect_tiled import (
     pack_triangles,
 )
 from mitsuba_path_guiding_torch.scene.types import BSDFType, BVH, BlockList, Geometry, PairTable
+from mitsuba_path_guiding_torch.utils.stats import host_read
 
 INF = 3.0e38
 EPS_T = 1e-4  # min ray t (self-intersection offset)
@@ -97,7 +98,9 @@ def occluded_pallas(geo: Geometry, o, d, tmax, pack=None) -> torch.Tensor:
 def _retrace(proven):
     """Indices of the unproven rays, ascending (one host read: the blocklist
     call is sized by their count)."""
-    return torch.nonzero(~proven).flatten()
+    unproven = ~proven
+    n = int(host_read(unproven.sum(), "traverse.retrace"))
+    return torch.nonzero_static(unproven, size=n).flatten()
 
 
 def _fallback_cap(n: int, shift: int) -> int:

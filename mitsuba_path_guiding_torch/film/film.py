@@ -18,6 +18,7 @@ import torch
 from mitsuba_path_guiding_torch.core.math import scatter_add_rows
 from mitsuba_path_guiding_torch.core.spectrum import srgb_encode_np
 from mitsuba_path_guiding_torch.film.rfilter import get_filter
+from mitsuba_path_guiding_torch.utils.stats import host_read
 
 
 class Film(NamedTuple):
@@ -89,7 +90,7 @@ def develop(film: Film) -> torch.Tensor:
 
 def _host(img) -> np.ndarray:
     if torch.is_tensor(img):
-        img = img.detach().cpu().numpy()
+        img = host_read(img.detach(), "film.write").numpy()
     return np.asarray(img, dtype=np.float32)
 
 

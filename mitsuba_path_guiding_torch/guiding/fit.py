@@ -23,6 +23,7 @@ from mitsuba_path_guiding_torch.guiding.grid import (
     _vmf_pdf_kn,
     cell_index,
 )
+from mitsuba_path_guiding_torch.utils.stats import host_read
 
 MIN_SAMPLES_VALID = 32.0
 ALPHA_R_LO = 0.2
@@ -168,6 +169,10 @@ def fit_from_records(grid: GuidingGrid, rec, mesh=None) -> GuidingGrid:
 SPLIT_THRESHOLD = 4096.0  # samples before a cell subdivides
 
 
+def _host(x):
+    return host_read(x, "fit.refine_grid").numpy()
+
+
 def refine_grid(grid: GuidingGrid, threshold: float = SPLIT_THRESHOLD) -> GuidingGrid:
     """Host-side adaptive refinement between progressions (the SD-tree
     split of Practical Path Guiding on fixed-capacity flat tables): each
@@ -176,9 +181,9 @@ def refine_grid(grid: GuidingGrid, threshold: float = SPLIT_THRESHOLD) -> Guidin
     its mixture and 1/8 of its statistics; the highest counts split first
     while capacity lasts.  The tables go to the host and back to the
     grid's device; the topology is frozen again afterwards."""
-    child_base = grid.child_base.cpu().numpy().copy()
-    level = grid.level.cpu().numpy().copy()
-    count = grid.s_count.cpu().numpy()
+    child_base = _host(grid.child_base).copy()
+    level = _host(grid.level).copy()
+    count = _host(grid.s_count)
     n_used = int(grid.n_used)
     capacity = child_base.shape[0]
 
@@ -198,7 +203,7 @@ def refine_grid(grid: GuidingGrid, threshold: float = SPLIT_THRESHOLD) -> Guidin
 
     copied = ("mu", "kappa", "log_weight", "valid", "alpha_scale", "origin", "lobe_dist")
     scaled = ("s_w", "s_dir", "s_count", "s_rho", "s_pos", "s_pos_w")
-    host = {f: getattr(grid, f).cpu().numpy().copy() for f in copied + scaled
+    host = {f: _host(getattr(grid, f)).copy() for f in copied + scaled
             if getattr(grid, f) is not None}
     for parent in idx:
         child_base[parent] = n_used

@@ -16,6 +16,7 @@ from mitsuba_path_guiding_torch.core import rng
 from mitsuba_path_guiding_torch.core.math import normalize
 from mitsuba_path_guiding_torch.core.vmf import vmf_sample
 from mitsuba_path_guiding_torch.core.warp import INV_FOURPI
+from mitsuba_path_guiding_torch.utils.stats import host_read
 
 MAX_REFINE_LEVELS = 3  # static octree walk depth below the root grid
 
@@ -93,8 +94,8 @@ def make_grid(aabb_min, aabb_max, res: int = 16, n_lobes: int = 8, seed: int = 0
     and normalised, kappa 1, uniform weights."""
     if torch.is_tensor(aabb_min):
         device = aabb_min.device if device is None else device
-        aabb_min = aabb_min.detach().cpu().numpy()
-        aabb_max = aabb_max.detach().cpu().numpy()
+        aabb_min = host_read(aabb_min.detach(), "grid.make_grid").numpy()
+        aabb_max = host_read(aabb_max.detach(), "grid.make_grid").numpy()
     c0 = res**3
     c = max(capacity if capacity is not None else c0, c0)
     key = rng.base_key(seed, device=device)
@@ -150,7 +151,8 @@ def cell_index(grid: GuidingGrid, p: torch.Tensor, levels: int = MAX_REFINE_LEVE
 
 def active_levels(grid: GuidingGrid) -> int:
     """Octree walk depth this grid's topology needs (host read)."""
-    return MAX_REFINE_LEVELS if bool((grid.child_base >= 0).any()) else 0
+    refined = bool(host_read((grid.child_base >= 0).any(), "grid.active_levels"))
+    return MAX_REFINE_LEVELS if refined else 0
 
 
 def mixture_weights(grid: GuidingGrid, cid: torch.Tensor) -> torch.Tensor:

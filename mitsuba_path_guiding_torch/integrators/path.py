@@ -57,6 +57,7 @@ from mitsuba_path_guiding_torch.models.cloth import decode_record
 from mitsuba_path_guiding_torch.models.texture import sample_atlas, sample_atlas_nearest
 from mitsuba_path_guiding_torch.ops.gather import gather_rows_t
 from mitsuba_path_guiding_torch.scene.types import BSDFType, SceneData
+from mitsuba_path_guiding_torch.utils.stats import span
 
 INFD = 3.0e37
 
@@ -318,193 +319,202 @@ def trace(
     _check_supported(scene, accel, uniforms, max_depth, n)
     bsdf_mod.check_types(mat_types)
     dev = ray_o.device
-    geo, mats, em = scene.geo, scene.mats, scene.emitters
-    intersect, occluded = route_queries(scene, accel, use_bvh)
-    # the camera peel: depth 0, the one coherent wave, with its own widths
-    peel = PAIR_PEEL and pair_route(scene, accel) and max_depth > 1
+    with span("trace", device=dev):
+        geo, mats, em = scene.geo, scene.mats, scene.emitters
+        intersect, occluded = route_queries(scene, accel, use_bvh)
+        # the camera peel: depth 0, the one coherent wave, with its own widths
+        peel = PAIR_PEEL and pair_route(scene, accel) and max_depth > 1
 
-    # null and mask surfaces transmit shadow rays; boolean occlusion where
-    # the scene has no transparent material
-    transparent = BSDFType.NULL in mat_types or BSDFType.MASK in mat_types
-    if transparent:
-        def visibility(o_, d_, tmax_):
-            return shadow_transmittance(geo, mats.packed, o_, d_, tmax_, intersect)
-    else:
-        def visibility(o_, d_, tmax_):
-            return 1.0 - occluded(o_, d_, tmax_).to(torch.float32)
-
-    f32 = dict(dtype=torch.float32, device=dev)
-    o, d = ray_o, ray_d
-    L = torch.zeros((n, 3), **f32)
-    T = torch.ones((n, 3), **f32)
-    alive = torch.ones((n,), dtype=torch.bool, device=dev)
-    prev_pdf = torch.full((n,), INFD, **f32)
-    prev_delta = torch.ones((n,), dtype=torch.bool, device=dev)
-    t_acc = torch.zeros((n,), **f32)  # distance through straight pass-throughs
-    aux = PathAux(
-        albedo=torch.zeros((n, 3), **f32),
-        normal=torch.zeros((n, 3), **f32),
-        depth_t=torch.zeros((n,), **f32),
-        n_bounces=torch.zeros((n,), dtype=torch.int32, device=dev),
-        first_le=torch.zeros((n, 3), **f32),
-    )
-    recs = []
-
-    # uniforms per bounce: 0:3 NEE, 3:6 BSDF (2 dir + lobe),
-    # 6 guide selection, 7 guide lobe, 8 russian roulette
-    for depth in range(max_depth):
-        if uniforms is None:
-            u = bounce_uniform(rkeys, depth, 9)
-        else:
-            u = uniforms[depth * 9:(depth + 1) * 9].T
-        tmax = torch.where(alive, INFD, -1.0)
-        if peel and depth == 0:
-            hit = intersect(o, d, tmax, pair_cfg=CAM_PAIR_CFG + (CAM_FB_SHIFT,))
-        else:
-            hit = intersect(o, d, tmax)
-        escaped = alive & ~hit.valid
-
-        env_L = em_mod.eval_env(em, d, kinds=em_kinds)
-        if use_nee:
-            pdf_nee_env = em_mod.pdf_env(em, d, kinds=em_kinds)
-            w_env = torch.where(
-                prev_delta, 1.0,
-                power_heuristic(prev_pdf, torch.broadcast_to(pdf_nee_env, prev_pdf.shape)))
-        else:
-            w_env = torch.ones_like(prev_pdf)
-        L = torch.where(escaped[..., None], L + T * env_L * w_env[..., None], L)
-
-        act = alive & hit.valid
-        prim = torch.clamp_min(hit.prim, 0)
-        t_hit = torch.where(hit.valid, hit.t, 1.0)
-        p = o + t_hit[..., None] * d
-        row = gather_rows_t(geo.shade_packed, prim)  # (32, N)
-        ng = torch.stack([row[0], row[1], row[2]], dim=-1)
-        b0 = 1.0 - hit.u - hit.v
-        ns = normalize(torch.stack(
-            [
-                b0 * row[3] + hit.u * row[6] + hit.v * row[9],
-                b0 * row[4] + hit.u * row[7] + hit.v * row[10],
-                b0 * row[5] + hit.u * row[8] + hit.v * row[11],
-            ],
-            dim=-1,
-        ))
-        ns = torch.where(dot(ns, ng)[..., None] < 0.0, -ns, ns)
-        mid = row[18].to(torch.int32)
-        is_emitter = row[19] >= 0.0
-        tex = cloth_aux = mrow = None
-        if textured or bumped or clothed:
-            # the material-row gather of gather_params, made here: it also
-            # serves the textures' fields
-            mrow = gather_rows_t(mats.packed, mid)  # (32, N)
-            ns, tex, cloth_aux = _surface_textures(
-                scene, row, mrow, hit, prim, ns, ng, t_hit + t_acc, prev_delta, textured, bumped,
-                clothed, cone_angle)
-        mp_raw = bsdf_mod.gather_params(mats, mid, types=mat_types, row=mrow)
-        mp = bsdf_mod.apply_texture(mp_raw, tex, cloth_aux)
-
-        # emissive hit with MIS against NEE
-        cos_l = dot(ng, -d)
-        Le = torch.where((is_emitter & (cos_l > 0.0))[..., None],
-                         torch.stack([row[20], row[21], row[22]], dim=-1), 0.0)
-        if use_nee:
-            # the distance through straight pass-throughs keeps NEE's MIS
-            # consistent across them
-            d_mis = t_hit + t_acc
-            dist2 = d_mis * d_mis
-            pdf_nee_hit = row[23] * dist2 / torch.clamp_min(
-                torch.abs(cos_l) * torch.clamp_min(row[25], 1e-12), 1e-12)
-            pdf_nee_hit = torch.where(is_emitter, pdf_nee_hit, 0.0)
-            w_hit = torch.where(prev_delta, 1.0, power_heuristic(prev_pdf, pdf_nee_hit))
-        else:
-            w_hit = torch.ones_like(prev_pdf)
-        L = torch.where(act[..., None], L + T * Le * w_hit[..., None], L)
-
-        frame = Frame.from_normal(ns)
-        wi_local = frame.to_local(-d)
-
-        first = act & (aux.depth_t == 0.0)
-        aux = PathAux(
-            albedo=torch.where(first[..., None], bsdf_mod.albedo_p(mp_raw), aux.albedo),
-            normal=torch.where(first[..., None], ns, aux.normal),
-            depth_t=torch.where(first, hit.t, aux.depth_t),
-            n_bounces=aux.n_bounces + act.to(torch.int32),
-            first_le=torch.where(first[..., None], Le, aux.first_le),
-        )
-
-        # next-event estimation
-        if use_nee:
-            ds = em_mod.sample_direct(em, geo, p, u[..., 0:3], kinds=em_kinds)
-            wo_local_nee = frame.to_local(ds.direction)
-            f_nee, pdf_bsdf_nee = bsdf_mod.eval_pdf_p(mp, wi_local, wo_local_nee,
-                                                      types=mat_types)
-            if guide is not None:
-                pdf_dir_nee = guide.pdf_at(guide_state, mats, mid, p, frame,
-                                           ds.direction, pdf_bsdf_nee, params=mp)
-            else:
-                pdf_dir_nee = pdf_bsdf_nee
-            o_sh = _offset_ray(p, ng, ds.direction)
-            t_sh = torch.where(ds.distance >= INFD, INFD, ds.distance * (1.0 - 1e-3))
-            vis = visibility(o_sh, ds.direction, torch.where(act, t_sh, -1.0))
-            w_mis = torch.where(ds.is_delta, 1.0, power_heuristic(ds.pdf, pdf_dir_nee))
-            contrib = (T * f_nee * ds.radiance
-                       * (vis * w_mis / torch.clamp_min(ds.pdf, 1e-12))[..., None])
-            good = act & (vis > 0.0) & (ds.pdf > 0.0)
-            L = torch.where(good[..., None], L + contrib, L)
-
-        # BSDF (or guided) sampling
-        if guide is None:
-            bs = bsdf_mod.sample_p(mp, wi_local, u[..., 3:6], types=mat_types)
-            wo_world = frame.to_world(bs.wo)
-            next_pdf, next_weight, next_delta = bs.pdf, bs.weight, bs.is_delta
-        else:
-            wo_world, next_pdf, next_weight, next_delta = guide(
-                guide_state, mats, mid, p, frame, wi_local, u[..., 3:6],
-                u[..., 6], u[..., 7], tex, cloth_aux, params=mp)
-
-        T_new = T * next_weight
-        cont = act & (torch.amax(torch.abs(T_new), dim=-1) > 0.0) & (next_pdf > 0.0)
-
-        # russian roulette
-        if depth >= rr_depth:
-            q = torch.clamp(torch.amax(T_new, dim=-1), 0.05, 0.95)
-            T_new = torch.where(cont[..., None], T_new / torch.clamp_min(q, 1e-6)[..., None], T_new)
-            cont = cont & (u[..., 8] < q)
-
-        # a straight pass-through (null or mask transmission) keeps the MIS
-        # state of the last real vertex and accumulates its distance; else a
-        # light behind the surface would get delta weight 1 and full NEE
+        # null and mask surfaces transmit shadow rays; boolean occlusion where
+        # the scene has no transparent material
+        transparent = BSDFType.NULL in mat_types or BSDFType.MASK in mat_types
         if transparent:
-            straight = next_delta & (dot(wo_world, d) > 1.0 - 1e-6)
-            next_pdf_c = torch.where(straight, prev_pdf, next_pdf)
-            next_delta_c = torch.where(straight, prev_delta, next_delta)
-            t_acc_new = torch.where(straight, t_acc + t_hit, 0.0)
+            def visibility(o_, d_, tmax_):
+                return shadow_transmittance(geo, mats.packed, o_, d_, tmax_, intersect)
         else:
-            next_pdf_c, next_delta_c, t_acc_new = next_pdf, next_delta, torch.zeros_like(t_acc)
+            def visibility(o_, d_, tmax_):
+                return 1.0 - occluded(o_, d_, tmax_).to(torch.float32)
 
-        o_next = _offset_ray(p, ng, wo_world)
+        f32 = dict(dtype=torch.float32, device=dev)
+        o, d = ray_o, ray_d
+        L = torch.zeros((n, 3), **f32)
+        T = torch.ones((n, 3), **f32)
+        alive = torch.ones((n,), dtype=torch.bool, device=dev)
+        prev_pdf = torch.full((n,), INFD, **f32)
+        prev_delta = torch.ones((n,), dtype=torch.bool, device=dev)
+        t_acc = torch.zeros((n,), **f32)  # distance through straight pass-throughs
+        aux = PathAux(
+            albedo=torch.zeros((n, 3), **f32),
+            normal=torch.zeros((n, 3), **f32),
+            depth_t=torch.zeros((n,), **f32),
+            n_bounces=torch.zeros((n,), dtype=torch.int32, device=dev),
+            first_le=torch.zeros((n, 3), **f32),
+        )
+        recs = []
+
+        # uniforms per bounce: 0:3 NEE, 3:6 BSDF (2 dir + lobe),
+        # 6 guide selection, 7 guide lobe, 8 russian roulette
+        for depth in range(max_depth):
+            if uniforms is None:
+                with span("keys", depth=depth):
+                    u = bounce_uniform(rkeys, depth, 9)
+            else:
+                u = uniforms[depth * 9:(depth + 1) * 9].T
+            with span("intersect", depth=depth):
+                tmax = torch.where(alive, INFD, -1.0)
+                if peel and depth == 0:
+                    hit = intersect(o, d, tmax, pair_cfg=CAM_PAIR_CFG + (CAM_FB_SHIFT,))
+                else:
+                    hit = intersect(o, d, tmax)
+                escaped = alive & ~hit.valid
+
+                env_L = em_mod.eval_env(em, d, kinds=em_kinds)
+                if use_nee:
+                    pdf_nee_env = em_mod.pdf_env(em, d, kinds=em_kinds)
+                    w_env = torch.where(
+                        prev_delta, 1.0,
+                        power_heuristic(prev_pdf,
+                                        torch.broadcast_to(pdf_nee_env, prev_pdf.shape)))
+                else:
+                    w_env = torch.ones_like(prev_pdf)
+                L = torch.where(escaped[..., None], L + T * env_L * w_env[..., None], L)
+
+            with span("shade", depth=depth):
+                act = alive & hit.valid
+                prim = torch.clamp_min(hit.prim, 0)
+                t_hit = torch.where(hit.valid, hit.t, 1.0)
+                p = o + t_hit[..., None] * d
+                row = gather_rows_t(geo.shade_packed, prim)  # (32, N)
+                ng = torch.stack([row[0], row[1], row[2]], dim=-1)
+                b0 = 1.0 - hit.u - hit.v
+                ns = normalize(torch.stack(
+                    [
+                        b0 * row[3] + hit.u * row[6] + hit.v * row[9],
+                        b0 * row[4] + hit.u * row[7] + hit.v * row[10],
+                        b0 * row[5] + hit.u * row[8] + hit.v * row[11],
+                    ],
+                    dim=-1,
+                ))
+                ns = torch.where(dot(ns, ng)[..., None] < 0.0, -ns, ns)
+                mid = row[18].to(torch.int32)
+                is_emitter = row[19] >= 0.0
+                tex = cloth_aux = mrow = None
+                if textured or bumped or clothed:
+                    # the material-row gather of gather_params, made here: it
+                    # also serves the textures' fields
+                    mrow = gather_rows_t(mats.packed, mid)  # (32, N)
+                    ns, tex, cloth_aux = _surface_textures(
+                        scene, row, mrow, hit, prim, ns, ng, t_hit + t_acc, prev_delta,
+                        textured, bumped, clothed, cone_angle)
+                mp_raw = bsdf_mod.gather_params(mats, mid, types=mat_types, row=mrow)
+                mp = bsdf_mod.apply_texture(mp_raw, tex, cloth_aux)
+
+                # emissive hit with MIS against NEE
+                cos_l = dot(ng, -d)
+                Le = torch.where((is_emitter & (cos_l > 0.0))[..., None],
+                                 torch.stack([row[20], row[21], row[22]], dim=-1), 0.0)
+                if use_nee:
+                    # the distance through straight pass-throughs keeps NEE's MIS
+                    # consistent across them
+                    d_mis = t_hit + t_acc
+                    dist2 = d_mis * d_mis
+                    pdf_nee_hit = row[23] * dist2 / torch.clamp_min(
+                        torch.abs(cos_l) * torch.clamp_min(row[25], 1e-12), 1e-12)
+                    pdf_nee_hit = torch.where(is_emitter, pdf_nee_hit, 0.0)
+                    w_hit = torch.where(prev_delta, 1.0, power_heuristic(prev_pdf, pdf_nee_hit))
+                else:
+                    w_hit = torch.ones_like(prev_pdf)
+                L = torch.where(act[..., None], L + T * Le * w_hit[..., None], L)
+
+                frame = Frame.from_normal(ns)
+                wi_local = frame.to_local(-d)
+
+                first = act & (aux.depth_t == 0.0)
+                aux = PathAux(
+                    albedo=torch.where(first[..., None], bsdf_mod.albedo_p(mp_raw), aux.albedo),
+                    normal=torch.where(first[..., None], ns, aux.normal),
+                    depth_t=torch.where(first, hit.t, aux.depth_t),
+                    n_bounces=aux.n_bounces + act.to(torch.int32),
+                    first_le=torch.where(first[..., None], Le, aux.first_le),
+                )
+
+            # next-event estimation
+            if use_nee:
+                with span("nee", depth=depth):
+                    ds = em_mod.sample_direct(em, geo, p, u[..., 0:3], kinds=em_kinds)
+                    wo_local_nee = frame.to_local(ds.direction)
+                    f_nee, pdf_bsdf_nee = bsdf_mod.eval_pdf_p(mp, wi_local, wo_local_nee,
+                                                              types=mat_types)
+                    if guide is not None:
+                        pdf_dir_nee = guide.pdf_at(guide_state, mats, mid, p, frame,
+                                                   ds.direction, pdf_bsdf_nee, params=mp)
+                    else:
+                        pdf_dir_nee = pdf_bsdf_nee
+                    o_sh = _offset_ray(p, ng, ds.direction)
+                    t_sh = torch.where(ds.distance >= INFD, INFD, ds.distance * (1.0 - 1e-3))
+                    vis = visibility(o_sh, ds.direction, torch.where(act, t_sh, -1.0))
+                    w_mis = torch.where(ds.is_delta, 1.0, power_heuristic(ds.pdf, pdf_dir_nee))
+                    contrib = (T * f_nee * ds.radiance
+                               * (vis * w_mis / torch.clamp_min(ds.pdf, 1e-12))[..., None])
+                    good = act & (vis > 0.0) & (ds.pdf > 0.0)
+                    L = torch.where(good[..., None], L + contrib, L)
+
+            with span("sample", depth=depth):
+                # BSDF (or guided) sampling
+                if guide is None:
+                    bs = bsdf_mod.sample_p(mp, wi_local, u[..., 3:6], types=mat_types)
+                    wo_world = frame.to_world(bs.wo)
+                    next_pdf, next_weight, next_delta = bs.pdf, bs.weight, bs.is_delta
+                else:
+                    wo_world, next_pdf, next_weight, next_delta = guide(
+                        guide_state, mats, mid, p, frame, wi_local, u[..., 3:6],
+                        u[..., 6], u[..., 7], tex, cloth_aux, params=mp)
+
+                T_new = T * next_weight
+                cont = act & (torch.amax(torch.abs(T_new), dim=-1) > 0.0) & (next_pdf > 0.0)
+
+                # russian roulette
+                if depth >= rr_depth:
+                    q = torch.clamp(torch.amax(T_new, dim=-1), 0.05, 0.95)
+                    T_new = torch.where(cont[..., None],
+                                        T_new / torch.clamp_min(q, 1e-6)[..., None], T_new)
+                    cont = cont & (u[..., 8] < q)
+
+                # a straight pass-through (null or mask transmission) keeps the MIS
+                # state of the last real vertex and accumulates its distance; else a
+                # light behind the surface would get delta weight 1 and full NEE
+                if transparent:
+                    straight = next_delta & (dot(wo_world, d) > 1.0 - 1e-6)
+                    next_pdf_c = torch.where(straight, prev_pdf, next_pdf)
+                    next_delta_c = torch.where(straight, prev_delta, next_delta)
+                    t_acc_new = torch.where(straight, t_acc + t_hit, 0.0)
+                else:
+                    next_pdf_c, next_delta_c = next_pdf, next_delta
+                    t_acc_new = torch.zeros_like(t_acc)
+
+                o_next = _offset_ray(p, ng, wo_world)
+                if record_paths:
+                    recs.append((
+                        p.T, wo_world.T, luminance(L),
+                        luminance(torch.where(cont[..., None], T_new, T)),
+                        next_pdf, act & ~next_delta,
+                        torch.where(hit.valid, t_hit, INFD),
+                    ))
+                o = torch.where(cont[..., None], o_next, o)
+                d = torch.where(cont[..., None], wo_world, d)
+                T = torch.where(cont[..., None], T_new, T)
+                prev_pdf = torch.where(cont, next_pdf_c, prev_pdf)
+                prev_delta = torch.where(cont, next_delta_c, prev_delta)
+                t_acc = torch.where(cont, t_acc_new, t_acc)
+                alive = cont
+
+        record = None
         if record_paths:
-            recs.append((
-                p.T, wo_world.T, luminance(L),
-                luminance(torch.where(cont[..., None], T_new, T)),
-                next_pdf, act & ~next_delta,
-                torch.where(hit.valid, t_hit, INFD),
-            ))
-        o = torch.where(cont[..., None], o_next, o)
-        d = torch.where(cont[..., None], wo_world, d)
-        T = torch.where(cont[..., None], T_new, T)
-        prev_pdf = torch.where(cont, next_pdf_c, prev_pdf)
-        prev_delta = torch.where(cont, next_delta_c, prev_delta)
-        t_acc = torch.where(cont, t_acc_new, t_acc)
-        alive = cont
-
-    record = None
-    if record_paths:
-        rec_pos, rec_dir, rec_lumL, rec_lumT, rec_pdf, rec_valid, rec_t = (
-            torch.stack(x, dim=0) for x in zip(*recs))
-        lum_final = luminance(L)[None, :]
-        li = torch.clamp_min(lum_final - rec_lumL, 0.0) / torch.clamp_min(rec_lumT, 1e-6)
-        rec_dist = torch.cat([rec_t[1:], torch.full_like(rec_t[:1], INFD)], dim=0)
-        record = PathRecord(pos=rec_pos, dir=rec_dir, li=li, pdf=rec_pdf,
-                            valid=rec_valid, dist=rec_dist)
-    return L, aux, record
+            rec_pos, rec_dir, rec_lumL, rec_lumT, rec_pdf, rec_valid, rec_t = (
+                torch.stack(x, dim=0) for x in zip(*recs))
+            lum_final = luminance(L)[None, :]
+            li = torch.clamp_min(lum_final - rec_lumL, 0.0) / torch.clamp_min(rec_lumT, 1e-6)
+            rec_dist = torch.cat([rec_t[1:], torch.full_like(rec_t[:1], INFD)], dim=0)
+            record = PathRecord(pos=rec_pos, dir=rec_dir, li=li, pdf=rec_pdf,
+                                valid=rec_valid, dist=rec_dist)
+        return L, aux, record

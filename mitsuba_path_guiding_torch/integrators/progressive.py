@@ -50,6 +50,7 @@ from mitsuba_path_guiding_torch.integrators.volpath import trace_vol
 from mitsuba_path_guiding_torch.models.sensor import generate_rays
 from mitsuba_path_guiding_torch.scene.types import SceneData
 from mitsuba_path_guiding_torch.utils.logger import RenderQueue
+from mitsuba_path_guiding_torch.utils.stats import host_read, span
 
 
 @dataclass
@@ -136,6 +137,14 @@ class ProgressiveRenderer:
         cfg, r = self.cfg, self.cfg.render
         if cfg.on_preprogression is not None:
             cfg.on_preprogression(self)
+        with span("progression", device=self.device):
+            self._progression()
+        self.progression += 1
+        if cfg.on_postprogression is not None:
+            cfg.on_postprogression(self)
+
+    def _progression(self):
+        cfg, r = self.cfg, self.cfg.render
         training = cfg.guiding and (
             cfg.train_progressions <= 0 or self.progression < cfg.train_progressions)
         n_pix = r.width * r.height
@@ -148,30 +157,31 @@ class ProgressiveRenderer:
             pix = all_pixels[batch_start: batch_start + r.pixel_batch]
             for s in range(cfg.samples_per_progression):
                 sidx = torch.full_like(pix, self.sample_counter + s)
-                film_xy, L, aux, rec = self._wave(pix, sidx, training)
-                rgbw = splat(rgbw, film_xy, L, r.width, r.height, r.filter_name)
+                with span("wave"):
+                    film_xy, L, aux, rec = self._wave(pix, sidx, training)
+                    with span("splat"):
+                        rgbw = splat(rgbw, film_xy, L, r.width, r.height, r.filter_name)
                 seg_total += torch.sum(aux.n_bounces)
                 lane_total += int(pix.shape[0])
                 if rec is not None:
                     records.append(rec)
-        seg_total = int(seg_total)
+        # the segment count stays on the device until the report reads it
         self.stats.add("samples", lane_total)
-        self.stats.add("rays traced", seg_total * (2 if r.use_nee else 1))  # path and shadow rays
+        rays = seg_total * 2 if r.use_nee else seg_total  # path and shadow rays
+        self.stats.add("rays traced", rays)
         self.stats.average("avg path length", seg_total, max(lane_total, 1))
         self.film = Film(rgb_weight=rgbw, width=r.width, height=r.height)
         self.sample_counter += cfg.samples_per_progression
 
         if records:
-            acc = None
-            for rec in records:
-                st = accumulate_stats(self.grid, rec)
-                acc = st if acc is None else tuple(a + b for a, b in zip(acc, st))
-            self.grid = update_grid(self.grid, *acc)
-            if cfg.adaptive_refine:
-                self.grid = refine_grid(self.grid, cfg.refine_threshold)
-        self.progression += 1
-        if cfg.on_postprogression is not None:
-            cfg.on_postprogression(self)
+            with span("fit"):
+                acc = None
+                for rec in records:
+                    st = accumulate_stats(self.grid, rec)
+                    acc = st if acc is None else tuple(a + b for a, b in zip(acc, st))
+                self.grid = update_grid(self.grid, *acc)
+                if cfg.adaptive_refine:
+                    self.grid = refine_grid(self.grid, cfg.refine_threshold)
 
     def render(self) -> torch.Tensor:
         """Sample-budget (or time-budget) progressive render; a listener's
@@ -197,7 +207,7 @@ class ProgressiveRenderer:
 
     def image(self) -> np.ndarray:
         """The developed image so far, on the host."""
-        return develop(self.film).cpu().numpy()
+        return host_read(develop(self.film), "progressive.image").numpy()
 
 
 def render_progressive(scene: SceneData, cfg: ProgressiveConfig) -> torch.Tensor:

@@ -46,6 +46,7 @@ from mitsuba_path_guiding_torch.integrators.path import (  # noqa: F401
 from mitsuba_path_guiding_torch.integrators.volpath import trace_vol
 from mitsuba_path_guiding_torch.models.sensor import generate_rays
 from mitsuba_path_guiding_torch.scene.types import BSDFType, SceneData
+from mitsuba_path_guiding_torch.utils.stats import host_read, span
 
 # Most pixels in one wave; a larger image renders in several.
 PIXEL_BATCH = 1 << 17
@@ -76,15 +77,16 @@ def _textured(scene) -> bool:
     wireframe), or vertex colours.  The reference tests the atlas's shape,
     which its placeholder atlas (2 rows) passes too, so it runs the
     override, to no effect, on every scene."""
-    return scene.geo.vcol is not None or bool((scene.mats.texture_id != -1).any())
+    return scene.geo.vcol is not None or bool(
+        host_read((scene.mats.texture_id != -1).any(), "render.textured"))
 
 
 def _has_bump(scene) -> bool:
-    return bool((scene.mats.packed[:, 19] >= 0).any())
+    return bool(host_read((scene.mats.packed[:, 19] >= 0).any(), "render.bumped"))
 
 
 def _has_cloth(scene) -> bool:
-    return bool((scene.mats.type == BSDFType.CLOTH).any())
+    return bool(host_read((scene.mats.type == BSDFType.CLOTH).any(), "render.clothed"))
 
 
 def _cone_angle(scene, cfg) -> float:
@@ -92,7 +94,7 @@ def _cone_angle(scene, cfg) -> float:
     perspective camera over a textured scene (the reference's value); else
     0 (no mip filtering)."""
     if _textured(scene) and int(scene.sensor.kind) == 0:
-        return 2.0 * float(scene.sensor.tan_half_fov_x) / cfg.width
+        return 2.0 * float(host_read(scene.sensor.tan_half_fov_x, "render.cone_angle")) / cfg.width
     return 0.0
 
 
@@ -149,14 +151,15 @@ def camera_jitter(cfg, sample_idx, u_cam, u_pix=None):
 def wave_keys_and_jitter(cfg, pixel_id, sample_idx):
     """Per-ray keys and camera uniforms of a wave.  Returns
     (pkeys, rkeys, u_cam, u_pos), bit-equal to the reference."""
-    key = rng.base_key(cfg.seed, device=pixel_id.device)
-    pkeys = rng.pixel_keys(key, pixel_id)
-    rkeys = rng.fold_in(pkeys, sample_idx)
-    u_cam = rng.event_uniform(rkeys, TAG_CAMERA, 4)
-    u_pix = None
-    if cfg.sampler in QMC_PIXEL_SAMPLERS:
-        u_pix = rng.event_uniform(pkeys, TAG_CAMERA, 2)
-    u_pos = camera_jitter(cfg, sample_idx, u_cam, u_pix)
+    with span("keys", device=pixel_id.device):
+        key = rng.base_key(cfg.seed, device=pixel_id.device)
+        pkeys = rng.pixel_keys(key, pixel_id)
+        rkeys = rng.fold_in(pkeys, sample_idx)
+        u_cam = rng.event_uniform(rkeys, TAG_CAMERA, 4)
+        u_pix = None
+        if cfg.sampler in QMC_PIXEL_SAMPLERS:
+            u_pix = rng.event_uniform(pkeys, TAG_CAMERA, 2)
+        u_pos = camera_jitter(cfg, sample_idx, u_cam, u_pix)
     return pkeys, rkeys, u_cam, u_pos
 
 
@@ -226,8 +229,9 @@ def render_wave(scene: SceneData, cfg: RenderConfig, pixel_id, sample_idx,
     elif fused_tables is not None:
         from mitsuba_path_guiding_torch.ops.fused_path import trace_fused
 
-        L, aux, _ = trace_fused(fused_tables, o, d, rkeys, max_depth=cfg.max_depth,
-                                rr_depth=cfg.rr_depth, guided=False)
+        with span("trace_fused"):
+            L, aux, _ = trace_fused(fused_tables, o, d, rkeys, max_depth=cfg.max_depth,
+                                    rr_depth=cfg.rr_depth, guided=False)
     else:
         uniforms = None
         if cfg.qmc_bounces > 0:
@@ -251,24 +255,27 @@ def render(scene: SceneData, cfg: RenderConfig, guide=None, guide_state=None):
     from mitsuba_path_guiding_torch.models.emitter import kinds_present
 
     dev = scene.geo.p0.device
-    em_kinds = kinds_present(scene.emitters)
-    mat_types = types_present(scene.mats)
-    tex_flags = texture_flags(scene)
-    guide, guide_state = _unguided_wavefront(scene, cfg, guide, guide_state, mat_types, dev)
-    film = new_film(cfg.width, cfg.height, device=dev)
-    rgbw = film.rgb_weight
-    n_pix = cfg.width * cfg.height
-    all_pixels = torch.arange(n_pix, dtype=torch.int64, device=dev)
-    for batch_start in range(0, n_pix, cfg.pixel_batch):
-        pix = all_pixels[batch_start: batch_start + cfg.pixel_batch]
-        for s in range(cfg.spp):
-            sidx = torch.full_like(pix, s)
-            film_xy, L, _ = render_wave(scene, cfg, pix, sidx, guide, guide_state, em_kinds,
-                                        mat_types, tex_flags)
-            rgbw = splat(rgbw, film_xy, L, cfg.width, cfg.height, cfg.filter_name)
-    img = develop(Film(rgb_weight=rgbw, width=cfg.width, height=cfg.height))
-    if scene.sensor.meas_scale is not None:
-        img = img * scene.sensor.meas_scale
+    with span("frame", device=dev):
+        em_kinds = kinds_present(scene.emitters)
+        mat_types = types_present(scene.mats)
+        tex_flags = texture_flags(scene)
+        guide, guide_state = _unguided_wavefront(scene, cfg, guide, guide_state, mat_types, dev)
+        film = new_film(cfg.width, cfg.height, device=dev)
+        rgbw = film.rgb_weight
+        n_pix = cfg.width * cfg.height
+        all_pixels = torch.arange(n_pix, dtype=torch.int64, device=dev)
+        for batch_start in range(0, n_pix, cfg.pixel_batch):
+            pix = all_pixels[batch_start: batch_start + cfg.pixel_batch]
+            for s in range(cfg.spp):
+                sidx = torch.full_like(pix, s)
+                with span("wave"):
+                    film_xy, L, _ = render_wave(scene, cfg, pix, sidx, guide, guide_state,
+                                                em_kinds, mat_types, tex_flags)
+                    with span("splat"):
+                        rgbw = splat(rgbw, film_xy, L, cfg.width, cfg.height, cfg.filter_name)
+        img = develop(Film(rgb_weight=rgbw, width=cfg.width, height=cfg.height))
+        if scene.sensor.meas_scale is not None:
+            img = img * scene.sensor.meas_scale
     return img
 
 

@@ -72,6 +72,7 @@ from mitsuba_path_guiding_torch.models.microfacet import (
 from mitsuba_path_guiding_torch.models.phase import hg_pdf, phase_sample
 from mitsuba_path_guiding_torch.ops.gather import gather_rows_t
 from mitsuba_path_guiding_torch.scene.types import BSDFType, Materials
+from mitsuba_path_guiding_torch.utils.stats import host_read
 
 T = BSDFType
 PORTED_TYPES = (T.DIFFUSE, T.CONDUCTOR, T.DIELECTRIC, T.ROUGH_CONDUCTOR, T.PLASTIC,
@@ -120,7 +121,7 @@ def check_types(types) -> None:
 
 def types_present(mats: Materials):
     """Static tuple of BSDF types used by a scene (host read)."""
-    return tuple(sorted(set(mats.type.cpu().tolist())))
+    return tuple(sorted(set(host_read(mats.type, "bsdf.types_present").tolist())))
 
 
 def _has_nested(types) -> bool:

@@ -32,6 +32,7 @@ from mitsuba_path_guiding_torch.core.warp import (
 from mitsuba_path_guiding_torch.models.envmap import env_eval, env_pdf_dir, env_sample
 from mitsuba_path_guiding_torch.ops.gather import gather_rows_t
 from mitsuba_path_guiding_torch.scene.types import EmitterKind, Emitters, Geometry
+from mitsuba_path_guiding_torch.utils.stats import host_read
 
 INFD = 3.0e37
 DELTA_EPS = 1e-7
@@ -61,7 +62,7 @@ class DirectSample(NamedTuple):
 
 def kinds_present(em: Emitters):
     """Static tuple of emitter kinds in a scene (host read)."""
-    return tuple(sorted(set(em.kind.cpu().tolist())))
+    return tuple(sorted(set(host_read(em.kind, "emitter.kinds_present").tolist())))
 
 
 def _pick_emitter(em: Emitters, u0: torch.Tensor) -> torch.Tensor:

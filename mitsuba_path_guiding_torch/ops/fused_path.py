@@ -30,6 +30,7 @@ import torch
 from mitsuba_path_guiding_torch.core.rng import bits_to_unit, threefry2x32
 from mitsuba_path_guiding_torch.ops import build
 from mitsuba_path_guiding_torch.scene.types import BSDFType, EmitterKind, SceneData
+from mitsuba_path_guiding_torch.utils.stats import host_read
 
 EPS_T = 1e-4
 INFD = 3.0e37
@@ -68,15 +69,20 @@ def _pack_plk_rows(p0, e1, e2, t_pad):
     return rows
 
 
+def _host(x, what="tables"):
+    """A scene table read to the host for the kernel's tables or its gate."""
+    return host_read(x, "fused_path." + what).numpy()
+
+
 def _pack_shade_rows(scene: SceneData, t_pad):
     """(t_pad, 32): 0:9 p0/e1/e2, 9:12 gn, 12:21 n0/n1/n2, 21 mid,
     22 emitter flag (-1 on pad rows), 23:26 emission, 26 pmf, 27 area."""
-    sp = scene.geo.shade_packed.cpu().numpy()
+    sp = _host(scene.geo.shade_packed)
     t = sp.shape[0]
     out = np.zeros((t_pad, 32), np.float32)
-    out[:t, 0:3] = scene.geo.p0.cpu().numpy()
-    out[:t, 3:6] = scene.geo.e1.cpu().numpy()
-    out[:t, 6:9] = scene.geo.e2.cpu().numpy()
+    out[:t, 0:3] = _host(scene.geo.p0)
+    out[:t, 3:6] = _host(scene.geo.e1)
+    out[:t, 6:9] = _host(scene.geo.e2)
     out[:t, 9:12] = sp[:, 0:3]
     out[:t, 12:21] = sp[:, 3:12]
     out[:t, 21] = sp[:, 18]
@@ -96,13 +102,14 @@ def fused_supported(scene: SceneData) -> bool:
     checks the material types only: on a TPU it would drop the texture)."""
     if scene.medium is not None and bool(scene.medium.enabled):
         return False
-    if set(scene.mats.type.cpu().tolist()) - {int(BSDFType.DIFFUSE)}:
+    if set(_host(scene.mats.type, "supported").tolist()) - {int(BSDFType.DIFFUSE)}:
         return False
-    if scene.geo.vcol is not None or bool((scene.mats.texture_id != -1).any()):
+    if scene.geo.vcol is not None or bool(_host((scene.mats.texture_id != -1).any(),
+                                                "supported")):
         return False
-    if bool((scene.mats.packed[:, 19] >= 0).any()):
+    if bool(_host((scene.mats.packed[:, 19] >= 0).any(), "supported")):
         return False
-    if set(scene.emitters.kind.cpu().tolist()) - {int(EmitterKind.AREA)}:
+    if set(_host(scene.emitters.kind, "supported").tolist()) - {int(EmitterKind.AREA)}:
         return False
     if scene.geo.p0.shape[0] > MAX_TRIS:
         return False
@@ -134,16 +141,15 @@ def build_fused_tables(scene: SceneData) -> FusedTables:
     e_pad = 8 * ((n_em + 7) // 8)
     n_mat = int(scene.mats.type.shape[0])
     m_pad = 8 * ((n_mat + 7) // 8)
-    plk = _pack_plk_rows(scene.geo.p0.cpu().numpy(), scene.geo.e1.cpu().numpy(),
-                         scene.geo.e2.cpu().numpy(), t_pad)
+    plk = _pack_plk_rows(_host(scene.geo.p0), _host(scene.geo.e1), _host(scene.geo.e2), t_pad)
     shade = _pack_shade_rows(scene, t_pad)
     em = np.zeros((e_pad, 32), np.float32)
-    em[:n_em] = scene.emitters.packed.cpu().numpy()
-    em[:n_em, 31] = scene.emitters.cdf.cpu().numpy()
+    em[:n_em] = _host(scene.emitters.packed)
+    em[:n_em, 31] = _host(scene.emitters.cdf)
     em[n_em:, 31] = 2.0  # beyond any u: pad rows are never picked
     mat = np.zeros((m_pad, 8), np.float32)
-    mat[:n_mat, 0] = scene.mats.type.cpu().numpy().astype(np.float32)
-    mat[:n_mat, 1:4] = scene.mats.reflectance.cpu().numpy()
+    mat[:n_mat, 0] = _host(scene.mats.type).astype(np.float32)
+    mat[:n_mat, 1:4] = _host(scene.mats.reflectance)
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     return FusedTables(t(plk), t(shade), t(em), t(mat), n_tri, n_em, n_mat)
 
